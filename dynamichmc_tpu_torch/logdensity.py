@@ -1,0 +1,58 @@
+"""The log-density (model) contract (port of ``dynamichmc_tpu.logdensity``).
+
+A model is a dimension plus a value function. The port's functions are
+*batched*: they take positions of shape ``(..., K)`` (the sampler passes a
+``(C, K)`` chain batch) and return values of shape ``(...)``. The gradient
+comes from ``torch.autograd`` unless the model supplies a fused
+``logdensity_and_gradient_fn`` (the Gaussians do: both are one matmul).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LogDensity:
+    """A target log density on R^dim.
+
+    Attributes:
+      dim: dimension of the position vector.
+      logdensity_fn: ``q (..., K) -> log p(q) (...)`` up to a constant.
+      logdensity_and_gradient_fn: optional fused override returning
+        ``(value (...), gradient (..., K))``.
+      fused_leapfrog_fn, fused_leaf_batched_fn: hooks of the JAX package
+        whose kernels are not ported yet; always ``None`` here.
+      tree_transition_fn: optional whole-transition kernel hook
+        ``(generator, algorithm, metric, Q, eps, depth_limit) ->
+        (Q', stats) | None`` (ops/tree_kernel.py). ``sample_tree_batched``
+        hands the whole transition to it and runs the plain driver when it
+        returns ``None`` (declines).
+    """
+
+    dim: int
+    logdensity_fn: Callable
+    logdensity_and_gradient_fn: Optional[Callable] = None
+    fused_leapfrog_fn: Optional[Callable] = None
+    fused_leaf_batched_fn: Optional[Callable] = None
+    tree_transition_fn: Optional[Callable] = None
+
+    def logdensity(self, q):
+        return self.logdensity_fn(q)
+
+    def logdensity_and_gradient(self, q):
+        if self.logdensity_and_gradient_fn is not None:
+            return self.logdensity_and_gradient_fn(q)
+        with torch.enable_grad():
+            qq = q.detach().requires_grad_(True)
+            value = self.logdensity_fn(qq)
+            (grad,) = torch.autograd.grad(value.sum(), qq)
+        return value.detach(), grad
+
+
+def from_logdensity_fn(dim: int, fn: Callable) -> LogDensity:
+    """Wrap a plain batched ``q -> value`` function as a :class:`LogDensity`."""
+    return LogDensity(dim=dim, logdensity_fn=fn)

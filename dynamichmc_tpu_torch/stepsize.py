@@ -1,0 +1,141 @@
+"""Stepsize search parameters and adaptation (port of
+``dynamichmc_tpu.stepsize``).
+
+Dual averaging is a pure state fold with per-chain ``(C,)`` state (or a
+scalar state when pooled). The batched bracketing search itself lives in
+engine.make_search_driver_batched.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class InitialStepsizeSearch:
+    """Bracketing parameters: double/halve the stepsize until the local log
+    acceptance ratio crosses ``log_threshold``."""
+
+    initial_eps: float = 0.1
+    log_threshold: float = math.log(0.8)
+    maxiter_crossing: int = 400
+
+    def __post_init__(self):
+        if not (math.isfinite(self.log_threshold) and self.log_threshold < 0):
+            raise ValueError("log_threshold must be finite and negative")
+        if not (math.isfinite(self.initial_eps) and self.initial_eps > 0):
+            raise ValueError("initial_eps must be finite and positive")
+        if self.maxiter_crossing < 50:
+            raise ValueError("maxiter_crossing must be >= 50")
+
+
+@dataclasses.dataclass
+class DualAveragingState:
+    mu: torch.Tensor
+    m: torch.Tensor  # iteration counter, kept as float for the formulas
+    h_bar: torch.Tensor
+    log_eps: torch.Tensor
+    log_eps_bar: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DualAveraging:
+    """Nesterov dual averaging of log-stepsize toward a target acceptance
+    rate ``delta`` (Hoffman & Gelman 2014, Alg. 6)."""
+
+    delta: float = 0.8
+    gamma: float = 0.05
+    kappa: float = 0.75
+    t0: int = 10
+
+    def __post_init__(self):
+        if not 0 < self.delta < 1:
+            raise ValueError("delta must be in (0, 1)")
+        if not self.gamma > 0:
+            raise ValueError("gamma must be positive")
+        if not 0.5 < self.kappa <= 1:
+            raise ValueError("kappa must be in (0.5, 1]")
+        if self.t0 < 0:
+            raise ValueError("t0 must be non-negative")
+
+    def init(self, eps) -> DualAveragingState:
+        """mu = log(10) + log(eps), m = 1."""
+        log_eps = torch.log(torch.as_tensor(eps))
+        return DualAveragingState(
+            mu=math.log(10.0) + log_eps,
+            m=torch.ones_like(log_eps),
+            h_bar=torch.zeros_like(log_eps),
+            log_eps=log_eps,
+            log_eps_bar=torch.zeros_like(log_eps),
+        )
+
+    def update(self, state: DualAveragingState, a) -> DualAveragingState:
+        """``a`` is the tree-averaged acceptance rate."""
+        a = torch.clamp(torch.as_tensor(a), 0.0, 1.0)
+        m = state.m + 1
+        h_bar = state.h_bar + (self.delta - a - state.h_bar) / (m + self.t0)
+        log_eps = state.mu - torch.sqrt(m) / self.gamma * h_bar
+        log_eps_bar = state.log_eps_bar + m ** (-self.kappa) * (
+            log_eps - state.log_eps_bar
+        )
+        return DualAveragingState(
+            mu=state.mu, m=m, h_bar=h_bar, log_eps=log_eps,
+            log_eps_bar=log_eps_bar,
+        )
+
+    def current(self, state: DualAveragingState):
+        """Stepsize for the next transition while tuning."""
+        return torch.exp(state.log_eps)
+
+    def final(self, state: DualAveragingState):
+        """Averaged stepsize after adaptation."""
+        return torch.exp(state.log_eps_bar)
+
+
+@dataclasses.dataclass(frozen=True)
+class PooledStepsize:
+    """One shared stepsize for the whole fleet, adapted from the batch-mean
+    acceptance rate (warmup-only coupling; sampling runs a fixed shared
+    eps). The initial eps is the geometric mean of the chains' eps."""
+
+    inner: object = None
+
+    def __post_init__(self):
+        if self.inner is None:
+            object.__setattr__(self, "inner", DualAveraging())
+
+    def init(self, eps):
+        eps = torch.as_tensor(eps)
+        if eps.ndim > 0:
+            eps = torch.exp(torch.mean(torch.log(eps)))
+        return self.inner.init(eps)
+
+    def update(self, state, a):
+        a = torch.as_tensor(a)
+        return self.inner.update(state, a if a.ndim == 0 else a.mean())
+
+    def current(self, state):
+        return self.inner.current(state)
+
+    def final(self, state):
+        return self.inner.final(state)
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedStepsize:
+    """No-op adaptation with the same four-function interface."""
+
+    def init(self, eps):
+        return torch.as_tensor(eps)
+
+    def update(self, state, a):
+        return state
+
+    def current(self, state):
+        return state
+
+    def final(self, state):
+        return state

@@ -1,0 +1,89 @@
+"""Streaming (Welford) moments for metric adaptation (port of
+``dynamichmc_tpu.utils.welford`` plus the engine's batched folds).
+
+Bessel-corrected variance/covariance from a streaming fold, so the warmup
+carries O(K) / O(K^2) state instead of every draw.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class WelfordState:
+    """Running moments: ``m2`` is (K,) diagonal or (K, K) dense, with an
+    optional leading chain axis for per-chain states."""
+
+    count: torch.Tensor  # float, avoids int/float casts in the fold
+    mean: torch.Tensor
+    m2: torch.Tensor
+
+
+def welford_variance(state: WelfordState) -> torch.Tensor:
+    """Sample variance (ddof=1)."""
+    return state.m2 / torch.clamp(state.count - 1, min=1)[..., None]
+
+
+def welford_covariance(state: WelfordState) -> torch.Tensor:
+    """Sample covariance (ddof=1), symmetrized."""
+    cov = state.m2 / torch.clamp(state.count - 1, min=1)[..., None, None]
+    return (cov + cov.mT) / 2
+
+
+def welford_update_b(state: WelfordState, x: torch.Tensor) -> WelfordState:
+    """Per-chain update: x (C, K); m2 (C, K) or (C, K, K)."""
+    count = state.count + 1
+    delta = x - state.mean
+    mean = state.mean + delta / count[..., None]
+    delta2 = x - mean
+    if state.m2.ndim == 3:
+        m2 = state.m2 + torch.einsum("ci,cj->cij", delta, delta2)
+    else:
+        m2 = state.m2 + delta * delta2
+    return WelfordState(count=count, mean=mean, m2=m2)
+
+
+def welford_update_pooled_b(state: WelfordState, x: torch.Tensor
+                            ) -> WelfordState:
+    """SHARED update with one batch of C draws per step (Chan et al.
+    parallel combine): the state is unbatched, so pooled dense adaptation
+    holds O(K^2) memory and the step's cross-chain moment is one
+    (K, C) @ (C, K) product."""
+    c = x.shape[0]
+    batch_mean = x.mean(dim=0)
+    xc = x - batch_mean
+    count_new = state.count + c
+    delta = batch_mean - state.mean
+    mean = state.mean + (c / count_new) * delta
+    corr = state.count * c / count_new
+    if state.m2.ndim == 2:
+        batch_m2 = xc.mT @ xc
+        m2 = state.m2 + batch_m2 + corr * torch.outer(delta, delta)
+    else:
+        batch_m2 = (xc * xc).sum(dim=0)
+        m2 = state.m2 + batch_m2 + corr * delta * delta
+    return WelfordState(count=count_new, mean=mean, m2=m2)
+
+
+def welford_zero_shared(dim: int, dense: bool, dtype,
+                        device=None) -> WelfordState:
+    return WelfordState(
+        count=torch.zeros((), dtype=dtype, device=device),
+        mean=torch.zeros((dim,), dtype=dtype, device=device),
+        m2=torch.zeros((dim, dim) if dense else (dim,), dtype=dtype,
+                       device=device),
+    )
+
+
+def welford_zero(q: torch.Tensor, dense: bool) -> WelfordState:
+    """Per-chain zeros matching a (C, K) position batch."""
+    c, k = q.shape
+    return WelfordState(
+        count=torch.zeros((c,), dtype=q.dtype, device=q.device),
+        mean=torch.zeros_like(q),
+        m2=torch.zeros((c, k, k) if dense else (c, k), dtype=q.dtype,
+                       device=q.device),
+    )

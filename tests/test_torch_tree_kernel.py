@@ -1,0 +1,211 @@
+"""The tree-kernel module of the port (dynamichmc_tpu_torch.ops.tree_kernel).
+
+On the CPU its wrapper computes the transition with the plain driver; that
+function is held against the JAX Pallas kernel (ops/pallas_tree.py) run in
+interpret mode, as tests/test_pallas_tree.py runs it, at float32 with the
+JAX hook's exact noise (its key splits repeated here). Tolerance atol 1e-5
+with discrete statistics exact, `work` excluded (the Pallas kernel counts
+per chain block, the plain driver per batch): the two compute the same f32
+transition with different summation orders.
+
+The CUDA kernel itself runs only on a GPU: see tests/test_torch_gpu.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamichmc_tpu import models as jm
+from dynamichmc_tpu.hamiltonian import EvaluatedPoint as JEvaluatedPoint
+from dynamichmc_tpu.metric import dense_metric as j_dense
+from dynamichmc_tpu.metric import diagonal_metric as j_diag
+from dynamichmc_tpu.nuts import NUTS as JNUTS
+from dynamichmc_tpu.ops.pallas_tree import _leaf_noise
+from dynamichmc_tpu.tree_batched import _evaluate_b
+from dynamichmc_tpu.tree_batched import rand_p_b as j_rand_p_b
+from dynamichmc_tpu.tree_batched import sample_tree_batched as j_sample
+from dynamichmc_tpu_torch import convert
+from dynamichmc_tpu_torch import models as tm
+from dynamichmc_tpu_torch.hamiltonian import EvaluatedPoint
+from dynamichmc_tpu_torch.metric import dense_metric, diagonal_metric
+from dynamichmc_tpu_torch.nuts import NUTS
+from dynamichmc_tpu_torch.ops import tree_kernel
+from dynamichmc_tpu_torch.tree_batched import (
+    depth_cap,
+    finish_transition,
+    sample_tree_batched,
+)
+
+KEY = jax.random.PRNGKey(0)
+ATOL = 1e-5
+F32 = torch.float32
+
+
+def _model_arrays(K):
+    """The kernel's model operands, built as models/gaussian.py builds them."""
+    cov = np.asarray(jm.correlated_gaussian(K).cov_fn(), np.float64)
+    prec = np.linalg.inv(cov)
+    lt = np.linalg.cholesky(prec).T
+    prec_t = torch.as_tensor(prec.astype(np.float32)).mT.contiguous()
+    lchol = torch.as_tensor(lt.astype(np.float32)).mT.contiguous()
+    return cov, prec_t, lchol, torch.zeros(K, dtype=F32)
+
+
+def _setup(K, C, seed):
+    ld_kern = jm.correlated_gaussian(K, dtype=jnp.float32, tree_kernel=True)
+    q0 = jnp.asarray(np.random.default_rng(seed).normal(size=(C, K)),
+                     jnp.float32)
+    vals, grads = _evaluate_b(ld_kern, q0)
+    return ld_kern, JEvaluatedPoint(q=q0, logdensity=vals, grad=grads)
+
+
+def _both(key, md, jmetric, ld_kern, Q, eps, depth_limit=None):
+    """(JAX Pallas-kernel transition, port kernel-module transition)."""
+    C, K = Q.q.shape
+    a = j_sample(key, JNUTS(max_depth=md), ld_kern, jmetric, Q,
+                 jnp.asarray(eps, jnp.float32), depth_limit=depth_limit)
+    # the JAX hook's noise: split(key, 3), rand_p_b, bits, _leaf_noise
+    k_p, k_dir, k_tree = jax.random.split(key, 3)
+    p0 = j_rand_p_b(k_p, jmetric, (C, K), jnp.float32)
+    dirs = jax.random.bits(k_dir, (C,), jnp.uint32)
+    gum, expo = _leaf_noise(k_tree, md, C)
+    _cov, prec_t, lchol, mu = _model_arrays(K)
+    Qt = convert.evaluated_point(Q, F32)
+    raw = tree_kernel.tree_transition(
+        Qt.q, convert.tensor(p0, F32), Qt.grad, Qt.logdensity,
+        torch.as_tensor(np.broadcast_to(np.asarray(eps, np.float32), (C,))),
+        convert.tensor(dirs), convert.tensor(gum, F32),
+        convert.tensor(expo, F32), convert.tensor(jmetric.m_inv, F32),
+        prec_t, lchol, mu, depth_cap(depth_limit, md), -1000.0, md,
+    )
+    return a, finish_transition(raw)
+
+
+def _assert_transition_equal(a, b):
+    (Qa, sa), (Qb, sb) = a, b
+    for x, y in ((Qa.q, Qb.q), (Qa.logdensity, Qb.logdensity),
+                 (Qa.grad, Qb.grad), (sa.acceptance_rate, sb.acceptance_rate)):
+        np.testing.assert_allclose(convert.to_numpy(y), np.asarray(x),
+                                   atol=ATOL)
+    for name in ("depth", "steps", "term_left", "term_right", "is_divergent"):
+        np.testing.assert_array_equal(
+            convert.to_numpy(getattr(sb, name)), np.asarray(getattr(sa, name)),
+            err_msg=name,
+        )
+
+
+def test_plain_kernel_matches_pallas_dense_chained():
+    ld_kern, Q = _setup(K=3, C=10, seed=0)
+    jmetric = j_dense(jnp.asarray(np.asarray(ld_kern.cov_fn(), np.float32)))
+    for i in range(3):
+        a, b = _both(jax.random.fold_in(KEY, i), 4, jmetric, ld_kern, Q, 0.3)
+        _assert_transition_equal(a, b)
+        Q = a[0]
+
+
+def test_plain_kernel_matches_pallas_diagonal():
+    ld_kern, Q = _setup(K=5, C=7, seed=3)
+    jmetric = j_diag(jnp.asarray(np.linspace(0.5, 2.0, 5), jnp.float32))
+    _assert_transition_equal(*_both(KEY, 4, jmetric, ld_kern, Q, 0.25))
+
+
+def test_plain_kernel_matches_pallas_per_chain_eps():
+    ld_kern, Q = _setup(K=4, C=9, seed=5)
+    jmetric = j_diag(jnp.ones((4,), jnp.float32))
+    eps = np.random.default_rng(2).uniform(0.1, 0.5, size=9)
+    _assert_transition_equal(*_both(KEY, 5, jmetric, ld_kern, Q, eps))
+
+
+@pytest.mark.parametrize("depth_limit", [2, 3, 0])
+def test_plain_kernel_matches_pallas_depth_limit(depth_limit):
+    ld_kern, Q = _setup(K=3, C=16, seed=1)
+    jmetric = j_dense(jnp.asarray(np.asarray(ld_kern.cov_fn(), np.float32)))
+    a, b = _both(KEY, 6, jmetric, ld_kern, Q, 0.2, depth_limit=depth_limit)
+    _assert_transition_equal(a, b)
+    if depth_limit:
+        assert int(b[1].depth.max()) <= depth_limit
+
+
+def test_plain_kernel_matches_pallas_divergent():
+    ld_kern, Q = _setup(K=3, C=12, seed=4)
+    jmetric = j_dense(jnp.asarray(np.asarray(ld_kern.cov_fn(), np.float32)))
+    a, b = _both(KEY, 4, jmetric, ld_kern, Q, 40.0)
+    _assert_transition_equal(a, b)
+    assert bool(b[1].is_divergent.any())
+
+
+def _port_setup(K=3, C=6, dtype=F32):
+    model = tm.correlated_gaussian(K, dtype=dtype, tree_kernel=True)
+    q = torch.as_tensor(np.random.default_rng(0).normal(size=(C, K)),
+                        dtype=dtype)
+    v, g = model.logdensity_and_gradient(q)
+    return model, EvaluatedPoint(q=q, logdensity=v, grad=g)
+
+
+def test_hook_declines_outside_its_regime():
+    class CustomTurn:
+        def leaf(self, metric, z):
+            return z
+
+        def combine(self, metric, x, y):
+            return x, False
+
+    model, Q = _port_setup()
+    hook = model.tree_transition_fn
+    gen = torch.Generator().manual_seed(0)
+    cov = model.cov_fn().to(F32)
+    shared = dense_metric(cov)
+    # float64 chains
+    model64, Q64 = _port_setup(dtype=torch.float64)
+    assert model64.tree_transition_fn(
+        gen, NUTS(max_depth=3), dense_metric(cov.double()), Q64, 0.3
+    ) is None
+    # a turn statistic other than "generalized"
+    assert hook(gen, NUTS(max_depth=3, turn_statistic_configuration=CustomTurn()),
+                shared, Q, 0.3) is None
+    # per-chain metrics, dense and diagonal
+    per_chain = dense_metric(cov.expand(6, 3, 3).contiguous())
+    assert hook(gen, NUTS(max_depth=3), per_chain, Q, 0.3) is None
+    assert hook(gen, NUTS(max_depth=3), diagonal_metric(torch.ones(6, 3)),
+                Q, 0.3) is None
+    # a CTA that does not fit: > 1024 threads or > 227 KB shared memory
+    assert tree_kernel.kernel_fits(100, 4) and tree_kernel.kernel_fits(1024, 10)
+    assert not tree_kernel.kernel_fits(1025, 4)
+    assert not tree_kernel.kernel_fits(1024, 30)
+    assert tree_kernel.smem_bytes(100, 4) == 11520
+
+
+def test_declined_hook_runs_plain_driver():
+    """A declined hook (f64 chains) leaves the transition to the plain
+    driver: the same draws as a model without the hook."""
+    model64, Q64 = _port_setup(dtype=torch.float64)
+    plain64 = tm.correlated_gaussian(3, dtype=torch.float64)
+    metric = dense_metric(model64.cov_fn())
+    a = sample_tree_batched(torch.Generator().manual_seed(1), NUTS(max_depth=3),
+                            model64, metric, Q64, 0.3)
+    b = sample_tree_batched(torch.Generator().manual_seed(1), NUTS(max_depth=3),
+                            plain64, metric, Q64, 0.3)
+    np.testing.assert_array_equal(a[0].q.numpy(), b[0].q.numpy())
+
+
+def test_hook_on_cpu_takes_plain_version_without_launching():
+    tree_kernel.reset_launches()
+    model, Q = _port_setup(C=8)
+    metric = dense_metric(model.cov_fn().to(F32))
+    Q_new, stats = sample_tree_batched(torch.Generator().manual_seed(2),
+                                       NUTS(max_depth=4), model, metric, Q,
+                                       0.3, depth_limit=2)
+    assert tree_kernel.launches == 0
+    assert Q_new.q.shape == (8, 3) and torch.isfinite(Q_new.q).all()
+    assert int(stats.depth.max()) <= 2
+    assert stats.work.dtype == torch.int32
+
+
+def test_wrapper_rejects_other_devices():
+    q = torch.empty((2, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tree_kernel.tree_transition(q, q, q, q[:, 0], q[:, 0], q[:, 0], q, q,
+                                    q, q, q, q[0], 1, -1000.0, 1)
+
