@@ -12,7 +12,9 @@ import torch
 
 from .hamiltonian import EvaluatedPoint
 from .metric import DenseMetric, DiagonalMetric, Metric
+from .models.funnel import funnel
 from .models.gaussian import mvnormal
+from .models.logreg import logistic_regression_from_data
 from .stepsize import DualAveragingState
 from .utils.welford import WelfordState
 from .warmup import WarmupState
@@ -75,3 +77,37 @@ def gaussian_model(obj, dtype=torch.float64, device=None,
     return mvnormal(np.asarray(obj.mean_fn(), np.float64),
                     np.asarray(obj.cov_fn(), np.float64), dtype=dtype,
                     device=device, tree_kernel=tree_kernel)
+
+
+def _closure(fn) -> dict:
+    """The free variables of a Python function, by name."""
+    return dict(zip(fn.__code__.co_freevars,
+                    (cell.cell_contents for cell in fn.__closure__ or ())))
+
+
+def logreg_data(obj):
+    """(X, y, prior_scale) of a JAX ``logistic_regression`` TestModel, as
+    float64 numpy arrays and a float. The JAX model keeps them only in its
+    log density's closure, which is where they are read from."""
+    cells = _closure(obj.logdensity_fn)
+    return (np.asarray(cells["x"], np.float64),
+            np.asarray(cells["y"], np.float64), float(cells["prior_scale"]))
+
+
+def logreg_model(obj, dtype=torch.float64, device=None, fused=False,
+                 tree_kernel=False):
+    """The port's logistic regression on the same (X, y) and prior as a
+    JAX ``logistic_regression`` TestModel."""
+    x, y, prior_scale = logreg_data(obj)
+    return logistic_regression_from_data(
+        x, y, prior_scale=prior_scale, dtype=dtype, device=device,
+        fused=fused, tree_kernel=tree_kernel)
+
+
+def funnel_model(obj, dtype=torch.float64, device=None,
+                 tree_kernel: bool = False):
+    """The port's funnel with the dimension and sigma_v of a JAX ``funnel``
+    TestModel (it holds no arrays)."""
+    sigma_v = float(_closure(obj.logdensity_fn)["sigma_v"])
+    return funnel(obj.dim, sigma_v=sigma_v, dtype=dtype, device=device,
+                  tree_kernel=tree_kernel)

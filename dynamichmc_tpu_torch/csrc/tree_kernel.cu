@@ -1,12 +1,12 @@
-// Whole-transition NUTS kernel for Gaussian targets, written for Hopper
-// (sm_90a). It replaces the Pallas kernel
-// dynamichmc_tpu/ops/pallas_tree.py::_build_kernel with its _gaussian_leaf.
+// Whole-transition NUTS kernel, written for Hopper (sm_90a). It replaces the
+// Pallas kernel dynamichmc_tpu/ops/pallas_tree.py::_build_kernel with each of
+// its three leaves: _gaussian_leaf, funnel_leaf (make_funnel_tree_transition)
+// and logreg_leaf (make_logreg_tree_transition).
 //
-// One complete NUTS transition per chain: every leapfrog leaf (Gaussian leaf
-// d = q - mu, ld = -1/2 ||L^T d||^2, grad = -prec d), -inf poisoning of ld and
-// +inf poisoning of the kinetic energy, the running Gumbel-argmax proposal
-// (strict score > best), the trailing-ones merge stack with the 5-statistic
-// generalized U-turn (psharp carried), the divergence test
+// One complete NUTS transition per chain: every leapfrog leaf, -inf poisoning
+// of ld and +inf poisoning of the kinetic energy, the running Gumbel-argmax
+// proposal (strict score > best), the trailing-ones merge stack with the
+// 5-statistic generalized U-turn (psharp carried), the divergence test
 // delta < min_delta, InvalidTree termination positions, the biased doubling
 // combine with Exponential noise, and the runtime depth cap dcap.
 //
@@ -23,16 +23,45 @@
 // subtree stopped building changes none of its outputs afterwards); only
 // `work` changes meaning: it is the chain's own executed leaf count.
 //
-// What bounds it on the H100: a dense leaf does four K x K matvecs
-// (M^-1 p_mid, L^T d and prec d in one pass, M^-1 p_new) whose matrices
-// (3 x 40 KB at K = 100) are read from L1/L2 by every chain: about 160 KB
-// per leaf, ~7-10 GB per fleet transition at 4096 x 100 with ~15 leaves,
-// plus two block reductions per leaf and six per merge. Thread j reads
-// column j of each matrix, so consecutive threads read consecutive
-// addresses: minv is symmetric, and the wrapper passes prec^T and L so that
-// column j yields (prec d)_j and (L^T d)_j. Tensor cores (wgmma), TMA staging
-// of the matrices into shared memory and several chains per CTA are left to
-// later work. Products are plain fp32 FMAs; no TF32 anywhere.
+// The leaf is a template parameter (LEAF), the model's arrays and scalars
+// the Model operands:
+// - kGaussian (models/gaussian.py): d = q - mu, ld = -1/2 ||L^T d||^2,
+//   grad = -prec d. m0 = prec^T, m1 = L, m2 = mu.
+// - kFunnel (models/funnel.py): v = q[0], ld = -1/2 v^2 / sigma_v^2
+//   - (K-1)/2 v - 1/2 e^-v sum_{i>0} q_i^2, with its analytic gradient.
+//   One block reduction gives sum q^2 and v together (every thread but
+//   thread 0 adds 0 to v, so v arrives exact); coordinate 0's gradient
+//   differs from the rest. s0 = sigma_v^2, s1 = (K-1)/2.
+// - kLogreg (models/logreg.py): logits = X q, ld = sum y l - softplus(l)
+//   - 1/2 ||q||^2 / s^2, grad = X^T (y - sigmoid(l)) - q / s^2, with the
+//   stable softplus and tanh-form sigmoid of ops/pallas_logreg.py. q is
+//   staged in shared memory; threads stride over the observations reading
+//   X^T (K x n_obs), neighbouring threads at neighbouring addresses, four
+//   observations per thread at a time; the residuals y - sigmoid(l) go to a
+//   shared buffer of n_obs floats (16 KB at n_obs = 4000); then thread j sums
+//   X[:, j] * resid. The loops stop at n_obs, so no padded observation row
+//   exists to be masked. m0 = X (n_obs x K), m1 = X^T, m2 = y, s0 = 1/s^2.
+//
+// What bounds it on the H100:
+// - Gaussian, dense: four K x K matvecs per leaf (M^-1 p_mid, L^T d and
+//   prec d in one pass, M^-1 p_new) whose matrices (3 x 40 KB at K = 100)
+//   are read from L1/L2 by every chain: about 160 KB per leaf, plus two
+//   block reductions per leaf and six per merge. Thread j reads column j of
+//   each matrix, so consecutive threads read consecutive addresses: minv is
+//   symmetric, and the wrapper passes prec^T and L for that.
+// - Funnel: elementwise, one warp per chain at K = 25; bound by the block
+//   reductions, the merge stack's shared-memory traffic and the serial
+//   leaf loop (up to 127 leaves at max_depth 7).
+// - Logreg: 2 n_obs K FMAs per chain per leaf (1.0 M at n_obs 4000, K 128;
+//   4.2 GFLOP per fleet leaf at 2048 chains), and each CTA reads X and X^T
+//   (4 MB together) from L2 on every leaf: 8 GB per fleet leaf. The kernel
+//   is bound by L2 bandwidth and FMA issue. Sharing each tile of X across a
+//   block of chains with tensor cores is later work (the fused leaf,
+//   logreg_leaf.cu, shares X across chains; this kernel keeps one chain per
+//   CTA because its control flow is per chain).
+// Tensor cores (wgmma), TMA staging of the matrices into shared memory and
+// several chains per CTA are left to later work. Products are plain fp32
+// FMAs; no TF32 anywhere.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,6 +72,18 @@ namespace {
 constexpr int kNumStats = 5;  // p_minus, p_plus, rho, psharp_minus, psharp_plus
 constexpr int kRedSlots = 6;  // widest simultaneous block reduction
 
+constexpr int kGaussian = 0;
+constexpr int kFunnel = 1;
+constexpr int kLogreg = 2;
+
+struct Model {
+  const float* m0;
+  const float* m1;
+  const float* m2;
+  int n_obs;
+  float s0, s1;
+};
+
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
@@ -51,6 +92,16 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(a, b);
   if (m == neg_inf()) return neg_inf();
   return m + log1pf(expf(fminf(a, b) - m));
+}
+
+// log(1 + e^x) = max(x, 0) + log1p(e^-|x|): overflow-free
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// tanh form: stable at both tails
+__device__ __forceinline__ float sigmoid(float x) {
+  return 0.5f * (tanhf(0.5f * x) + 1.f);
 }
 
 // Sum N per-thread values over the CTA. Lane 0 of each warp publishes its
@@ -117,14 +168,62 @@ __device__ __forceinline__ bool combine_dir(const Tau& first, const Tau& second,
          (v[5] < 0.f);
 }
 
-template <bool DIAG>
+// The logreg leaf's value and gradient at the staged position (xbuf); see
+// the header. Returns the raw ld; g is thread j's gradient coordinate.
+__device__ __forceinline__ float logreg_value_grad(float q_new, const Model& model,
+                                                   const float* xbuf, float* resid, float* red,
+                                                   int K, int j, bool own, float& g) {
+  const int n_obs = model.n_obs;
+  const int Kp = blockDim.x;
+  const float* __restrict__ X = model.m0;
+  const float* __restrict__ Xt = model.m1;
+  const float* __restrict__ y = model.m2;
+  float ll = 0.f;
+  for (int base = j; base < n_obs; base += 4 * Kp) {
+    float l[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < K; ++k) {
+      const float qk = xbuf[k];
+      const float* row = Xt + (size_t)k * n_obs;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = base + u * Kp;
+        if (i < n_obs) l[u] = fmaf(__ldg(row + i), qk, l[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * Kp;
+      if (i < n_obs) {
+        const float yi = __ldg(y + i);
+        ll += yi * l[u] - softplus(l[u]);
+        resid[i] = yi - sigmoid(l[u]);
+      }
+    }
+  }
+  __syncthreads();  // every residual is written
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (own) {
+    int i = 0;
+    for (; i + 4 <= n_obs; i += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] = fmaf(__ldg(X + (size_t)(i + u) * K + j), resid[i + u], acc[u]);
+    }
+    for (; i < n_obs; ++i) acc[0] = fmaf(__ldg(X + (size_t)i * K + j), resid[i], acc[0]);
+  }
+  g = own ? ((acc[0] + acc[1]) + (acc[2] + acc[3])) - model.s0 * q_new : 0.f;
+  float r[2] = {ll, q_new * q_new};
+  block_sum<2>(r, red);
+  return r[0] + (-0.5f * model.s0 * r[1]);
+}
+
+template <bool DIAG, int LEAF>
 __global__ void tree_transition_kernel(
     const float* __restrict__ q0_, const float* __restrict__ p0_,
     const float* __restrict__ g0_, const float* __restrict__ ld0_,
     const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
     const float* __restrict__ gum, const float* __restrict__ expo,
-    const float* __restrict__ minv, const float* __restrict__ prec_t,
-    const float* __restrict__ lchol, const float* __restrict__ mu,
+    const float* __restrict__ minv, const Model model,
     float* __restrict__ qn, float* __restrict__ gn, float* __restrict__ ldn,
     float* __restrict__ pin, int* __restrict__ depth_o, int* __restrict__ tl_o,
     int* __restrict__ tr_o, float* __restrict__ logsum_o, int* __restrict__ steps_o,
@@ -137,6 +236,7 @@ __global__ void tree_transition_kernel(
   float* stack = smem;                       // [kNumStats][S][Kp]
   float* xbuf = smem + kNumStats * S * Kp;   // [Kp]
   float* red = xbuf + Kp;                    // [kRedSlots * 32]
+  float* resid = red + kRedSlots * 32;       // [n_obs], logreg only
 
   const size_t base = (size_t)c * K + j;
   const float q0 = own ? q0_[base] : 0.f;
@@ -146,7 +246,7 @@ __global__ void tree_transition_kernel(
   const float eps = eps_[c];
   const uint32_t dirs = dirs_[c];
   const float minv_j = (DIAG && own) ? minv[j] : 0.f;
-  const float mu_j = own ? mu[j] : 0.f;
+  const float mu_j = (LEAF == kGaussian && own) ? model.m2[j] : 0.f;
 
   auto psharp = [&](float p) -> float {
     if (DIAG) return p * minv_j;
@@ -197,27 +297,48 @@ __global__ void tree_transition_kernel(
     Tau node;
     int n = 0;
     while (n < n_leaves && building) {
-      // leapfrog leaf with the Gaussian value and gradient
+      // leapfrog leaf with the model's value and gradient
       const float p_mid = wp + half * wg;
       const float q_new = wq + eps_s * psharp(p_mid);
-      const float dq = own ? q_new - mu_j : 0.f;
-      __syncthreads();
-      xbuf[j] = dq;
-      __syncthreads();
-      float w = 0.f, pd = 0.f;
-      if (own) {
-        for (int i = 0; i < K; ++i) {
-          const float di = xbuf[i];
-          w = fmaf(__ldg(lchol + (size_t)i * K + j), di, w);
-          pd = fmaf(__ldg(prec_t + (size_t)i * K + j), di, pd);
+      float g_new, ld_new;
+      bool grad_ok;
+      if constexpr (LEAF == kGaussian) {
+        const float dq = own ? q_new - mu_j : 0.f;
+        __syncthreads();
+        xbuf[j] = dq;
+        __syncthreads();
+        float w = 0.f, pd = 0.f;
+        if (own) {
+          for (int i = 0; i < K; ++i) {
+            const float di = xbuf[i];
+            w = fmaf(__ldg(model.m1 + (size_t)i * K + j), di, w);
+            pd = fmaf(__ldg(model.m0 + (size_t)i * K + j), di, pd);
+          }
         }
+        g_new = -pd;
+        float r[2] = {w * w, isfinite(g_new) ? 0.f : 1.f};
+        block_sum<2>(r, red);
+        ld_new = -0.5f * r[0];
+        grad_ok = r[1] == 0.f;
+      } else if constexpr (LEAF == kFunnel) {
+        float r[2] = {q_new * q_new, j == 0 ? q_new : 0.f};
+        block_sum<2>(r, red);
+        const float v = r[1];
+        const float x2 = r[0] - v * v;
+        const float emv = expf(-v);
+        ld_new = -0.5f * (v * v) / model.s0 - model.s1 * v - 0.5f * emv * x2;
+        const float gv = -v / model.s0 - model.s1 + 0.5f * emv * x2;
+        g_new = own ? (j == 0 ? gv : -emv * q_new) : 0.f;
+        grad_ok = !__syncthreads_or(own && !isfinite(g_new));
+      } else {
+        __syncthreads();  // earlier readers of xbuf are done
+        xbuf[j] = q_new;
+        __syncthreads();
+        ld_new = logreg_value_grad(q_new, model, xbuf, resid, red, K, j, own, g_new);
+        grad_ok = !__syncthreads_or(own && !isfinite(g_new));
       }
-      const float g_new = -pd;
-      float r[2] = {w * w, isfinite(g_new) ? 0.f : 1.f};
-      block_sum<2>(r, red);
-      float ld_new = -0.5f * r[0];
-      const bool ok = isfinite(ld_new) && r[1] == 0.f;
-      if (!(ok || ld_new == neg_inf())) ld_new = neg_inf();
+      // -inf poisoning, as the plain driver's evaluate
+      if (!((isfinite(ld_new) && grad_ok) || ld_new == neg_inf())) ld_new = neg_inf();
       const float p_new = p_mid + half * g_new;
       const float sp = psharp(p_new);
       const float pi = joint(ld_new, p_new, sp);
@@ -331,44 +452,61 @@ __global__ void tree_transition_kernel(
   }
 }
 
-// Shared-memory bytes per CTA for max_depth S and K coordinates.
-size_t smem_bytes(int K, int S) {
+// Shared-memory bytes per CTA for max_depth S, K coordinates and a residual
+// buffer of n_res floats (the logreg leaf's n_obs, 0 otherwise).
+size_t smem_bytes(int K, int S, int n_res) {
   const int Kp = (K + 31) / 32 * 32;
-  return sizeof(float) * ((size_t)(kNumStats * S + 1) * Kp + kRedSlots * 32);
+  return sizeof(float) * ((size_t)(kNumStats * S + 1) * Kp + kRedSlots * 32 + n_res);
+}
+
+template <bool DIAG, int LEAF>
+int launch(const float* q0, const float* p0, const float* g0, const float* ld0,
+           const float* eps, const uint32_t* dirs, const float* gum, const float* expo,
+           const float* minv, const Model& model, float* qn, float* gn, float* ldn, float* pin,
+           int* depth, int* term_left, int* term_right, float* log_sum, int* steps, int* work,
+           int C, int K, int max_depth, int dcap, float min_delta, cudaStream_t s) {
+  const int Kp = (K + 31) / 32 * 32;
+  const size_t smem = smem_bytes(K, max_depth, LEAF == kLogreg ? model.n_obs : 0);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(tree_transition_kernel<DIAG, LEAF>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  tree_transition_kernel<DIAG, LEAF><<<C, Kp, smem, s>>>(
+      q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth,
+      term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap, min_delta);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one transition for C chains on `stream`. Returns the
-// cudaGetLastError() of the launch (0 on success).
+// Launches one transition for C chains on `stream`. `leaf` selects the
+// model (0 Gaussian, 1 funnel, 2 logreg; see the header for m0..m2, n_obs,
+// s0, s1). Returns the cudaGetLastError() of the launch (0 on success).
 int tree_transition_f32(const float* q0, const float* p0, const float* g0, const float* ld0,
                         const float* eps, const uint32_t* dirs, const float* gum,
-                        const float* expo, const float* minv, int diag, const float* prec_t,
-                        const float* lchol, const float* mu, float* qn, float* gn, float* ldn,
-                        float* pin, int* depth, int* term_left, int* term_right, float* log_sum,
-                        int* steps, int* work, int C, int K, int max_depth, int dcap,
-                        float min_delta, void* stream) {
-  const int Kp = (K + 31) / 32 * 32;
-  const size_t smem = smem_bytes(K, max_depth);
+                        const float* expo, const float* minv, int diag, int leaf,
+                        const float* m0, const float* m1, const float* m2, int n_obs, float s0,
+                        float s1, float* qn, float* gn, float* ldn, float* pin, int* depth,
+                        int* term_left, int* term_right, float* log_sum, int* steps, int* work,
+                        int C, int K, int max_depth, int dcap, float min_delta, void* stream) {
+  const Model model{m0, m1, m2, n_obs, s0, s1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (diag) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(tree_transition_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    tree_transition_kernel<true><<<C, Kp, smem, s>>>(
-        q0, p0, g0, ld0, eps, dirs, gum, expo, minv, prec_t, lchol, mu, qn, gn, ldn, pin,
-        depth, term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap, min_delta);
-  } else {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(tree_transition_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    tree_transition_kernel<false><<<C, Kp, smem, s>>>(
-        q0, p0, g0, ld0, eps, dirs, gum, expo, minv, prec_t, lchol, mu, qn, gn, ldn, pin,
-        depth, term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap, min_delta);
+#define TREE_LAUNCH(D, L)                                                                  \
+  launch<D, L>(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth, \
+               term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap,          \
+               min_delta, s)
+  switch (leaf) {
+    case kGaussian:
+      return diag ? TREE_LAUNCH(true, kGaussian) : TREE_LAUNCH(false, kGaussian);
+    case kFunnel:
+      return diag ? TREE_LAUNCH(true, kFunnel) : TREE_LAUNCH(false, kFunnel);
+    case kLogreg:
+      return diag ? TREE_LAUNCH(true, kLogreg) : TREE_LAUNCH(false, kLogreg);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef TREE_LAUNCH
 }
 
 }  // extern "C"

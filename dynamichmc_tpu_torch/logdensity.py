@@ -24,8 +24,13 @@ class LogDensity:
       logdensity_fn: ``q (..., K) -> log p(q) (...)`` up to a constant.
       logdensity_and_gradient_fn: optional fused override returning
         ``(value (...), gradient (..., K))``.
-      fused_leapfrog_fn, fused_leaf_batched_fn: hooks of the JAX package
-        whose kernels are not ported yet; always ``None`` here.
+      fused_leaf_batched_fn: optional fused batched leaf
+        ``(metric, q, p, g, eps_signed) -> (q', p', g', ld', pi')`` with
+        -inf poisoning applied (ops/logreg_leaf.py). When it is set, the
+        plain batch driver (tree_batched.py) computes every leaf of a
+        transition with it.
+      fused_leapfrog_fn: hook of the JAX package's per-chain fused
+        leapfrog, whose kernel is not ported yet; always ``None`` here.
       tree_transition_fn: optional whole-transition kernel hook
         ``(generator, algorithm, metric, Q, eps, depth_limit) ->
         (Q', stats) | None`` (ops/tree_kernel.py). ``sample_tree_batched``

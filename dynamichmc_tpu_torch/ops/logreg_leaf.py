@@ -1,0 +1,179 @@
+"""Fused logistic-regression leaf: build, binding, plain version and the
+``LogDensity.fused_leaf_batched_fn`` hook.
+
+The kernel (csrc/logreg_leaf.cu, CUDA C++ for sm_90a) replaces the Pallas
+kernel ``dynamichmc_tpu/ops/pallas_logreg.py::_make_kernel``: one whole
+leapfrog leaf of Bayesian logistic regression for every chain of the
+batch (both half-kicks, the drift, both products with X, the log density,
+its gradient and pi = ld - K(p')), with one CTA per block of 16 chains
+sharing each staged tile of X.
+
+:func:`logreg_leaf` is the wrapper. A tensor on the CPU goes to
+:func:`logreg_leaf_plain`, the same leaf in torch ops. A CUDA tensor
+launches the kernel or raises; nothing falls back. ``launches`` counts the
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..metric import DenseMetric, DiagonalMetric, Metric
+from ..tree_batched import kinetic_b, psharp_b
+from .cuda_build import CudaLibrary
+
+MAX_K = 256  # the kernel keeps 8 chains x 2 coordinates per thread
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+library = CudaLibrary("logreg_leaf", {
+    "logreg_leaf_f32": (
+        [_vp] * 5 + [_ci] + [_vp] * 7 + [_ci] * 3 + [_cf, _vp], _ci,
+    ),
+})
+
+launches = 0  # kernel launches made by logreg_leaf
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def softplus(x):
+    """log(1 + e^x) = max(x, 0) + log1p(e^-|x|): overflow-free."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def sigmoid(x):
+    """tanh form, stable at both tails (pallas_logreg.py::_sigmoid)."""
+    return 0.5 * (torch.tanh(0.5 * x) + 1.0)
+
+
+def logreg_leaf_plain(metric: Metric, q, p, g, eps_signed, x, y,
+                      inv_s2: float):
+    """The leaf in torch ops, in q's dtype, for any metric form (per-chain
+    dense too). Returns (q', p', g', ld', pi') with the kernel's -inf
+    poisoning."""
+    half = 0.5 * eps_signed[:, None]
+    p_mid = p + half * g
+    q_new = q + eps_signed[:, None] * psharp_b(metric, p_mid)
+    logits = q_new @ x.mT
+    ld = (y * logits - softplus(logits)).sum(-1) + (
+        -0.5 * inv_s2 * (q_new * q_new).sum(-1))
+    g_new = (y - sigmoid(logits)) @ x - inv_s2 * q_new
+    p_new = p_mid + half * g_new
+    pi = ld - kinetic_b(metric, p_new)
+    ok = torch.isfinite(ld) & torch.isfinite(g_new).all(-1)
+    ld = torch.where(ok | (ld == -torch.inf), ld, -torch.inf)
+    pi = torch.where(torch.isfinite(pi) & torch.isfinite(ld), pi, -torch.inf)
+    return q_new, p_new, g_new, ld, pi
+
+
+def _metric_mode(metric: Metric, C: int, K: int) -> int:
+    """The CUDA source's metric mode: 0 shared diagonal, 1 per-chain
+    diagonal, 2 shared dense."""
+    shape = tuple(metric.m_inv.shape)
+    if isinstance(metric, DiagonalMetric):
+        if shape == (K,):
+            return 0
+        if shape == (C, K):
+            return 1
+    elif isinstance(metric, DenseMetric) and shape == (K, K):
+        return 2
+    raise ValueError(f"logreg leaf kernel: metric m_inv of shape {shape} "
+                     "is not shared diagonal, per-chain diagonal or shared "
+                     "dense")
+
+
+def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
+    """One leapfrog leaf of Bayesian logistic regression for C chains.
+
+    q, p, g: (C, K); eps_signed: (C,); metric: shared diagonal (K,),
+    per-chain diagonal (C, K) or shared dense (K, K) M^-1; x: (n_obs, K);
+    y: (n_obs,); all float32 on one CUDA device (or the CPU, which takes
+    the plain version). Returns (q', p', g', ld', pi')."""
+    global launches
+    if q.device.type == "cpu":
+        return logreg_leaf_plain(metric, q, p, g, eps_signed, x, y, inv_s2)
+    if q.device.type != "cuda":
+        raise ValueError(f"logreg leaf kernel: unsupported device {q.device}")
+    C, K = q.shape
+    n_obs = x.shape[0]
+    mode = _metric_mode(metric, C, K)
+    minv = metric.m_inv
+    tensors = {"q": q, "p": p, "g": g, "eps_signed": eps_signed, "minv": minv,
+               "x": x, "y": y}
+    for name, t in tensors.items():
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"logreg leaf kernel: {name} must be a "
+                             f"contiguous tensor on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"logreg leaf kernel: {name} is {t.dtype}, "
+                            "float32 only")
+    shapes = {"p": (p, (C, K)), "g": (g, (C, K)), "eps_signed": (eps_signed, (C,)),
+              "x": (x, (n_obs, K)), "y": (y, (n_obs,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"logreg leaf kernel: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    if not 1 <= K <= MAX_K or n_obs < 1:
+        raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K} "
+                         f"or no observations")
+    lib = library.load()
+    qn, pn, gn = (torch.empty_like(q) for _ in range(3))
+    ldn = torch.empty((C,), dtype=q.dtype, device=q.device)
+    pin = torch.empty_like(ldn)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.logreg_leaf_f32(
+        q.data_ptr(), p.data_ptr(), g.data_ptr(), eps_signed.data_ptr(),
+        minv.data_ptr(), mode, x.data_ptr(), y.data_ptr(), qn.data_ptr(),
+        pn.data_ptr(), gn.data_ptr(), ldn.data_ptr(), pin.data_ptr(),
+        C, K, n_obs, float(inv_s2), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"logreg leaf kernel launch failed: CUDA error {err}")
+    launches += 1
+    return qn, pn, gn, ldn, pin
+
+
+def make_logreg_fused_leaf_batched(x, y, prior_scale: float = 10.0,
+                                   device=None):
+    """Hook for ``LogDensity.fused_leaf_batched_fn`` on the logistic
+    regression posterior of models/logreg.py, with the semantics of
+    pallas_logreg.py::make_logreg_fused_leaf_batched:
+
+    ``(metric, q, p, g, eps_signed) -> (q', p', g', ld', pi')``
+
+    float32 chains with a shared diagonal, per-chain diagonal or shared
+    dense metric, and K <= 256, take :func:`logreg_leaf` (the kernel on a
+    GPU). Other dtypes (float64 runs), per-chain dense metrics and wider K
+    take the plain leaf in the chains' dtype, as the JAX hook's fallback
+    does for dtypes, per-chain dense metrics and what exceeds its VMEM."""
+    x_full = torch.as_tensor(np.asarray(x), device=device)
+    y_full = torch.as_tensor(np.asarray(y), device=device)
+    x32 = x_full.to(torch.float32).contiguous()
+    y32 = y_full.to(torch.float32).contiguous()
+    inv_s2 = 1.0 / float(prior_scale) ** 2
+    K = x_full.shape[1]
+
+    def fused(metric, q, p, g, eps_signed):
+        dense = isinstance(metric, DenseMetric)
+        if (q.dtype != torch.float32 or (dense and metric.m_inv.ndim == 3)
+                or K > MAX_K):
+            return logreg_leaf_plain(metric, q, p, g, eps_signed,
+                                     x_full.to(q.device, q.dtype),
+                                     y_full.to(q.device, q.dtype), inv_s2)
+        if isinstance(metric, DiagonalMetric):
+            metric = DiagonalMetric(m_inv=metric.m_inv.contiguous(), w_diag=None)
+        else:
+            metric = DenseMetric(m_inv=metric.m_inv.contiguous(), w=None)
+        return logreg_leaf(metric, q.contiguous(), p.contiguous(),
+                           g.contiguous(), eps_signed.contiguous(),
+                           x32.to(q.device), y32.to(q.device), inv_s2)
+
+    fused.operands = (x32, y32)  # the kernel's data
+    fused.inv_s2 = inv_s2
+    return fused

@@ -1,18 +1,20 @@
-"""Whole-transition NUTS kernel for Gaussian targets: build, binding, plain
-version and the ``LogDensity.tree_transition_fn`` hook.
+"""Whole-transition NUTS kernel: build, binding, leaves, plain version and
+the ``LogDensity.tree_transition_fn`` hooks.
 
 The kernel (csrc/tree_kernel.cu, CUDA C++ for sm_90a) replaces the Pallas
-kernel ``dynamichmc_tpu/ops/pallas_tree.py::_build_kernel`` with its
-``_gaussian_leaf``: one complete NUTS transition per chain, one CTA per
-chain. It is compiled with ``nvcc`` at first use into a content-hashed
-shared library under ``dynamichmc_tpu_torch/_build/`` and called through a
+kernel ``dynamichmc_tpu/ops/pallas_tree.py::_build_kernel`` with each of its
+leaves (``_gaussian_leaf``, ``funnel_leaf``, ``logreg_leaf``): one complete
+NUTS transition per chain, one CTA per chain. A :class:`Leaf` names the
+model: its id in the CUDA source, its float32 arrays and scalars, and the
+same value and gradient in torch for the plain version. The library is
+built with ``nvcc`` at first use (ops/cuda_build.py) and called through a
 plain C entry point with ``ctypes``, on PyTorch's current stream.
 
 :func:`tree_transition` is the wrapper. A tensor on the CPU goes to
 :func:`tree_transition_plain`, the same transition computed by the plain
-batched driver (tree_batched.py) from the same injected noise. A CUDA tensor
-launches the kernel or raises; nothing falls back. ``launches`` counts the
-kernel launches.
+batched driver (tree_batched.py) from the same injected noise with the
+leaf's torch value and gradient. A CUDA tensor launches the kernel or
+raises; nothing falls back. ``launches`` counts the kernel launches.
 
 ``work`` differs between the two on purpose: the kernel reports each
 chain's own executed leaf count, the plain driver the lockstep count of the
@@ -22,13 +24,10 @@ whole batch. Every other output is the same transition.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..hamiltonian import EvaluatedPoint
@@ -45,22 +44,24 @@ from ..tree_batched import (
     random_directions,
     transition_raw,
 )
+from .cuda_build import CudaLibrary
+from .logreg_leaf import sigmoid, softplus
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "tree_kernel.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
 MAX_THREADS = 1024  # one thread per coordinate, one CTA per chain
 MAX_SMEM_BYTES = 232448  # H100: 227 KB of dynamic shared memory per CTA
 
-launches = 0  # kernel launches made by tree_transition
+GAUSSIAN, FUNNEL, LOGREG = 0, 1, 2  # leaf ids of csrc/tree_kernel.cu
 
-_lock = threading.Lock()
-_lib = None
-build_log = ""  # compiler output of the last build (ptxas resource usage)
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+library = CudaLibrary("tree_kernel", {
+    "tree_transition_f32": (
+        [_vp] * 9 + [_ci, _ci] + [_vp] * 3 + [_ci, _cf, _cf] + [_vp] * 10
+        + [_ci] * 4 + [_cf, _vp],
+        _ci,
+    ),
+})
+
+launches = 0  # kernel launches made by tree_transition
 
 
 def reset_launches() -> None:
@@ -68,80 +69,77 @@ def reset_launches() -> None:
     launches = 0
 
 
-def smem_bytes(K: int, max_depth: int) -> int:
-    """Dynamic shared memory of one CTA (smem_bytes in the
-    CUDA source): the 5 x S x Kp merge stack, one staging vector and the
-    reduction scratch."""
+def smem_bytes(K: int, max_depth: int, n_res: int = 0) -> int:
+    """Dynamic shared memory of one CTA (smem_bytes in the CUDA source):
+    the 5 x S x Kp merge stack, one staging vector, the reduction scratch
+    and the logreg leaf's residual buffer of ``n_res`` = n_obs floats."""
     kp = (K + 31) // 32 * 32
-    return 4 * ((5 * max_depth + 1) * kp + 6 * 32)
+    return 4 * ((5 * max_depth + 1) * kp + 6 * 32 + n_res)
 
 
-def kernel_fits(K: int, max_depth: int) -> bool:
+def kernel_fits(K: int, max_depth: int, n_res: int = 0) -> bool:
     return (K + 31) // 32 * 32 <= MAX_THREADS and (
-        smem_bytes(K, max_depth) <= MAX_SMEM_BYTES
+        smem_bytes(K, max_depth, n_res) <= MAX_SMEM_BYTES
     )
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or (
-        "/usr/local/cuda"
-    )
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the tree kernel is built from "
-            "source at first use"
-        )
-    return found
+@dataclasses.dataclass(frozen=True, eq=False)
+class Leaf:
+    """The model inside the kernel: ``kind`` (GAUSSIAN, FUNNEL or LOGREG),
+    up to three float32 arrays (m0..m2 of the CUDA source), two scalars
+    (s0, s1) and, for logreg, the observation count."""
+
+    kind: int
+    operands: tuple = ()
+    scalars: tuple = (0.0, 0.0)
+    n_obs: int = 0
+
+    def to(self, device) -> "Leaf":
+        return dataclasses.replace(
+            self, operands=tuple(t.to(device) for t in self.operands))
+
+    def value_and_grad(self, q):
+        """The kernel leaf's value and analytic gradient in torch, row form
+        (q: (C, K)), in q's dtype."""
+        ops = tuple(t.to(q.dtype) for t in self.operands)
+        s0, s1 = self.scalars
+        if self.kind == GAUSSIAN:
+            prec_t, lchol, mu = ops
+            d = q - mu
+            w = d @ lchol
+            return -0.5 * (w * w).sum(-1), -(d @ prec_t)
+        if self.kind == FUNNEL:
+            v = q[:, 0]
+            x2 = (q * q).sum(-1) - v * v
+            emv = torch.exp(-v)
+            ld = -0.5 * (v * v) / s0 - s1 * v - 0.5 * emv * x2
+            gv = -v / s0 - s1 + 0.5 * emv * x2
+            return ld, torch.cat([gv[:, None], -emv[:, None] * q[:, 1:]], 1)
+        x, xt, y = ops
+        logits = q @ xt
+        ll = (y * logits - softplus(logits)).sum(-1)
+        grad = (y - sigmoid(logits)) @ x - s0 * q
+        return ll + (-0.5 * s0 * (q * q).sum(-1)), grad
 
 
-def library_path() -> str:
-    """Content-hashed library name: an edited source or flag set never loads
-    a stale binary."""
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"tree_kernel-{h.hexdigest()[:12]}.so")
+def gaussian_leaf(prec_t, lchol, mu) -> Leaf:
+    """prec^T and L with prec = L L^T, both (K, K), and mu (K,)."""
+    return Leaf(GAUSSIAN, (prec_t, lchol, mu))
 
 
-def build() -> str:
-    """Compile csrc/tree_kernel.cu for sm_90a if its library is missing;
-    returns the library path. Raises with the compiler's output on
-    failure."""
-    global build_log
-    so = library_path()
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)
-    return so
+def funnel_leaf(dim: int, sigma_v: float) -> Leaf:
+    return Leaf(FUNNEL, scalars=(float(sigma_v) ** 2, 0.5 * (dim - 1)))
 
 
-def load_library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.tree_transition_f32.argtypes = (
-                [vp] * 9 + [ci] + [vp] * 13 + [ci] * 4
-                + [ctypes.c_float, vp]
-            )
-            lib.tree_transition_f32.restype = ci
-            _lib = lib
-        return _lib
+def logreg_leaf(x, y, prior_scale: float, device=None) -> Leaf:
+    """X (n_obs, K) and y (n_obs,) as float32, with X^T stored beside X so
+    that both of the kernel's passes read contiguous rows."""
+    x32 = np.ascontiguousarray(np.asarray(x, np.float32))
+    y32 = np.ascontiguousarray(np.asarray(y, np.float32))
+    ops = (x32, np.ascontiguousarray(x32.T), y32)
+    return Leaf(LOGREG, tuple(torch.as_tensor(a, device=device) for a in ops),
+                scalars=(1.0 / float(prior_scale) ** 2, 0.0),
+                n_obs=x32.shape[0])
 
 
 def _noise_from_rows(gum: torch.Tensor, expo: torch.Tensor,
@@ -157,21 +155,15 @@ def _noise_from_rows(gum: torch.Tensor, expo: torch.Tensor,
 
 
 def tree_transition_plain(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
-                          prec_t, lchol, mu, dcap: int, min_delta: float,
+                          leaf: Leaf, dcap: int, min_delta: float,
                           max_depth: int) -> dict:
-    """The kernel's transition computed by the plain batched driver.
+    """The kernel's transition computed by the plain batched driver with
+    the leaf's torch value and gradient, in q0's dtype.
 
     Arguments as for :func:`tree_transition`; returns the same raw fields
     (termination not normalized)."""
-
-    def value_and_grad(q):
-        # row form of the model's L^T d and prec d (models/gaussian.py)
-        d = q - mu
-        w = d @ lchol
-        return -0.5 * (w * w).sum(-1), -(d @ prec_t)
-
     ld = LogDensity(dim=q0.shape[1], logdensity_fn=None,
-                    logdensity_and_gradient_fn=value_and_grad)
+                    logdensity_and_gradient_fn=leaf.to(q0.device).value_and_grad)
     metric = (DiagonalMetric(m_inv=minv, w_diag=None) if minv.ndim == 1
               else DenseMetric(m_inv=minv, w=None))
     Q = EvaluatedPoint(q=q0, logdensity=ld0, grad=g0)
@@ -182,17 +174,28 @@ def tree_transition_plain(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
     )
 
 
-def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, prec_t,
-                    lchol, mu, dcap: int, min_delta: float,
+def _operand_shapes(leaf: Leaf, K: int) -> tuple:
+    if leaf.kind == GAUSSIAN:
+        return ((K, K), (K, K), (K,))
+    if leaf.kind == FUNNEL:
+        return ()
+    if leaf.kind == LOGREG:
+        n = leaf.n_obs
+        return ((n, K), (K, n), (n,))
+    raise ValueError(f"tree kernel: unknown leaf kind {leaf.kind}")
+
+
+def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
+                    leaf: Leaf, dcap: int, min_delta: float,
                     max_depth: int) -> dict:
-    """One NUTS transition of a Gaussian target for C chains.
+    """One NUTS transition of the leaf's target for C chains.
 
     q0, p0, g0: (C, K); ld0, eps: (C,); dirs: (C,) int32 holding the uint32
     direction bits; gum: (2^max_depth - 1, C) Gumbel rows, row
     (1 << d) - 1 + n for doubling d and leaf n; expo: (max_depth, C);
-    minv: shared M^-1, (K, K) dense or (K,) diagonal; prec_t = prec^T and
-    lchol = L with prec = L L^T, both (K, K); mu: (K,); dcap in
-    1..max_depth. All float32 except dirs.
+    minv: shared M^-1, (K, K) dense or (K,) diagonal; leaf: the model
+    (its operands on q0's device); dcap in 1..max_depth. All float32
+    except dirs.
 
     Returns the raw fields prop_q, prop_grad, prop_ld, prop_pi, depth,
     term_left, term_right, log_sum, steps, work, directions.
@@ -200,12 +203,12 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, prec_t,
     global launches
     if q0.device.type == "cpu":
         return tree_transition_plain(q0, p0, g0, ld0, eps, dirs, gum, expo,
-                                     minv, prec_t, lchol, mu, dcap,
-                                     min_delta, max_depth)
+                                     minv, leaf, dcap, min_delta, max_depth)
     if q0.device.type != "cuda":
         raise ValueError(f"tree kernel: unsupported device {q0.device}")
     C, K = q0.shape
-    floats = (q0, p0, g0, ld0, eps, gum, expo, minv, prec_t, lchol, mu)
+    operands = tuple(leaf.operands)
+    floats = (q0, p0, g0, ld0, eps, gum, expo, minv) + operands
     for t in floats + (dirs,):
         if t.device != q0.device or not t.is_contiguous():
             raise ValueError("tree kernel: inputs must be contiguous tensors "
@@ -216,17 +219,22 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, prec_t,
         "p0": (p0, (C, K)), "g0": (g0, (C, K)), "ld0": (ld0, (C,)),
         "eps": (eps, (C,)), "dirs": (dirs, (C,)),
         "gum": (gum, ((1 << max_depth) - 1, C)), "expo": (expo, (max_depth, C)),
-        "prec_t": (prec_t, (K, K)), "lchol": (lchol, (K, K)), "mu": (mu, (K,)),
     }
+    want = _operand_shapes(leaf, K)
+    if len(operands) != len(want):
+        raise ValueError(f"tree kernel: leaf {leaf.kind} takes {len(want)} "
+                         f"operands, got {len(operands)}")
+    for i, (t, shape) in enumerate(zip(operands, want)):
+        shapes[f"m{i}"] = (t, shape)
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"tree kernel: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
     if tuple(minv.shape) not in ((K,), (K, K)):
         raise ValueError("tree kernel: minv must be (K,) or (K, K)")
-    if not (1 <= dcap <= max_depth) or not kernel_fits(K, max_depth):
+    if not (1 <= dcap <= max_depth) or not kernel_fits(K, max_depth, leaf.n_obs):
         raise ValueError("tree kernel: dcap or shape outside the kernel")
-    lib = load_library()
+    lib = library.load()
     f32, i32 = torch.float32, torch.int32
     qn = torch.empty((C, K), dtype=f32, device=q0.device)
     gn = torch.empty((C, K), dtype=f32, device=q0.device)
@@ -234,12 +242,14 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, prec_t,
             for n in ("prop_ld", "prop_pi", "log_sum")}
     ints = {n: torch.empty((C,), dtype=i32, device=q0.device)
             for n in ("depth", "term_left", "term_right", "steps", "work")}
+    ptrs = [t.data_ptr() for t in operands] + [None] * (3 - len(operands))
     stream = torch.cuda.current_stream(q0.device).cuda_stream
     err = lib.tree_transition_f32(
         q0.data_ptr(), p0.data_ptr(), g0.data_ptr(), ld0.data_ptr(),
         eps.data_ptr(), dirs.data_ptr(), gum.data_ptr(), expo.data_ptr(),
-        minv.data_ptr(), int(minv.ndim == 1), prec_t.data_ptr(),
-        lchol.data_ptr(), mu.data_ptr(), qn.data_ptr(), gn.data_ptr(),
+        minv.data_ptr(), int(minv.ndim == 1), int(leaf.kind), *ptrs,
+        int(leaf.n_obs), float(leaf.scalars[0]), float(leaf.scalars[1]),
+        qn.data_ptr(), gn.data_ptr(),
         rows["prop_ld"].data_ptr(), rows["prop_pi"].data_ptr(),
         ints["depth"].data_ptr(), ints["term_left"].data_ptr(),
         ints["term_right"].data_ptr(), rows["log_sum"].data_ptr(),
@@ -252,24 +262,22 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, prec_t,
     return {"prop_q": qn, "prop_grad": gn, **rows, **ints, "directions": dirs}
 
 
-def make_gaussian_tree_transition(prec: torch.Tensor, mu: torch.Tensor,
-                                  prec_chol_t: torch.Tensor):
-    """The ``tree_transition_fn`` hook of a Gaussian model:
+def make_tree_transition(leaf: Leaf, dim: int):
+    """The ``tree_transition_fn`` hook of a model whose value and gradient
+    the kernel computes as ``leaf``:
 
     ``(generator, algorithm, metric, Q, eps, depth_limit) -> (Q', stats) |
     None``
 
     It declines (returns None, and the plain driver runs) for chains that
     are not float32, a turn statistic other than "generalized", a per-chain
-    metric, or a K or max_depth whose CTA does not fit the card (more than
-    1024 threads or 227 KB of shared memory). Otherwise it draws the
-    momenta, direction bits, Gumbel rows and Exponential rows with the
-    caller's generator on the chains' device and runs :func:`tree_transition`.
+    metric, or a K, max_depth and n_obs whose CTA does not fit the card
+    (more than 1024 threads or 227 KB of shared memory). Otherwise it draws
+    the momenta, direction bits, Gumbel rows and Exponential rows with the
+    caller's generator on the chains' device and runs
+    :func:`tree_transition`.
     """
     f32 = torch.float32
-    prec_t = prec.to(f32).mT.contiguous()
-    lchol = prec_chol_t.to(f32).mT.contiguous()
-    mu32 = mu.to(f32).contiguous()
 
     def transition(generator: Optional[torch.Generator], algorithm: NUTS,
                    metric: Metric, Q: EvaluatedPoint, eps, depth_limit=None):
@@ -282,7 +290,7 @@ def make_gaussian_tree_transition(prec: torch.Tensor, mu: torch.Tensor,
             return None  # per-chain metric
         C, K = Q.q.shape
         md = algorithm.max_depth
-        if not kernel_fits(K, md):
+        if K != dim or not kernel_fits(K, md, leaf.n_obs):
             return None
         device = Q.q.device
         p0 = rand_p_b(generator, metric, (C, K), f32)
@@ -293,11 +301,34 @@ def make_gaussian_tree_transition(prec: torch.Tensor, mu: torch.Tensor,
         raw = tree_transition(
             Q.q.contiguous(), p0.contiguous(), Q.grad.contiguous(),
             Q.logdensity.contiguous(), eps_b.contiguous(), dirs, gum, expo,
-            metric.m_inv.to(f32).contiguous(), prec_t.to(device),
-            lchol.to(device), mu32.to(device), depth_cap(depth_limit, md),
-            float(algorithm.min_delta), md,
+            metric.m_inv.to(f32).contiguous(), leaf.to(device),
+            depth_cap(depth_limit, md), float(algorithm.min_delta), md,
         )
         return finish_transition(raw)
 
-    transition.operands = (prec_t, lchol, mu32)  # the kernel's model arrays
+    transition.leaf = leaf  # the kernel's model
     return transition
+
+
+def make_gaussian_tree_transition(prec: torch.Tensor, mu: torch.Tensor,
+                                  prec_chol_t: torch.Tensor):
+    """Hook of a Gaussian model (models/gaussian.py): the leaf takes prec^T
+    and L = (L^T)^T, so that thread j of the kernel reads column j."""
+    f32 = torch.float32
+    leaf = gaussian_leaf(prec.to(f32).mT.contiguous(),
+                         prec_chol_t.to(f32).mT.contiguous(),
+                         mu.to(f32).contiguous())
+    return make_tree_transition(leaf, mu.shape[0])
+
+
+def make_funnel_tree_transition(dim: int, sigma_v: float = 3.0):
+    """Hook of Neal's funnel (models/funnel.py) with the analytic gradient
+    (pallas_tree.py::make_funnel_tree_transition)."""
+    return make_tree_transition(funnel_leaf(dim, sigma_v), dim)
+
+
+def make_logreg_tree_transition(x, y, prior_scale: float = 10.0, device=None):
+    """Hook of Bayesian logistic regression (models/logreg.py):
+    pallas_tree.py::make_logreg_tree_transition without its padding."""
+    leaf = logreg_leaf(x, y, prior_scale, device=device)
+    return make_tree_transition(leaf, leaf.operands[0].shape[1])

@@ -14,7 +14,9 @@ numerical faults, and InvalidTree-style termination positions.
 
 This driver is the oracle the tree kernel (ops/tree_kernel.py) is tested
 against and the fallback for every model and configuration the kernel
-declines. Its lockstep loops end on ``any(active)``, one host read per leaf.
+declines. A model with a ``fused_leaf_batched_fn`` (ops/logreg_leaf.py)
+has every leaf computed by that hook. Its lockstep loops end on
+``any(active)``, one host read per leaf.
 """
 
 from __future__ import annotations
@@ -193,6 +195,33 @@ def make_tau_ops(metric: Metric) -> TauOps:
         return (pm_x, pp_y, rho), turning
 
     return TauOps(tau_len, pi_and_psharp, leaf_tau, combine_dir)
+
+
+fused_leaf_calls = 0  # leaves the driver handed to a fused_leaf_batched_fn
+
+
+def reset_fused_leaf_calls() -> None:
+    global fused_leaf_calls
+    fused_leaf_calls = 0
+
+
+def _leaf(ld: LogDensity, metric: Metric, ops: TauOps, edge: _Edge,
+          eps_signed):
+    """One leapfrog leaf of the batch -> (edge', pi', psharp(p') | None).
+
+    A model with a ``fused_leaf_batched_fn`` computes the whole leaf
+    (leapfrog, value, gradient, poisoning and pi) in that hook; the driver
+    then only adds psharp for the 5-statistic (dense) turn check."""
+    global fused_leaf_calls
+    if ld.fused_leaf_batched_fn is not None:
+        qn, pn, gn, ldn, pi = ld.fused_leaf_batched_fn(
+            metric, edge.q, edge.p, edge.grad, eps_signed)
+        fused_leaf_calls += 1
+        sp = psharp_b(metric, pn) if ops.tau_len == 5 else None
+        return _Edge(q=qn, p=pn, grad=gn, ld=ldn), pi, sp
+    z = _leapfrog_b(ld, metric, edge, eps_signed)
+    pi, sp = ops.pi_and_psharp(z.ld, z.p)
+    return z, pi, sp
 
 
 def _merge_pending(n: int, stack, node, combine_dir, is_fwd, i_edge, step,
@@ -374,8 +403,7 @@ def transition_raw(generator, algorithm: NUTS, ld: LogDensity,
         }
         n = 0
         while n < n_leaves and bool((a["building"] & engaged).any()):
-            z = _leapfrog_b(ld, metric, a["z"], eps_signed)
-            pi, sp = ops.pi_and_psharp(z.ld, z.p)
+            z, pi, sp = _leaf(ld, metric, ops, a["z"], eps_signed)
             i_new = i_edge + step * (n + 1)
             delta = pi - pi0
             divergent = delta < min_delta

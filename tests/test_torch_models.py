@@ -87,3 +87,66 @@ def test_exact_sampler_moments():
     x = tmodel.sample(torch.Generator().manual_seed(0), 200_000).numpy()
     cov = tmodel.cov_fn().numpy()
     np.testing.assert_allclose(np.cov(x.T), cov, atol=0.03 * np.abs(cov).max())
+
+
+@pytest.mark.parametrize("K,sigma_v", [(5, 3.0), (25, 1.5)])
+def test_funnel_value_and_gradient_match_jax(K, sigma_v):
+    from dynamichmc_tpu_torch import convert
+
+    jmodel = jm.funnel(K, sigma_v=sigma_v, dtype=jnp.float64)
+    tmodel = convert.funnel_model(jmodel)
+    rng = np.random.default_rng(K)
+    v = rng.uniform(-4, 4, size=(6, 1))
+    q = np.concatenate([v, np.exp(v / 2) * rng.normal(size=(6, K - 1))], 1)
+    vj, gj = _value_and_grad_jax(jmodel, q)
+    vt, gt = tmodel.logdensity_and_gradient(torch.as_tensor(q))
+    np.testing.assert_allclose(vt.numpy(), vj, rtol=RTOL)
+    np.testing.assert_allclose(gt.numpy(), gj, rtol=RTOL, atol=1e-12)
+    assert tmodel.log_normalization == pytest.approx(
+        jmodel.log_normalization, rel=1e-14)
+    # the tree kernel's analytic leaf agrees with autograd
+    leaf = tm.funnel(K, sigma_v=sigma_v, tree_kernel=True
+                     ).tree_transition_fn.leaf
+    va, ga = leaf.value_and_grad(torch.as_tensor(q))
+    np.testing.assert_allclose(va.numpy(), vj, rtol=1e-12)
+    np.testing.assert_allclose(ga.numpy(), gj, rtol=1e-10, atol=1e-10)
+
+
+def test_funnel_exact_sampler():
+    x = tm.funnel(4, dtype=torch.float64).sample(
+        torch.Generator().manual_seed(0), 200_000).numpy()
+    assert abs(x[:, 0].mean()) < 0.03 and abs(x[:, 0].std() - 3.0) < 0.03
+    # x_i | v ~ N(0, e^v): x_i e^{-v/2} is standard normal
+    z = x[:, 1:] * np.exp(-x[:, :1] / 2)
+    assert abs(z.std() - 1.0) < 0.01
+
+
+@pytest.mark.parametrize("n_obs,K,seed", [(53, 7, 0), (400, 25, 3)])
+def test_logreg_value_and_gradient_match_jax(n_obs, K, seed):
+    from dynamichmc_tpu_torch import convert
+
+    jmodel = jm.logistic_regression(n_obs, K, seed=seed, dtype=jnp.float64)
+    tmodel = tm.logistic_regression(n_obs, K, seed=seed)
+    # the same data from the seed, and through convert from the JAX model
+    x, y, prior_scale = convert.logreg_data(jmodel)
+    np.testing.assert_array_equal(
+        x, tm.logreg.synthetic_data(n_obs, K, seed)[0])
+    assert prior_scale == 10.0
+    q = np.random.default_rng(seed).normal(size=(6, K)) * 0.5
+    vj, gj = _value_and_grad_jax(jmodel, q)
+    for model in (tmodel, convert.logreg_model(jmodel)):
+        vt, gt = model.logdensity_and_gradient(torch.as_tensor(q))
+        np.testing.assert_allclose(vt.numpy(), vj, rtol=RTOL)
+        np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-10, atol=1e-10)
+    # the kernels' analytic leaves (stable softplus, tanh sigmoid) agree
+    leaf = tm.logistic_regression(n_obs, K, seed=seed, tree_kernel=True
+                                  ).tree_transition_fn.leaf
+    va, ga = leaf.value_and_grad(torch.as_tensor(q, dtype=torch.float32))
+    np.testing.assert_allclose(va.numpy(), vj, rtol=1e-5)
+    np.testing.assert_allclose(ga.numpy(), gj, rtol=1e-4, atol=1e-3)
+
+
+def test_logreg_auto_dispatch_is_not_ported():
+    for kw in ({"fused": "auto"}, {"tree_kernel": "auto"}):
+        with pytest.raises(NotImplementedError, match="auto"):
+            tm.logistic_regression(20, 3, **kw)

@@ -23,7 +23,7 @@ from dynamichmc_tpu.warmup import WarmupState as JWarmupState
 from dynamichmc_tpu_torch import DynamicHMCError, NUTS, convert, stats
 from dynamichmc_tpu_torch.mcmc import _check_stepsize_search
 from dynamichmc_tpu_torch.models import correlated_gaussian
-from dynamichmc_tpu_torch.ops import tree_kernel
+from dynamichmc_tpu_torch.ops import cuda_build, logreg_leaf, tree_kernel
 from dynamichmc_tpu_torch.parallel import init_chain_states
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +35,7 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import dynamichmc_tpu_torch, dynamichmc_tpu_torch.convert\n"
         "import dynamichmc_tpu_torch.ops.tree_kernel, dynamichmc_tpu_torch.stats\n"
+        "import dynamichmc_tpu_torch.ops.logreg_leaf, dynamichmc_tpu_torch.stats_device\n"
         "import dynamichmc_tpu_torch.engine, dynamichmc_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dynamichmc_tpu' or m.startswith('dynamichmc_tpu.')]\n"
@@ -60,13 +61,26 @@ def test_no_module_of_the_port_imports_jax():
                     assert not pattern.search(f.read()), name
 
 
-def test_kernel_build_is_lazy_and_content_hashed():
-    assert tree_kernel._lib is None  # nothing built or loaded at import
-    path = tree_kernel.library_path()
-    assert os.path.dirname(path) == tree_kernel.BUILD_DIR
-    assert os.path.basename(path).startswith("tree_kernel-")
-    assert "arch=compute_90a,code=sm_90a" in tree_kernel.NVCC_FLAGS
-    assert os.path.exists(tree_kernel.SOURCE)
+@pytest.mark.parametrize("module", [tree_kernel, logreg_leaf])
+def test_kernel_build_is_lazy_and_content_hashed(module, tmp_path):
+    """Both CUDA sources go through the one build helper: nothing is built
+    or loaded at import, and each library's name hashes its own source and
+    the flags."""
+    lib = module.library
+    assert not lib.loaded  # nothing built or loaded at import
+    path = lib.library_path()
+    assert os.path.dirname(path) == cuda_build.BUILD_DIR
+    assert os.path.basename(path).startswith(f"{lib.name}-")
+    assert os.path.exists(lib.source)
+    assert lib.source.endswith(f"csrc/{lib.name}.cu")
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    # an edited source gets another library name
+    copy = cuda_build.CudaLibrary(lib.name, lib.signatures)
+    copy.source = str(tmp_path / f"{lib.name}.cu")
+    with open(lib.source) as f, open(copy.source, "w") as g:
+        g.write(f.read() + "\n// edited\n")
+    assert copy.library_path() != path
+    assert tree_kernel.library.library_path() != logreg_leaf.library.library_path()
 
 
 @pytest.mark.parametrize("fn", ["ess_bulk", "ess_tail", "rhat"])
@@ -84,6 +98,52 @@ def test_ess_rhat_matches_jax():
     b = jstats.ess_rhat(x, use_native=False)
     for key in ("ess_bulk", "ess_tail", "rhat"):
         np.testing.assert_allclose(a[key], b[key], rtol=1e-12)
+
+
+def _stats_workloads():
+    """i.i.d., strong positive autocorrelation, antithetic chains, ties and
+    a constant series: every branch of the Geyer sequences and the rank
+    averaging (tests/test_stats_device.py's workloads)."""
+    rng = np.random.RandomState(0)
+    iid = rng.randn(4, 200, 2)
+    ar = np.zeros((3, 300, 2))
+    e = rng.randn(3, 300, 2)
+    for t in range(1, 300):
+        ar[:, t] = 0.95 * ar[:, t - 1] + np.sqrt(1 - 0.95**2) * e[:, t]
+    anti = np.cumprod(np.full((2, 100, 1), -1.0), axis=1) * (
+        1 + 0.1 * rng.randn(2, 100, 1))
+    ties = np.round(rng.randn(4, 100, 2), 1)
+    const = np.concatenate([rng.randn(3, 60, 1), np.ones((3, 60, 1))], 2)
+    return {"iid": iid, "ar": ar, "anti": anti, "ties": ties, "const": const}
+
+
+@pytest.mark.parametrize("name", ["iid", "ar", "anti", "ties", "const"])
+def test_stats_device_matches_jax_stats(name):
+    """stats_device (torch, float64) against dynamichmc_tpu.stats (numpy)
+    to 1e-6 relative, the JAX stats_device's own parity."""
+    from dynamichmc_tpu_torch import stats_device
+
+    x = _stats_workloads()[name]
+    host = jstats.ess_rhat(x, use_native=False)
+    dev = stats_device.ess_rhat_device(torch.as_tensor(x), param_chunk=1)
+    for key in ("ess_bulk", "ess_tail", "rhat"):
+        np.testing.assert_allclose(dev[key].numpy(), host[key], rtol=1e-6,
+                                   err_msg=key)
+    bulk = stats_device.ess_bulk_device(torch.as_tensor(x))
+    np.testing.assert_allclose(bulk.numpy(), host["ess_bulk"], rtol=1e-6)
+    one = stats_device.ess_bulk_device(torch.as_tensor(x[:, :, 0]))
+    assert float(one) == pytest.approx(jstats.ess_bulk(x[:, :, 0]), rel=1e-6)
+
+
+def test_stats_device_rank_normalize_matches_jax():
+    from dynamichmc_tpu.stats_device import _rank_normalize as j_rank
+    from dynamichmc_tpu_torch.stats_device import _rank_normalize
+
+    x = np.random.RandomState(3).randn(6, 50)
+    x[0, :10] = 1.25  # a tie run
+    np.testing.assert_allclose(
+        _rank_normalize(torch.as_tensor(x)[None])[0].numpy(),
+        np.asarray(j_rank(jnp.asarray(x))), rtol=1e-12)
 
 
 def test_convert_carries_state_across():

@@ -78,7 +78,8 @@ def _both(key, md, jmetric, ld_kern, Q, eps, depth_limit=None):
         torch.as_tensor(np.broadcast_to(np.asarray(eps, np.float32), (C,))),
         convert.tensor(dirs), convert.tensor(gum, F32),
         convert.tensor(expo, F32), convert.tensor(jmetric.m_inv, F32),
-        prec_t, lchol, mu, depth_cap(depth_limit, md), -1000.0, md,
+        tree_kernel.gaussian_leaf(prec_t, lchol, mu),
+        depth_cap(depth_limit, md), -1000.0, md,
     )
     return a, finish_transition(raw)
 
@@ -207,5 +208,6 @@ def test_wrapper_rejects_other_devices():
     q = torch.empty((2, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tree_kernel.tree_transition(q, q, q, q[:, 0], q[:, 0], q[:, 0], q, q,
-                                    q, q, q, q[0], 1, -1000.0, 1)
+                                    q, tree_kernel.funnel_leaf(3, 3.0), 1,
+                                    -1000.0, 1)
 
