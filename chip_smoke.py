@@ -5,8 +5,9 @@
 
 Phases (each one that fails ends the script with a non-zero exit code):
   1. Device: the nvidia-smi name and power limit.
-  2. Build: compile both CUDA sources (csrc/tree_kernel.cu,
-     csrc/logreg_leaf.cu) with nvcc, one process each, started together.
+  2. Build: compile the three CUDA sources (csrc/tree_kernel.cu,
+     csrc/logreg_leaf.cu, csrc/gaussian_leaf.cu) with nvcc, one process
+     each, started together.
   3. Kernel against plain, on the same injected noise / inputs:
      - the tree kernel with the Gaussian leaf at the main-path shape (4096
        chains, K = 100, max_depth 4, per-chain eps in [0.2, 0.6], start at
@@ -18,7 +19,12 @@ Phases (each one that fails ends the script with a non-zero exit code):
        n_obs = 4000, max_depth 4, diagonal metric = the Laplace posterior
        variances, start at draws of the Laplace approximation;
      - the fused logreg leaf at 2048 x 128 x 4000 with a shared diagonal,
-       a per-chain diagonal and a shared dense metric.
+       a per-chain diagonal and a shared dense metric;
+     - the fused Gaussian leaf (K2) at 4096 x 25 on N(0, I) with a shared
+       and a per-chain diagonal metric, and at 4096 x 100 on
+       correlated_gaussian(100) with a per-chain one; the fused Gaussian
+       leapfrog (K4) at 4096 x 25 with a per-chain diagonal metric and at
+       1 x 25 with the chain's own; two rows of each poisoned.
   4. Paths, through run_chains as a user calls it, each with the pooled
      metric, per-chain dual-averaging eps, warmup depth clamp 2 with a
      25-step tail, 900 warmup transitions and 512 draws:
@@ -30,15 +36,28 @@ Phases (each one that fails ends the script with a non-zero exit code):
        chains, NUTS(max_depth=4), tree kernel; timed;
      - logreg_fused: the same model with the fused leaf in the plain
        driver; timed.
+     Then BASELINE config 1, N(0, I_25) = mvnormal(0, I, fused=True), with
+     the reference-default warmup (stepsize search, 900 transitions,
+     per-chain diagonal metric and dual averaging, NUTS(), no clamp):
+     - gauss_fused: run_chains, 4096 chains, 512 draws, every leaf of the
+       plain driver through the fused Gaussian leaf; timed;
+     - per_chain: mcmc_with_warmup, one chain per call, seeds 0-3, 1000
+       draws each, every leapfrog through the fused Gaussian leapfrog;
+       the four calls timed together.
      Each checks that its kernel launched on every transition (for the
-     fused leaf: on every leaf the driver executed), that the draws are
-     finite, and the path's gate: the Gaussian's moments, the funnel's
-     v-marginal (|mean v| <= 0.4, sd(v) in [2.7, 3.3]), the two logreg
-     runs' agreement (every posterior mean within 5 combined MCSE). Each reports wall time,
-     min and mean bulk ESS/s (device ESS, float64), gradient evaluations/s
-     and divergences.
+     fused leaves: on every leaf the driver executed; for the leapfrog: on
+     every hamiltonian.leapfrog call), that the draws are finite, and the
+     path's gate: the Gaussian's moments, the funnel's v-marginal (|mean
+     v| <= 0.4, sd(v) in [2.7, 3.3]), the two logreg runs' agreement
+     (every posterior mean within 5 combined MCSE), N(0, I)'s moments and,
+     per chain, split R-hat and the acceptance rate. Each reports wall
+     time, min and mean bulk ESS/s (device ESS, float64), gradient
+     evaluations/s and divergences.
   5. Kernel time: each kernel and its plain version per call at its
-     phase-3 shape.
+     phase-3 shape (CUDA events around the wrapper calls), the fused
+     Gaussian kernels' device time (torch.profiler), and each kernel's
+     bound: the larger of its operations over the fp32 peak and its bytes
+     over the memory rate, counted from this run's inputs.
 With --profile, each path's timed run is repeated under torch.profiler
 after phase 5 and the device split is printed.
 
@@ -52,6 +71,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -59,7 +79,12 @@ import torch
 C_MAIN, K_MAIN, MD_MAIN, N_DRAWS = 4096, 100, 4, 512
 C_FUNNEL, K_FUNNEL, MD_FUNNEL = 4096, 25, 7
 C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
+C_GAUSS, K_GAUSS = 4096, 25  # BASELINE config 1 under the fleet
+N_PER_CHAIN, PER_CHAIN_SEEDS = 1000, (0, 1, 2, 3)
 SEED = 0
+# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor
+# cores, and device memory
+FP32_FLOP_PER_S, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 
 class PhaseFailed(RuntimeError):
@@ -322,6 +347,78 @@ def compare_fused_leaf(model, C, kind, gen):
     return result
 
 
+def gaussian_leaf_inputs(model, C, minv_kind, gen):
+    """Phase-3 inputs of the fused Gaussian leaf and leapfrog: exact draws
+    of the target, a diagonal metric drawn from U[0.5, 2], shared (K,) or
+    per chain (C, K), momenta from it, the model's gradient and a signed
+    per-chain eps with |eps| in [0.1, 0.6]. With C > 2, row 0 gets p = 1e25
+    (||d L||^2 overflows float32: ld' = -inf) and row 1 a NaN position."""
+    from dynamichmc_tpu_torch.metric import diagonal_metric
+    from dynamichmc_tpu_torch.tree_batched import rand_p_b
+
+    ops = model.fused_leaf_batched_fn.operands
+    K, dev = model.dim, ops.prec.device
+    q = model.sample(gen, C).float()
+    shape = (C, K) if minv_kind == "chain_diag" else (K,)
+    metric = diagonal_metric(torch.empty(shape, device=dev).uniform_(
+        0.5, 2.0, generator=gen))
+    p = rand_p_b(gen, metric, (C, K), torch.float32)
+    _v, g = model.logdensity_and_gradient(q)
+    sign = torch.where(torch.rand(C, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    eps = sign * torch.empty(C, device=dev).uniform_(0.1, 0.6, generator=gen)
+    if C > 2:
+        p[0] = 1e25
+        q[1, 0] = float("nan")
+    return (metric, q.contiguous(), p.contiguous(), g.contiguous(),
+            eps.contiguous(), ops.prec, ops.lchol, ops.mu)
+
+
+def compare_gaussian(name, kernel, plain, args):
+    """Phase 3 for the fused Gaussian leaf (K2) or leapfrog (K4):
+    - the -inf pattern of ld' (and pi') is the plain float32 version's,
+      and the two poisoned rows of gaussian_leaf_inputs are -inf: the
+      poisoned rows match exactly (row 0 overflows only in float32, so
+      the float64 version is no witness there);
+    - on the other rows every output is no further from the float64 plain
+      version than twice the plain float32 version's distance, plus 1e-5
+      (1 + |x|), the rule of compare_kernel_plain: the kernel sums the K
+      products of each dot in its own order."""
+    from dynamichmc_tpu_torch.metric import DiagonalMetric
+
+    out = kernel(*args)
+    ref = plain(*args)
+    ref64 = plain(DiagonalMetric(args[0].m_inv.double(), None),
+                  *_as64(args[1:]))
+    torch.cuda.synchronize()
+    C, K = args[1].shape
+    names = ("q", "p", "g", "ld", "pi")[:len(out)]
+    poisoned = torch.isneginf(ref[3])
+    fine = ~poisoned & torch.isfinite(ref64[3])
+    result = {"config": name, "chains": C, "dim": K,
+              "poisoned_rows": int(poisoned.sum())}
+    fails = []
+    want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
+    want(result["poisoned_rows"] == (2 if C > 2 else 0),
+         f"{name}: {result['poisoned_rows']} poisoned rows in the plain version")
+    worst_abs, vs_f64 = {}, {}
+    for field, x, y, z in zip(names, out, ref, ref64):
+        if x.ndim == 1:
+            want(torch.equal(torch.isneginf(x), torch.isneginf(y)),
+                 f"{name}: {field}' -inf pattern differs from the plain version")
+        xs, ys, zs = x[fine], y[fine], z[fine]
+        worst_abs[field] = float(torch.where(xs == ys, 0.0, (xs - ys).abs()).max())
+        err_kernel = float(_rel_err(xs, zs).max())
+        err_plain = float(_rel_err(ys, zs).max())
+        vs_f64[field] = {"kernel": err_kernel, "plain_f32": err_plain}
+        want(err_kernel <= 2 * err_plain + 1e-5,
+             f"{name}: kernel {field}' is {err_kernel:.3g} from float64, the "
+             f"plain float32 version {err_plain:.3g}")
+    result.update({"max_abs_diff": worst_abs, "max_rel_err_vs_f64": vs_f64})
+    log(f"[3 kernel vs plain] {json.dumps(result)}")
+    check(not fails, "; ".join(fails))
+    return result
+
+
 def path_config(metric_kind, max_depth):
     from dynamichmc_tpu_torch.nuts import NUTS
     from dynamichmc_tpu_torch.warmup import default_warmup_stages
@@ -346,21 +443,29 @@ def expected_transitions(n_draws):
 
 
 def reset_counts():
-    from dynamichmc_tpu_torch import tree_batched
-    from dynamichmc_tpu_torch.ops import logreg_leaf, tree_kernel
+    from dynamichmc_tpu_torch import hamiltonian, tree_batched
+    from dynamichmc_tpu_torch.ops import (
+        gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel)
 
     tree_kernel.reset_launches()
     logreg_leaf.reset_launches()
+    gaussian_leaf.reset_launches()
+    gaussian_leapfrog.reset_launches()
     tree_batched.reset_fused_leaf_calls()
+    hamiltonian.reset_leapfrog_calls()
 
 
 def read_counts():
-    from dynamichmc_tpu_torch import tree_batched
-    from dynamichmc_tpu_torch.ops import logreg_leaf, tree_kernel
+    from dynamichmc_tpu_torch import hamiltonian, tree_batched
+    from dynamichmc_tpu_torch.ops import (
+        gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel)
 
     return {"tree_transition": tree_kernel.launches,
             "logreg_fused_leaf": logreg_leaf.launches,
-            "driver_fused_leaves": tree_batched.fused_leaf_calls}
+            "gaussian_fused_leaf": gaussian_leaf.launches,
+            "gaussian_leapfrog": gaussian_leapfrog.launches,
+            "driver_fused_leaves": tree_batched.fused_leaf_calls,
+            "leapfrog_calls": hamiltonian.leapfrog_calls}
 
 
 def run_path(model, C, n_draws, seed, config, dev):
@@ -377,6 +482,59 @@ def run_path(model, C, n_draws, seed, config, dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return res, seconds, read_counts()
+
+
+def run_per_chain(model, dev):
+    """Phase 4, per_chain: one mcmc_with_warmup call per seed, each chain
+    on its own generator; returns the results, the seconds of the four
+    calls together and their launch counts (set to 0 just before them)."""
+    from dynamichmc_tpu_torch import mcmc_with_warmup
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = [mcmc_with_warmup(torch.Generator(device=dev).manual_seed(s),
+                                model, N_PER_CHAIN) for s in PER_CHAIN_SEEDS]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return results, seconds, read_counts()
+
+
+def check_standard_normal(flat, mean_tol, var_range):
+    """Every coordinate of draws of N(0, I): |mean| <= mean_tol and the
+    variance in var_range."""
+    mean_err = float(flat.mean(0).abs().max())
+    var = flat.var(0, correction=0)
+    lo, hi = float(var.min()), float(var.max())
+    check(mean_err <= mean_tol, f"|mean| up to {mean_err:.4f}")
+    check(var_range[0] <= lo and hi <= var_range[1],
+          f"var in [{lo:.4f}, {hi:.4f}], outside {var_range}")
+    return {"max_abs_mean": mean_err, "var_range": [lo, hi]}
+
+
+def check_per_chain(results, seconds):
+    """The per_chain gate over the 4 x 1000 draws: finite; |mean| <= 0.1
+    and var in [0.85, 1.15] in every coordinate; split R-hat <= 1.05; mean
+    post-warmup acceptance in [0.6, 0.95]. Returns the phase-4 metrics."""
+    from dynamichmc_tpu_torch.mcmc import stack_posterior_matrices
+    from dynamichmc_tpu_torch.stats_device import ess_rhat_device
+
+    draws = stack_posterior_matrices(results).transpose(0, 1)  # (4, N, K)
+    metrics, _ess = path_metrics(SimpleNamespace(
+        positions=draws, tree_statistics=SimpleNamespace(
+            steps=torch.stack([r.tree_statistics.steps for r in results]),
+            is_divergent=torch.stack([r.tree_statistics.is_divergent
+                                      for r in results]))), seconds)
+    metrics.update(check_standard_normal(draws.double().reshape(-1, K_GAUSS),
+                                         0.1, (0.85, 1.15)))
+    rhat = float(ess_rhat_device(draws.double())["rhat"].max())
+    check(rhat <= 1.05, f"split R-hat up to {rhat:.4f}")
+    acc = float(torch.stack([r.tree_statistics.acceptance_rate.mean()
+                             for r in results]).mean())
+    check(0.6 <= acc <= 0.95, f"mean acceptance {acc:.4f}")
+    metrics.update({"max_rhat": rhat, "mean_acceptance": acc,
+                    "eps": [float(r.eps) for r in results]})
+    return metrics
 
 
 def path_metrics(res, seconds):
@@ -486,11 +644,13 @@ def time_call(fn, args, reps):
 
 def profile_run(name, fn):
     """fn() under torch.profiler: wall, device time of the kernels by name,
-    other device work and the idle share (1 - device busy / wall)."""
+    other device work and the idle share (1 - device busy / wall). Device
+    activity only: the host ops' events would multiply the profiler's
+    processing time and are not read."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -503,8 +663,8 @@ def profile_run(name, fn):
             rows.append((e.key, dev_us, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
-    kern = [r for r in rows if "tree_transition_kernel" in r[0]
-            or "logreg_leaf_kernel" in r[0]]
+    kern = [r for r in rows if any(k in r[0] for k in (
+        "tree_transition_kernel", "logreg_leaf_kernel", "gaussian_leaf_kernel"))]
     ours = sum(r[1] for r in kern) / 1e6
     return {"path": name, "profiled_wall_s": wall,
             "kernels": [{"name": r[0][:60], "device_s": r[1] / 1e6,
@@ -515,17 +675,102 @@ def profile_run(name, fn):
                            "calls": r[2]} for r in rows if r not in kern][:6]}
 
 
-def build_all():
-    """Phase 2: both CUDA libraries, one nvcc each, in parallel."""
-    from dynamichmc_tpu_torch.ops import logreg_leaf, tree_kernel
+def device_ms(fn, args, reps, kernel_name):
+    """Device time per call of the kernel named ``kernel_name`` over
+    ``reps`` calls, from torch.profiler (the wrapper's host time excluded):
+    the mean over the launches the profiler recorded. It may miss one at
+    the start of a session, and no more."""
+    from torch.profiler import ProfilerActivity, profile
 
-    libs = (tree_kernel.library, logreg_leaf.library)
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel_name in e.key and e.device_type.name == "CUDA":
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+            count += e.count
+    check(reps - 1 <= count <= reps,
+          f"profiler saw {count} {kernel_name} launches of {reps}")
+    return total / count / 1e3
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def bound(flops, n_bytes):
+    """(bound_ms, bound_by): the larger of the operations over the fp32 peak
+    and the bytes over the memory rate."""
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_mem = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_mem else (t_mem, "bytes")
+
+
+def tree_kernel_bound(args):
+    """The tree kernel's bound on one phase-5 call: the leaves each chain
+    executed on these inputs (the kernel's ``work``) times the leaf's
+    operations, and every input and output once. Operations per leaf:
+    Gaussian 8 K^2 + 30 K dense (drift M^-1 p, gradient, value, M^-1 p'),
+    4 K^2 + 30 K diagonal; funnel 30 K; logreg 4 n K + 10 n + 30 K (the
+    two products with X, the softplus and sigmoid terms)."""
+    from dynamichmc_tpu_torch.ops import tree_kernel
+
+    out = tree_kernel.tree_transition(*args)
+    torch.cuda.synchronize()
+    leaves = int(out["work"].sum())
+    K = args[0].shape[1]
+    leaf = args[9]
+    if leaf.kind == tree_kernel.GAUSSIAN:
+        per_leaf = (8 if args[8].ndim == 2 else 4) * K * K + 30 * K
+    elif leaf.kind == tree_kernel.FUNNEL:
+        per_leaf = 30 * K
+    else:
+        per_leaf = 4 * leaf.n_obs * K + 10 * leaf.n_obs + 30 * K
+    outputs = [v for v in out.values() if torch.is_tensor(v)]
+    return bound(leaves * per_leaf,
+                 nbytes(*args[:9], *leaf.operands) + nbytes(*outputs)
+                 - nbytes(args[5]))  # directions are passed through
+
+
+def gaussian_bound(args, write_pi):
+    """The fused Gaussian leaf's (write_pi) or leapfrog's bound: per chain
+    4 K^2 + 13 K operations (10 K without pi), every input and output once."""
+    metric, q = args[0], args[1]
+    C, K = q.shape
+    ops = C * (4 * K * K + (13 if write_pi else 10) * K)
+    outs = 4 * (3 * C * K + (2 if write_pi else 1) * C)
+    return bound(ops, nbytes(metric.m_inv, *args[1:]) + outs)
+
+
+def logreg_leaf_bound(args):
+    """The fused logreg leaf's bound: per chain 4 n K + 10 n + 12 K
+    operations (both products with X, the softplus and sigmoid terms, the
+    leapfrog), every input and output once."""
+    metric, q, x = args[0], args[1], args[5]
+    C, K = q.shape
+    n = x.shape[0]
+    ops = C * (4 * n * K + 10 * n + 12 * K)
+    outs = 4 * (3 * C * K + 2 * C)
+    return bound(ops, nbytes(metric.m_inv, *args[1:7]) + outs)
+
+
+def build_all():
+    """Phase 2: every CUDA library, one nvcc each, in parallel."""
+    from dynamichmc_tpu_torch.ops import gaussian_leaf, logreg_leaf, tree_kernel
+
+    libs = (tree_kernel.library, logreg_leaf.library, gaussian_leaf.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib.build(), libs))
     seconds = time.perf_counter() - t0
     for lib, so in zip(libs, paths):
-        log(f"[2 build] {os.path.relpath(so)} ({seconds:.1f} s for both)")
+        log(f"[2 build] {os.path.relpath(so)} ({seconds:.1f} s for all)")
         for line in lib.build_log.splitlines():
             if "ptxas info" in line and ("registers" in line or "Compiling" in line):
                 log(f"[2 build] {line.strip()}")
@@ -553,10 +798,12 @@ def main():
 
 
 def run_phases(dev, smi, profile=False):
-    """Phases 3-5 on ``dev``; prints the kernels line."""
+    """Phases 3-5 on ``dev``; prints the kernels line. ``profile``: repeat
+    each path under torch.profiler."""
     from dynamichmc_tpu_torch.models import (
-        correlated_gaussian, funnel, logistic_regression)
-    from dynamichmc_tpu_torch.ops import logreg_leaf, tree_kernel
+        correlated_gaussian, funnel, logistic_regression, mvnormal)
+    from dynamichmc_tpu_torch.ops import (
+        gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel)
 
     # --- phase 3: every kernel against its plain version -----------------
     gauss = correlated_gaussian(K_MAIN, dtype=torch.float32, device=dev,
@@ -566,8 +813,14 @@ def run_phases(dev, smi, profile=False):
                                   device=dev, tree_kernel=True)
     lr_fused = logistic_regression(N_OBS, K_LOGREG, dtype=torch.float32,
                                    device=dev, fused=True)
+    # BASELINE config 1: N(0, I_25) through the Gaussian model with hooks
+    normal = mvnormal(np.zeros(K_GAUSS), np.eye(K_GAUSS), dtype=torch.float32,
+                      device=dev, fused=True)
+    gauss100 = correlated_gaussian(K_MAIN, dtype=torch.float32, device=dev,
+                                   fused=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    phase3 = {"gaussian": [], "funnel": [], "logreg_tree": [], "logreg_fused": []}
+    phase3 = {"gaussian": [], "funnel": [], "logreg_tree": [],
+              "logreg_fused": [], "gaussian_leaf": [], "gaussian_leapfrog": []}
 
     def phase3_result(key, r):
         phase3[key].append(r)
@@ -582,6 +835,23 @@ def run_phases(dev, smi, profile=False):
     for kind in ("shared_diag", "chain_diag", "shared_dense"):
         phase3_result("logreg_fused",
                       compare_fused_leaf(lr_fused, C_LOGREG, kind, gen))
+    leaf_inputs = {  # name -> (model, C, metric form)
+        "gaussian_leaf 4096x25 shared_diag": (normal, C_GAUSS, "shared_diag"),
+        "gaussian_leaf 4096x25 chain_diag": (normal, C_GAUSS, "chain_diag"),
+        "gaussian_leaf 4096x100 chain_diag": (gauss100, C_GAUSS, "chain_diag"),
+    }
+    for name, (model, C, kind) in leaf_inputs.items():
+        phase3_result("gaussian_leaf", compare_gaussian(
+            name, gaussian_leaf.gaussian_leaf, gaussian_leaf.gaussian_leaf_plain,
+            gaussian_leaf_inputs(model, C, kind, gen)))
+    for name, C, kind in (("gaussian_leapfrog 4096x25 chain_diag", C_GAUSS,
+                           "chain_diag"),
+                          ("gaussian_leapfrog 1x25 shared_diag", 1,
+                           "shared_diag")):
+        phase3_result("gaussian_leapfrog", compare_gaussian(
+            name, gaussian_leapfrog.gaussian_leapfrog,
+            gaussian_leapfrog.gaussian_leapfrog_plain,
+            gaussian_leaf_inputs(normal, C, kind, gen)))
     log_phase_done(3)
     max_abs = {name: max(max(r["max_abs_diff"][f] for f in ("q", "p", "g")
                              if f in r["max_abs_diff"]) for r in results)
@@ -595,29 +865,43 @@ def run_phases(dev, smi, profile=False):
         "funnel": (fun, C_FUNNEL, path_config("diagonal", MD_FUNNEL)),
         "logreg_tree": (lr_tree, C_LOGREG, path_config("diagonal", MD_LOGREG)),
         "logreg_fused": (lr_fused, C_LOGREG, path_config("diagonal", MD_LOGREG)),
+        # BASELINE config 1 under the fleet: the reference-default warmup
+        "gauss_fused": (normal, C_GAUSS, {"tune": "reference"}),
     }
     launches, summaries = {}, {}
     for name, (model, C, config) in paths.items():
         res, seconds, counts = run_path(model, C, N_DRAWS, SEED, config, dev)
         check(tuple(res.positions.shape) == (C, N_DRAWS, model.dim),
               f"{name}: positions shape {tuple(res.positions.shape)}")
-        if name == "logreg_fused":
+        check(counts["gaussian_leapfrog"] == 0,
+              f"{name}: the fused Gaussian leapfrog launched")
+        if name in ("logreg_fused", "gauss_fused"):
+            own = "logreg_fused_leaf" if name == "logreg_fused" else "gaussian_fused_leaf"
+            other = "gaussian_fused_leaf" if name == "logreg_fused" else "logreg_fused_leaf"
             check(counts["tree_transition"] == 0,
                   f"{name}: the tree kernel launched")
-            check(counts["logreg_fused_leaf"] == counts["driver_fused_leaves"] > 0,
-                  f"{name}: fused leaf launched {counts['logreg_fused_leaf']} "
-                  f"times for {counts['driver_fused_leaves']} driver leaves")
-            launches[name] = counts["logreg_fused_leaf"]
+            check(counts[other] == 0, f"{name}: {other} launched")
+            check(counts[own] == counts["driver_fused_leaves"] > 0,
+                  f"{name}: {own} launched {counts[own]} times for "
+                  f"{counts['driver_fused_leaves']} driver leaves")
+            launches[name] = counts[own]
         else:
             check(counts["tree_transition"] == expected,
                   f"{name}: kernel launched {counts['tree_transition']} times "
                   f"in the run, expected {expected} (one per transition)")
-            check(counts["logreg_fused_leaf"] == 0, f"{name}: fused leaf launched")
+            check(counts["logreg_fused_leaf"] == counts["gaussian_fused_leaf"] == 0,
+                  f"{name}: a fused leaf launched")
             launches[name] = counts["tree_transition"]
         if name == "main":
             metrics = check_draws(model, res, seconds)
         elif name == "funnel":
             metrics = check_funnel(res, seconds)
+        elif name == "gauss_fused":
+            metrics, _ess = path_metrics(res, seconds)
+            metrics.update(check_standard_normal(
+                res.positions.double().reshape(-1, K_GAUSS), 0.05, (0.9, 1.1)))
+            metrics["leaf_slots_per_transition"] = (
+                counts["driver_fused_leaves"] / expected)
         else:
             metrics, ess = path_metrics(res, seconds)
             summaries[name] = posterior_summary(res, ess)
@@ -631,35 +915,83 @@ def run_phases(dev, smi, profile=False):
     z = check_logreg_agreement(summaries["logreg_tree"], summaries["logreg_fused"])
     log(f"[4 path] logreg_tree vs logreg_fused: max |dmean| / mcse = {z:.4f}")
 
+    # per_chain: BASELINE config 1 through mcmc_with_warmup, one chain per call
+    results, seconds, counts = run_per_chain(normal, dev)
+    for r in results:
+        check(tuple(r.positions.shape) == (N_PER_CHAIN, K_GAUSS),
+              f"per_chain: positions shape {tuple(r.positions.shape)}")
+    check(counts["gaussian_leapfrog"] == counts["leapfrog_calls"] > 0,
+          f"per_chain: fused leapfrog launched {counts['gaussian_leapfrog']} "
+          f"times for {counts['leapfrog_calls']} leapfrog calls")
+    check(counts["tree_transition"] == counts["gaussian_fused_leaf"]
+          == counts["logreg_fused_leaf"] == 0, "per_chain: another kernel launched")
+    launches["per_chain"] = counts["gaussian_leapfrog"]
+    metrics = check_per_chain(results, seconds)
+    metrics.update({"path": "per_chain", "launch_counts": counts,
+                    "chains": len(results), "draws": N_PER_CHAIN,
+                    "dim": K_GAUSS, "gpu": smi})
+    log(f"[4 path] {json.dumps(metrics)}")
+    del results
     log_phase_done(4)
 
-    # --- phase 5: kernel time against plain ------------------------------
-    times = {}
+    # --- phase 5: kernel time against plain, and each kernel's bound -----
+    times, bounds = {}, {}
     args = kernel_inputs(gauss, C_MAIN, MD_MAIN, "dense", MD_MAIN, gen)
     times["gaussian"] = (time_call(tree_kernel.tree_transition, args, 50),
                          time_call(tree_kernel.tree_transition_plain, args, 5))
+    bounds["gaussian"] = tree_kernel_bound(args)
     args = kernel_inputs(fun, C_FUNNEL, MD_FUNNEL, "diag", MD_FUNNEL, gen)
     times["funnel"] = (time_call(tree_kernel.tree_transition, args, 20),
                        time_call(tree_kernel.tree_transition_plain, args, 3))
+    bounds["funnel"] = tree_kernel_bound(args)
     args = kernel_inputs(lr_tree, C_LOGREG, MD_LOGREG, "diag", MD_LOGREG, gen)
     times["logreg_tree"] = (time_call(tree_kernel.tree_transition, args, 5),
                             time_call(tree_kernel.tree_transition_plain, args, 3))
+    bounds["logreg_tree"] = tree_kernel_bound(args)
     args = fused_leaf_inputs(lr_fused, C_LOGREG, "shared_diag", gen)
     times["logreg_fused"] = (time_call(logreg_leaf.logreg_leaf, args, 50),
                              time_call(logreg_leaf.logreg_leaf_plain, args, 50))
+    bounds["logreg_fused"] = logreg_leaf_bound(args)
     shapes = {"gaussian": [C_MAIN, K_MAIN, MD_MAIN, "dense"],
               "funnel": [C_FUNNEL, K_FUNNEL, MD_FUNNEL, "diag"],
               "logreg_tree": [C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG, "diag"],
               "logreg_fused": [C_LOGREG, K_LOGREG, N_OBS, "shared_diag"]}
+    device_times = {}
+    fused = {  # name -> (kernel, plain, CUDA kernel, model, C, metric form)
+        "gaussian_leaf": (gaussian_leaf.gaussian_leaf,
+                          gaussian_leaf.gaussian_leaf_plain, True, normal,
+                          C_GAUSS, "chain_diag"),
+        "gaussian_leaf_k100": (gaussian_leaf.gaussian_leaf,
+                               gaussian_leaf.gaussian_leaf_plain, True,
+                               gauss100, C_GAUSS, "chain_diag"),
+        "gaussian_leapfrog": (gaussian_leapfrog.gaussian_leapfrog,
+                              gaussian_leapfrog.gaussian_leapfrog_plain, False,
+                              normal, 1, "shared_diag"),
+        "gaussian_leapfrog_4096": (gaussian_leapfrog.gaussian_leapfrog,
+                                   gaussian_leapfrog.gaussian_leapfrog_plain,
+                                   False, normal, C_GAUSS, "chain_diag"),
+    }
+    for name, (kernel, plain, write_pi, model, C, kind) in fused.items():
+        args = gaussian_leaf_inputs(model, C, kind, gen)
+        times[name] = (time_call(kernel, args, 200), time_call(plain, args, 200))
+        device_times[name] = device_ms(kernel, args, 50, "gaussian_leaf_kernel")
+        bounds[name] = gaussian_bound(args, write_pi)
+        shapes[name] = [C, model.dim, kind]
     for name, (kernel_ms, plain_ms) in times.items():
-        log(f"[5 kernel time] {json.dumps({'kernel': name, 'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'shape': shapes[name], 'gpu': smi})}")
+        line = {"kernel": name, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "shape": shapes[name], "gpu": smi}
+        if name in device_times:
+            line["kernel_device_ms"] = device_times[name]
+        log(f"[5 kernel time] {json.dumps(line)}")
 
     log_phase_done(5)
     if profile:
         for name, (model, C, config) in paths.items():
             log(f"[profile] {json.dumps(profile_run(name, lambda: run_path(model, C, N_DRAWS, SEED, config, dev)))}")
+        log(f"[profile] {json.dumps(profile_run('per_chain', lambda: run_per_chain(normal, dev)))}")
 
-    entries = [
+    entries = [  # name, phase-3/5 key, path, replaces, source
         ("tree_transition", "gaussian", "main", "dynamichmc_tpu/ops/pallas_tree.py:93",
          "tree_kernel.cu"),
         ("tree_transition_funnel", "funnel", "funnel",
@@ -668,6 +1000,10 @@ def run_phases(dev, smi, profile=False):
          "dynamichmc_tpu/ops/pallas_tree.py:762", "tree_kernel.cu"),
         ("logreg_fused_leaf", "logreg_fused", "logreg_fused",
          "dynamichmc_tpu/ops/pallas_logreg.py:53", "logreg_leaf.cu"),
+        ("gaussian_fused_leaf", "gaussian_leaf", "gauss_fused",
+         "dynamichmc_tpu/ops/pallas_leaf.py:32", "gaussian_leaf.cu"),
+        ("gaussian_fused_leapfrog", "gaussian_leapfrog", "per_chain",
+         "dynamichmc_tpu/ops/pallas_leapfrog.py:42", "gaussian_leaf.cu"),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
@@ -678,6 +1014,9 @@ def run_phases(dev, smi, profile=False):
         "max_abs_err": max_abs[key],
         "ms": times[key][0],
         "plain_ms": times[key][1],
+        "bound_ms": bounds[key][0],
+        "bound_by": bounds[key][1],
+        "library_ms": None,  # no single PyTorch call computes a transition or leaf
     } for name, key, path, replaces, src in entries]}))
 
 

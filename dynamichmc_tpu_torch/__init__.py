@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of the batched NUTS sampler ``dynamichmc_tpu``.
 
 Imports torch, numpy and scipy only; never JAX or the JAX package. The hot
-loop of the main path, one whole NUTS transition per chain, is the
-hand-written CUDA kernel in csrc/tree_kernel.cu (ops/tree_kernel.py).
+loops run in hand-written CUDA kernels (csrc/): one whole NUTS transition
+per chain (tree_kernel.cu), the fused logreg leaf (logreg_leaf.cu) and the
+fused Gaussian leaf and leapfrog (gaussian_leaf.cu). ``run_chains`` runs a
+batch of chains; ``mcmc_with_warmup`` runs one.
 
 float32 matrix products run in full fp32: TF32 is switched off here for
 every matmul and convolution the port issues.
@@ -14,9 +16,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .errors import DynamicHMCError  # noqa: E402
-from .hamiltonian import EvaluatedPoint, evaluate  # noqa: E402
+from .hamiltonian import (  # noqa: E402
+    EvaluatedPoint,
+    PhasePoint,
+    evaluate,
+    evaluate_strict,
+    leapfrog,
+)
 from .logdensity import LogDensity, from_logdensity_fn  # noqa: E402
-from .mcmc import MCMCResult  # noqa: E402
+from .mcmc import MCMCResult, mcmc_with_warmup  # noqa: E402
 from .metric import (  # noqa: E402
     DenseMetric,
     DiagonalMetric,
@@ -30,7 +38,8 @@ from .warmup import TuningNUTS, default_warmup_stages  # noqa: E402
 
 __all__ = [
     "DenseMetric", "DiagonalMetric", "DynamicHMCError", "EvaluatedPoint",
-    "LogDensity", "MCMCResult", "NUTS", "TreeStatistics", "TuningNUTS",
-    "default_warmup_stages", "dense_metric", "diagonal_metric", "evaluate",
-    "from_logdensity_fn", "identity_metric", "run_chains",
+    "LogDensity", "MCMCResult", "NUTS", "PhasePoint", "TreeStatistics",
+    "TuningNUTS", "default_warmup_stages", "dense_metric", "diagonal_metric",
+    "evaluate", "evaluate_strict", "from_logdensity_fn", "identity_metric",
+    "leapfrog", "mcmc_with_warmup", "run_chains",
 ]

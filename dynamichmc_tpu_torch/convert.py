@@ -2,7 +2,8 @@
 
 Each function reads plain attributes (``m_inv``, ``q``, ``count`` ...) of an
 object from ``dynamichmc_tpu`` through ``np.asarray``, so this module never
-imports JAX; the tests use it to feed both packages identical inputs.
+imports JAX; the tests use it to feed both packages identical inputs. The
+model builders default to ``device="cuda"`` as the model factories do.
 """
 
 from __future__ import annotations
@@ -69,14 +70,14 @@ def welford_state(obj, dtype=None, device=None) -> WelfordState:
                         m2=tensor(obj.m2, dtype, device))
 
 
-def gaussian_model(obj, dtype=torch.float64, device=None,
-                   tree_kernel: bool = False):
+def gaussian_model(obj, dtype=torch.float64, device="cuda",
+                   fused: bool = False, tree_kernel: bool = False):
     """The port's Gaussian with the mean and covariance of a JAX Gaussian
     TestModel (``mean_fn`` / ``cov_fn``): prec and L^T are rebuilt in
     float64 by the same numpy calls, so the arrays match."""
     return mvnormal(np.asarray(obj.mean_fn(), np.float64),
                     np.asarray(obj.cov_fn(), np.float64), dtype=dtype,
-                    device=device, tree_kernel=tree_kernel)
+                    device=device, fused=fused, tree_kernel=tree_kernel)
 
 
 def _closure(fn) -> dict:
@@ -94,7 +95,7 @@ def logreg_data(obj):
             np.asarray(cells["y"], np.float64), float(cells["prior_scale"]))
 
 
-def logreg_model(obj, dtype=torch.float64, device=None, fused=False,
+def logreg_model(obj, dtype=torch.float64, device="cuda", fused=False,
                  tree_kernel=False):
     """The port's logistic regression on the same (X, y) and prior as a
     JAX ``logistic_regression`` TestModel."""
@@ -104,7 +105,7 @@ def logreg_model(obj, dtype=torch.float64, device=None, fused=False,
         fused=fused, tree_kernel=tree_kernel)
 
 
-def funnel_model(obj, dtype=torch.float64, device=None,
+def funnel_model(obj, dtype=torch.float64, device="cuda",
                  tree_kernel: bool = False):
     """The port's funnel with the dimension and sigma_v of a JAX ``funnel``
     TestModel (it holds no arrays)."""

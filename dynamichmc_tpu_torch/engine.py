@@ -1,28 +1,38 @@
-"""Staged warmup + sampling, single device (port of the batch-native parts
-of ``dynamichmc_tpu.engine``).
+"""Staged warmup + sampling, single device (port of the batch-native and
+per-chain drivers of ``dynamichmc_tpu.engine``).
 
 The JAX engine compiles the whole warmup into one program and chunks it
 into dispatches that stay under the TPU runtime's watchdog. PyTorch runs
 eagerly, so here the same schedule is a Python loop over the global step
 index: block boundaries (dual-averaging restart, metric re-estimate,
 Welford reset) happen between two transitions, with the same semantics.
+
+One loop serves both chain layouts. A :class:`ChainOps` names the
+transition, the stepsize search and the Welford fold: ``batched_ops`` for a
+(C, K) chain batch (run_chains), ``PER_CHAIN`` for one (K,) chain
+(mcmc_with_warmup).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from .errors import DynamicHMCError
-from .hamiltonian import EvaluatedPoint
+from .hamiltonian import EvaluatedPoint, PhasePoint
 from .logdensity import LogDensity
-from .metric import DiagonalMetric, Metric, dense_metric
-from .nuts import NUTS, TreeStatistics
-from .stepsize import InitialStepsizeSearch
+from .metric import DiagonalMetric, Metric, dense_metric, rand_p
+from .nuts import NUTS, TreeStatistics, sample_tree
+from .stepsize import (
+    InitialStepsizeSearch,
+    find_initial_stepsize,
+    local_log_acceptance_ratio,
+)
 from .tree_batched import _Edge, _joint_b, _leapfrog_b, rand_p_b, sample_tree_batched
 from .utils.welford import (
+    welford_update,
     welford_update_b,
     welford_update_pooled_b,
     welford_zero,
@@ -114,6 +124,68 @@ def make_search_driver_batched(ld: LogDensity, params: InitialStepsizeSearch):
     return search
 
 
+def make_search_driver(ld: LogDensity, params: InitialStepsizeSearch):
+    """(generator, Q, metric[, p]) -> (eps, success, l0) for one chain (JAX
+    ``engine.make_search_driver``); ``p`` injects the momentum (tests)."""
+
+    def search(generator, Q: EvaluatedPoint, metric: Metric, p=None):
+        if p is None:
+            p = rand_p(generator, metric, dtype=Q.q.dtype)
+        A, l0 = local_log_acceptance_ratio(ld, metric, PhasePoint(Q=Q, p=p))
+        eps, success = find_initial_stepsize(params, A, dtype=Q.q.dtype,
+                                             device=Q.q.device)
+        return eps, success, l0
+
+    return search
+
+
+class ChainOps(NamedTuple):
+    """What the schedule loop needs from a chain layout.
+
+    transition(generator, algorithm, ld, metric, Q, eps, depth_limit)
+        -> (Q', TreeStatistics)
+    make_search(ld, InitialStepsizeSearch) -> search(generator, Q, metric)
+        -> (eps, success, l0)
+    welford_zero(q, dense) -> WelfordState; welford_update(state, q) -> state
+    """
+
+    transition: Callable
+    make_search: Callable
+    welford_zero: Callable
+    welford_update: Callable
+
+
+def _shared_welford_zero(q, dense: bool):
+    return welford_zero_shared(q.shape[-1], dense, q.dtype, q.device)
+
+
+def batched_ops(pooled: bool) -> ChainOps:
+    """A (C, K) chain batch: per-chain Welford moments, or one pooled over
+    the batch."""
+    return ChainOps(
+        transition=sample_tree_batched,
+        make_search=make_search_driver_batched,
+        welford_zero=_shared_welford_zero if pooled else welford_zero,
+        welford_update=welford_update_pooled_b if pooled else welford_update_b,
+    )
+
+
+def _per_chain_transition(generator, algorithm, ld, metric, Q, eps,
+                          depth_limit=None):
+    if depth_limit is not None:
+        raise ValueError("the per-chain driver has no warmup depth clamp")
+    return sample_tree(generator, algorithm, ld, metric, Q, eps)
+
+
+PER_CHAIN = ChainOps(
+    transition=_per_chain_transition,
+    make_search=make_search_driver,
+    welford_zero=_shared_welford_zero,
+    welford_update=welford_update,
+)
+"""One (K,) chain through the per-chain fast driver (nuts.sample_tree)."""
+
+
 def promote_metric(metric: Metric, kind: str) -> Metric:
     """Promote a diagonal initial metric to the dense representation when
     the schedule adapts a dense one (numerically a no-op)."""
@@ -124,14 +196,14 @@ def promote_metric(metric: Metric, kind: str) -> Metric:
 
 def run_warmup(generator, ld: LogDensity, algorithm: NUTS,
                schedule: WarmupSchedule, Q: EvaluatedPoint, metric, eps,
-               log=None):
-    """The whole tuning schedule as one loop over the global step index.
-    Returns (Q', metric', eps')."""
+               log=None, ops: Optional[ChainOps] = None):
+    """The whole tuning schedule as one loop over the global step index,
+    for the chain layout ``ops`` (default: a batch, pooled as the schedule
+    says). Returns (Q', metric', eps')."""
+    if ops is None:
+        ops = batched_ops(schedule.pooled)
     adaptation = schedule.adaptation
     kind = schedule.metric_kind
-    pooled = schedule.pooled
-    K = Q.q.shape[1]
-    dtype = Q.q.dtype
     cums = []
     acc = 0
     for s in schedule.block_sizes:
@@ -149,87 +221,91 @@ def run_warmup(generator, ld: LogDensity, algorithm: NUTS,
     for b, n in enumerate(schedule.block_sizes):
         block_of += [b] * n
 
-    def zero_wf():
-        if pooled:
-            return welford_zero_shared(K, kind == "dense", dtype, Q.q.device)
-        return welford_zero(Q.q, kind == "dense")
-
-    wf_upd = welford_update_pooled_b if pooled else welford_update_b
+    dense = kind == "dense"
     metric = promote_metric(metric, kind)
     da = adaptation.init(eps)
-    wf = zero_wf()
+    wf = ops.welford_zero(Q.q, dense)
     eps_run = adaptation.current(da)
     for i in range(total):
         b = block_of[i]
         dl = None
         if clamp is not None:
             dl = clamp if i < clamp_until else algorithm.max_depth
-        Q, stats = sample_tree_batched(
+        Q, stats = ops.transition(
             generator, algorithm, ld, metric, Q, adaptation.current(da),
             depth_limit=dl,
         )
         da = adaptation.update(da, stats.acceptance_rate)
         if schedule.update_metric[b]:
-            wf = wf_upd(wf, Q.q)
+            wf = ops.welford_update(wf, Q.q)
         if i + 1 == cums[b]:  # block boundary
             eps_run = adaptation.final(da)
             da = adaptation.init(eps_run)
             if schedule.update_metric[b]:
                 metric = estimate_metric(wf, kind, schedule.shrinkages[b])
-                wf = zero_wf()
+                wf = ops.welford_zero(Q.q, dense)
             if log is not None:
                 log(f"warmup block {b + 1}/{len(cums)} done ({i + 1} steps)")
     return Q, metric, eps_run
 
 
 def stack_statistics(per_draw) -> TreeStatistics:
-    """Per-draw statistics -> one TreeStatistics of (C, N) fields."""
+    """Per-draw statistics -> one TreeStatistics with the draws on the last
+    axis: (C, N) fields from a batch, (N,) from one chain."""
     fields = [f.name for f in dataclasses.fields(TreeStatistics)]
     return TreeStatistics(**{
-        name: torch.stack([getattr(s, name) for s in per_draw], dim=1)
+        name: (None if getattr(per_draw[0], name) is None else
+               torch.stack([getattr(s, name) for s in per_draw], dim=-1))
         for name in fields
     })
 
 
 def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
-                 Q: EvaluatedPoint, metric, eps, n_samples: int):
-    """n_samples transitions at fixed (metric, eps). Returns
-    (Q', positions (C, N, K), logdensities (C, N), stats (C, N))."""
-    C, K = Q.q.shape
-    positions = torch.empty((C, n_samples, K), dtype=Q.q.dtype,
+                 Q: EvaluatedPoint, metric, eps, n_samples: int,
+                 ops: Optional[ChainOps] = None):
+    """n_samples transitions at fixed (metric, eps). Returns (Q', positions
+    (C, N, K) or (N, K), logdensities (C, N) or (N,), stats)."""
+    if ops is None:
+        ops = batched_ops(False)
+    K = Q.q.shape[-1]
+    lead = tuple(Q.q.shape[:-1])
+    positions = torch.empty(lead + (n_samples, K), dtype=Q.q.dtype,
                             device=Q.q.device)
-    lds = torch.empty((C, n_samples), dtype=Q.q.dtype, device=Q.q.device)
+    lds = torch.empty(lead + (n_samples,), dtype=Q.q.dtype, device=Q.q.device)
     per_draw = []
     for j in range(n_samples):
-        Q, stats = sample_tree_batched(generator, algorithm, ld, metric, Q,
-                                       eps)
-        positions[:, j] = Q.q
-        lds[:, j] = Q.logdensity
+        Q, stats = ops.transition(generator, algorithm, ld, metric, Q, eps,
+                                  depth_limit=None)
+        positions[..., j, :] = Q.q
+        lds[..., j] = Q.logdensity
         per_draw.append(stats)
     return Q, positions, lds, stack_statistics(per_draw)
 
 
 def execute(generator, ld: LogDensity, algorithm: NUTS,
             schedule: WarmupSchedule, Q: EvaluatedPoint, metric, eps,
-            n_samples: int, log=None):
-    """Search (if scheduled), warmup, then sampling. Returns
-    (metric, eps, search_results, (Q, positions, lds, stats))."""
+            n_samples: int, log=None, ops: Optional[ChainOps] = None):
+    """Search (if scheduled), warmup, then sampling, for the chain layout
+    ``ops`` (default: a batch). Returns (metric, eps, search_results,
+    (Q, positions, lds, stats))."""
+    if ops is None:
+        ops = batched_ops(schedule.pooled)
     search_results = None
     if schedule.search is not None:
         if eps is not None:
             raise DynamicHMCError(
                 "stepsize eps manually specified, won't perform initial search"
             )
-        eps, success, l0 = make_search_driver_batched(ld, schedule.search)(
+        eps, success, l0 = ops.make_search(ld, schedule.search)(
             generator, Q, metric
         )
         search_results = {"eps": eps, "success": success, "l0": l0}
     elif eps is None:
         raise DynamicHMCError("no stepsize: provide eps or a search stage")
     Q, metric, eps = run_warmup(
-        generator, ld, algorithm, schedule, Q, metric, eps, log=log
+        generator, ld, algorithm, schedule, Q, metric, eps, log=log, ops=ops
     )
     inference = run_sampling(generator, ld, algorithm, Q, metric, eps,
-                             n_samples)
+                             n_samples, ops=ops)
     return metric, eps, search_results, inference
 

@@ -29,13 +29,18 @@ class LogDensity:
         -inf poisoning applied (ops/logreg_leaf.py). When it is set, the
         plain batch driver (tree_batched.py) computes every leaf of a
         transition with it.
-      fused_leapfrog_fn: hook of the JAX package's per-chain fused
-        leapfrog, whose kernel is not ported yet; always ``None`` here.
+      fused_leapfrog_fn: optional fused leapfrog step
+        ``(metric, z: PhasePoint, eps) -> PhasePoint`` with -inf poisoning
+        applied (ops/gaussian_leapfrog.py). When it is set,
+        ``hamiltonian.leapfrog`` hands it the whole step.
       tree_transition_fn: optional whole-transition kernel hook
         ``(generator, algorithm, metric, Q, eps, depth_limit) ->
         (Q', stats) | None`` (ops/tree_kernel.py). ``sample_tree_batched``
         hands the whole transition to it and runs the plain driver when it
         returns ``None`` (declines).
+      device: where the model's tensors lie (set by the model factories);
+        ``None`` for a model that holds no tensors. The entry points raise
+        when it is not the generator's device (:func:`check_device`).
     """
 
     dim: int
@@ -44,6 +49,7 @@ class LogDensity:
     fused_leapfrog_fn: Optional[Callable] = None
     fused_leaf_batched_fn: Optional[Callable] = None
     tree_transition_fn: Optional[Callable] = None
+    device: Optional[torch.device] = None
 
     def logdensity(self, q):
         return self.logdensity_fn(q)
@@ -61,3 +67,23 @@ class LogDensity:
 def from_logdensity_fn(dim: int, fn: Callable) -> LogDensity:
     """Wrap a plain batched ``q -> value`` function as a :class:`LogDensity`."""
     return LogDensity(dim=dim, logdensity_fn=fn)
+
+
+def resolve_device(device) -> torch.device:
+    """The concrete device ``device`` names (``"cuda"`` -> ``cuda:0``).
+    Raises where that device does not exist, e.g. ``"cuda"`` on a machine
+    without CUDA: pass ``device="cpu"`` there."""
+    try:
+        return torch.empty(0, device=device).device
+    except (AssertionError, RuntimeError) as err:
+        raise RuntimeError(f"device {device!r} is not available ({err}); "
+                           "pass device='cpu' to build on the CPU") from err
+
+
+def check_device(ld: LogDensity, device) -> None:
+    """Raise unless the model's tensors lie on ``device`` (the generator's).
+    The entry points never move a model."""
+    if ld.device is not None and resolve_device(ld.device) != resolve_device(device):
+        raise ValueError(f"the model's tensors lie on {ld.device}, the "
+                         f"generator on {device}: build the model on the "
+                         "generator's device")

@@ -6,7 +6,7 @@ Diagonal metrics store vectors, dense metrics matrices. A leading chain axis
 makes a metric per-chain: (C, K) diagonal or (C, K, K) dense.
 
 The kinetic energy is computed from the SAME M^-1 arrays as the dynamics
-(tree_batched.kinetic_b): a whitened form through a separately computed
+(``kinetic_energy`` here, tree_batched.kinetic_b): a whitened form through a separately computed
 float32 Cholesky is inconsistent with them on ill-conditioned adapted
 metrics and collapses the adapted stepsize.
 """
@@ -66,3 +66,33 @@ def identity_metric(dim: int, m_inv_scalar: float = 1.0,
 def metric_is_batched(metric: Metric) -> bool:
     """Per-chain vs shared metric, decided by array rank."""
     return metric.m_inv.ndim == (2 if isinstance(metric, DiagonalMetric) else 3)
+
+
+# --- one chain: p is (K,), the metric (K,) or (K, K) ----------------------
+
+
+def kinetic_energy(metric: Metric, p: torch.Tensor) -> torch.Tensor:
+    """K(p) = p^T M^-1 p / 2, with the same M^-1 arrays as the dynamics
+    (psharp) and the momentum draw (see the module docstring)."""
+    if isinstance(metric, DiagonalMetric):
+        return 0.5 * (metric.m_inv * p * p).sum(-1)
+    return 0.5 * torch.dot(p, metric.m_inv @ p)
+
+
+def psharp(metric: Metric, p: torch.Tensor) -> torch.Tensor:
+    """p# = M^-1 p, the velocity (dynamics and turn checks)."""
+    if isinstance(metric, DiagonalMetric):
+        return metric.m_inv * p
+    return metric.m_inv @ p
+
+
+def rand_p(generator: torch.Generator, metric: Metric,
+           dtype=None) -> torch.Tensor:
+    """p ~ N(0, M) for one chain: W z with z standard normal, drawn from
+    ``generator`` on the metric's device."""
+    dt = dtype or metric.m_inv.dtype
+    z = torch.randn(metric.m_inv.shape[-1:], generator=generator, dtype=dt,
+                    device=metric.m_inv.device)
+    if isinstance(metric, DiagonalMetric):
+        return metric.w_diag.to(dt) * z
+    return metric.w.to(dt) @ z

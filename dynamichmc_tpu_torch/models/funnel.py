@@ -12,12 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..logdensity import resolve_device
 from .base import TestModel
 
 
-def funnel(dim: int, sigma_v: float = 3.0, dtype=torch.float64, device=None,
-           tree_kernel: bool = False) -> TestModel:
-    """q = (v, x_1..x_{dim-1})."""
+def funnel(dim: int, sigma_v: float = 3.0, dtype=torch.float64,
+           device="cuda", tree_kernel: bool = False) -> TestModel:
+    """q = (v, x_1..x_{dim-1}), on ``device`` ("cuda" unless the caller
+    names another; raises where it does not exist)."""
+    device = resolve_device(device)
     tree_transition_fn = None
     if tree_kernel:
         from ..ops.tree_kernel import make_funnel_tree_transition
@@ -46,6 +49,7 @@ def funnel(dim: int, sigma_v: float = 3.0, dtype=torch.float64, device=None,
         dim=dim,
         logdensity_fn=logdensity_fn,
         tree_transition_fn=tree_transition_fn,
+        device=device,
         sample_fn=sample_fn,
         log_normalization=log_normalization,
     )

@@ -6,6 +6,9 @@ seed gives the same matrices in both packages, and only then cast to the
 model's dtype. The value is the cancellation-free whitened sum of squares
 -0.5 ||L^T d||^2: a direct d . (prec d) quadratic form carries a systematic
 float32 bias that over-disperses the worst-conditioned coordinates.
+
+Every factory builds on ``device`` ("cuda" unless the caller names another,
+e.g. ``device="cpu"``) and raises where that device does not exist.
 """
 
 from __future__ import annotations
@@ -13,11 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..logdensity import resolve_device
 from .base import TestModel
 
 
-def _gaussian_model(mean, cov, dtype, device, tree_kernel: bool = False
-                    ) -> TestModel:
+def _gaussian_model(mean, cov, dtype, device, fused: bool = False,
+                    tree_kernel: bool = False) -> TestModel:
+    device = resolve_device(device)
     mean_np = np.asarray(mean, np.float64)
     dim = mean_np.shape[0]
     cov_np = np.asarray(cov, np.float64)
@@ -40,6 +45,18 @@ def _gaussian_model(mean, cov, dtype, device, tree_kernel: bool = False
             prec, mean_t, prec_chol_t
         )
 
+    fused_leapfrog_fn = fused_leaf_batched_fn = None
+    if fused:
+        from ..ops.gaussian_leaf import make_gaussian_fused_leaf_batched
+        from ..ops.gaussian_leapfrog import make_gaussian_fused_leapfrog
+
+        # both hooks take the model's own f64-built L^T, so the kernels
+        # evaluate the value the model's log density defines
+        fused_leapfrog_fn = make_gaussian_fused_leapfrog(prec, mean_t,
+                                                         prec_chol_t)
+        fused_leaf_batched_fn = make_gaussian_fused_leaf_batched(
+            prec, mean_t, prec_chol_t)
+
     def logdensity_fn(q):
         d = q - mean_t.to(q.dtype)
         w = d @ prec_chol_t.to(q.dtype).mT
@@ -60,7 +77,10 @@ def _gaussian_model(mean, cov, dtype, device, tree_kernel: bool = False
         dim=dim,
         logdensity_fn=logdensity_fn,
         logdensity_and_gradient_fn=logdensity_and_gradient_fn,
+        fused_leapfrog_fn=fused_leapfrog_fn,
+        fused_leaf_batched_fn=fused_leaf_batched_fn,
         tree_transition_fn=tree_transition_fn,
+        device=device,
         sample_fn=sample_fn,
         mean_fn=lambda: mean_t,
         cov_fn=lambda: torch.as_tensor(cov_np, device=device),
@@ -70,8 +90,11 @@ def _gaussian_model(mean, cov, dtype, device, tree_kernel: bool = False
     )
 
 
-def std_normal(dim: int, dtype=torch.float64, device=None) -> TestModel:
-    """N(0, I_dim) with a direct quadratic log density (no matmul)."""
+def std_normal(dim: int, dtype=torch.float64, device="cuda") -> TestModel:
+    """N(0, I_dim) with a direct quadratic log density (no matmul) and no
+    fused hooks, as in the JAX package: the same target with the kernels is
+    ``mvnormal(np.zeros(dim), np.eye(dim), fused=True)``."""
+    device = resolve_device(device)
     mean = torch.zeros((dim,), dtype=dtype, device=device)
 
     def logdensity_fn(q):
@@ -88,6 +111,7 @@ def std_normal(dim: int, dtype=torch.float64, device=None) -> TestModel:
         dim=dim,
         logdensity_fn=logdensity_fn,
         logdensity_and_gradient_fn=logdensity_and_gradient_fn,
+        device=device,
         sample_fn=sample_fn,
         mean_fn=lambda: mean,
         cov_fn=lambda: torch.eye(dim, dtype=dtype, device=device),
@@ -95,16 +119,21 @@ def std_normal(dim: int, dtype=torch.float64, device=None) -> TestModel:
     )
 
 
-def mvnormal(mean, cov, dtype=torch.float64, device=None,
-             tree_kernel: bool = False) -> TestModel:
-    """MVN with the given mean and covariance; ``tree_kernel=True`` attaches
-    the whole-transition kernel hook (ops/tree_kernel.py)."""
-    return _gaussian_model(mean, cov, dtype, device, tree_kernel=tree_kernel)
+def mvnormal(mean, cov, dtype=torch.float64, device="cuda",
+             fused: bool = False, tree_kernel: bool = False) -> TestModel:
+    """MVN with the given mean and covariance. ``fused=True`` attaches the
+    fused leaf (ops/gaussian_leaf.py, the plain batch driver's every leaf)
+    and the fused leapfrog (ops/gaussian_leapfrog.py, every per-chain
+    leapfrog); ``tree_kernel=True`` the whole-transition kernel
+    (ops/tree_kernel.py)."""
+    return _gaussian_model(mean, cov, dtype, device, fused=fused,
+                           tree_kernel=tree_kernel)
 
 
 def correlated_gaussian(
     dim: int, rho: float = 0.8, seed: int = 0, random_rotation: bool = True,
-    dtype=torch.float64, device=None, tree_kernel: bool = False,
+    dtype=torch.float64, device="cuda", fused: bool = False,
+    tree_kernel: bool = False,
 ) -> TestModel:
     """The dense correlated Gaussian of the benchmark: equicorrelated with
     coefficient ``rho``, optionally randomly rotated and scaled."""
@@ -115,5 +144,5 @@ def correlated_gaussian(
         scales = np.exp(rng.uniform(-1, 1, dim))
         base = (q * scales) @ base @ (q * scales).T
     base = (base + base.T) / 2
-    return _gaussian_model(np.zeros(dim), base, dtype, device,
+    return _gaussian_model(np.zeros(dim), base, dtype, device, fused=fused,
                            tree_kernel=tree_kernel)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..logdensity import resolve_device
 from .base import TestModel
 
 
@@ -27,10 +28,12 @@ def synthetic_data(n_obs: int, dim: int, seed: int):
 
 
 def logistic_regression_from_data(x, y, prior_scale: float = 10.0,
-                                  dtype=torch.float64, device=None,
+                                  dtype=torch.float64, device="cuda",
                                   fused=False, tree_kernel=False) -> TestModel:
     """The posterior for design matrix ``x`` (n_obs, dim) and 0/1
-    responses ``y`` under a N(0, prior_scale^2 I) prior.
+    responses ``y`` under a N(0, prior_scale^2 I) prior, on ``device``
+    ("cuda" unless the caller names another; raises where it does not
+    exist).
 
     ``fused=True`` attaches the fused leaf (ops/logreg_leaf.py): the plain
     batch driver then runs every leaf (leapfrog, both products with X, the
@@ -44,6 +47,7 @@ def logistic_regression_from_data(x, y, prior_scale: float = 10.0,
             "fused='auto' / tree_kernel='auto': the dispatch rule is TPU-"
             "specific and not ported; pass True or False"
         )
+    device = resolve_device(device)
     x_np = np.asarray(x, np.float64)
     y_np = np.asarray(y, np.float64)
     n_obs, dim = x_np.shape
@@ -78,12 +82,13 @@ def logistic_regression_from_data(x, y, prior_scale: float = 10.0,
         logdensity_fn=logdensity_fn,
         fused_leaf_batched_fn=fused_leaf_batched_fn,
         tree_transition_fn=tree_transition_fn,
+        device=device,
     )
 
 
 def logistic_regression(n_obs: int = 1000, dim: int = 25, seed: int = 0,
                         prior_scale: float = 10.0, dtype=torch.float64,
-                        device=None, fused=False,
+                        device="cuda", fused=False,
                         tree_kernel=False) -> TestModel:
     """Synthetic logistic regression (BASELINE config 3): the data of
     :func:`synthetic_data`, then :func:`logistic_regression_from_data`."""

@@ -11,7 +11,7 @@ import torch
 from ..engine import WarmupSchedule, execute
 from ..errors import DynamicHMCError
 from ..hamiltonian import evaluate
-from ..logdensity import LogDensity
+from ..logdensity import LogDensity, check_device
 from ..mcmc import MCMCResult, _check_stepsize_search
 from ..metric import Metric, identity_metric, metric_is_batched
 from ..nuts import NUTS
@@ -33,12 +33,14 @@ def init_chain_states(
     dtype=torch.float32,
     broadcast_metric: bool = True,
 ) -> WarmupState:
-    """Initial states: uniform [-2, 2]^K positions per chain (or the given
-    ``q``), identity metric, optional shared eps. The initial point is
-    checked strictly: a non-finite log density at any chain raises
-    ``DynamicHMCError`` naming the chains. ``broadcast_metric=False`` keeps a
-    shared metric unbatched (pooled adaptation)."""
+    """Initial states on the generator's device: uniform [-2, 2]^K
+    positions per chain (or the given ``q``), identity metric, optional
+    shared eps. The initial point is checked strictly: a non-finite log
+    density at any chain raises ``DynamicHMCError`` naming the chains.
+    ``broadcast_metric=False`` keeps a shared metric unbatched (pooled
+    adaptation). Raises when the model's tensors lie on another device."""
     device = generator.device
+    check_device(ld, device)
     if q is None:
         q = random_position(generator, n_chains, ld.dim, dtype, device)
     else:

@@ -2,7 +2,9 @@
 ``dynamichmc_tpu.stepsize``).
 
 Dual averaging is a pure state fold with per-chain ``(C,)`` state (or a
-scalar state when pooled). The batched bracketing search itself lives in
+scalar state when pooled). The bracketing search of one chain is
+``local_log_acceptance_ratio`` + ``find_initial_stepsize`` (eager, one host
+read per iteration); the batched search lives in
 engine.make_search_driver_batched.
 """
 
@@ -12,6 +14,10 @@ import dataclasses
 import math
 
 import torch
+
+from .hamiltonian import PhasePoint, joint_logdensity, leapfrog
+from .logdensity import LogDensity
+from .metric import Metric
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +36,38 @@ class InitialStepsizeSearch:
             raise ValueError("initial_eps must be finite and positive")
         if self.maxiter_crossing < 50:
             raise ValueError("maxiter_crossing must be >= 50")
+
+
+def local_log_acceptance_ratio(ld: LogDensity, metric: Metric, z: PhasePoint):
+    """(A, l0): A(eps) is the uncapped one-step log acceptance ratio around
+    ``z`` (stepsize.jl:75-85), l0 the joint log density at ``z``."""
+    l0 = joint_logdensity(metric, z)
+
+    def A(eps):
+        z1 = leapfrog(ld, metric, z, eps)
+        return joint_logdensity(metric, z1) - l0
+
+    return A, l0
+
+
+def find_initial_stepsize(params: InitialStepsizeSearch, A, dtype=None,
+                          device=None):
+    """The bracketing search of one chain (stepsize.jl:46-60): double or
+    halve eps until A(eps) crosses ``log_threshold``.
+
+    Returns ``(eps, success)`` as 0-d tensors; ``success`` is False when no
+    crossing came within ``maxiter_crossing`` iterations (the caller raises
+    on the host, as the JAX package does)."""
+    eps = torch.tensor(params.initial_eps, dtype=dtype, device=device)
+    thr = params.log_threshold
+    double = bool(A(eps) > thr)
+    found, it = False, 0
+    while not found and it < params.maxiter_crossing:
+        eps = eps * 2 if double else eps / 2
+        a = A(eps)
+        found = bool(a < thr) if double else bool(a > thr)
+        it += 1
+    return eps, torch.tensor(found, device=device)
 
 
 @dataclasses.dataclass

@@ -29,7 +29,12 @@ from .hamiltonian import EvaluatedPoint, evaluate
 from .logdensity import LogDensity
 from .metric import DiagonalMetric, Metric
 from .nuts import NUTS, AcceptanceStatistic, TreeStatistics, acceptance_rate
-from .tree import TreeNoise, normalize_termination
+from .tree import (
+    TreeNoise,
+    exponential_like,
+    gumbel_like,
+    normalize_termination,
+)
 
 # --- batched metric helpers (shared or per-chain) ----------------------------
 
@@ -68,17 +73,6 @@ def random_directions(generator, C: int, device) -> torch.Tensor:
     x = torch.randint(0, 1 << 32, (C,), generator=generator,
                       dtype=torch.int64, device=device)
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
-
-
-def gumbel_like(generator, shape, dtype, device):
-    """Gumbel(0, 1) as -log(Exponential(1)), which never takes log(0)."""
-    e = torch.empty(shape, dtype=dtype, device=device)
-    return -torch.log(e.exponential_(generator=generator))
-
-
-def exponential_like(generator, shape, dtype, device):
-    e = torch.empty(shape, dtype=dtype, device=device)
-    return e.exponential_(generator=generator)
 
 
 def _dot(a, b):

@@ -33,6 +33,19 @@ def welford_covariance(state: WelfordState) -> torch.Tensor:
     return (cov + cov.mT) / 2
 
 
+def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
+    """One chain's update: x (K,); m2 (K,) or (K, K)."""
+    count = state.count + 1
+    delta = x - state.mean
+    mean = state.mean + delta / count
+    delta2 = x - mean
+    if state.m2.ndim == 2:
+        m2 = state.m2 + torch.outer(delta, delta2)
+    else:
+        m2 = state.m2 + delta * delta2
+    return WelfordState(count=count, mean=mean, m2=m2)
+
+
 def welford_update_b(state: WelfordState, x: torch.Tensor) -> WelfordState:
     """Per-chain update: x (C, K); m2 (C, K) or (C, K, K)."""
     count = state.count + 1

@@ -14,8 +14,9 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .hamiltonian import EvaluatedPoint
-from .metric import Metric, dense_metric, diagonal_metric
+from .hamiltonian import EvaluatedPoint, evaluate, evaluate_strict
+from .logdensity import LogDensity, check_device
+from .metric import Metric, dense_metric, diagonal_metric, identity_metric
 from .stepsize import (
     DualAveraging,
     FixedStepsize,
@@ -100,12 +101,39 @@ def default_warmup_stages(
     )
 
 
-def random_position(generator, n_chains: int, dim: int, dtype=torch.float32,
-                    device=None) -> torch.Tensor:
-    """Uniform [-2, 2]^K initial positions, one row per chain."""
-    u = torch.rand((n_chains, dim), generator=generator, dtype=dtype,
-                   device=device)
+def random_position(generator, n_chains: Optional[int], dim: int,
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """Uniform [-2, 2]^K initial positions: one row per chain, or one (K,)
+    position when ``n_chains`` is None."""
+    shape = (dim,) if n_chains is None else (n_chains, dim)
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return 4.0 * u - 2.0
+
+
+def initialize_warmup_state(generator: torch.Generator, ld: LogDensity,
+                            q=None, metric: Optional[Metric] = None, eps=None,
+                            dtype=torch.float32, strict: bool = True
+                            ) -> WarmupState:
+    """The state of one chain before warmup (mcmc.jl:129-132), on the
+    generator's device: a uniform [-2, 2]^K position (or ``q``), the
+    identity metric (or ``metric``), no stepsize (or ``eps``).
+
+    ``strict=True`` evaluates the initial point on the host and raises
+    ``DynamicHMCError`` on a non-finite result (mcmc.jl:131). Raises when
+    the model's tensors lie on another device than the generator."""
+    device = generator.device
+    check_device(ld, device)
+    if q is None:
+        q = random_position(generator, None, ld.dim, dtype, device)
+    q = torch.as_tensor(q, dtype=dtype, device=device)
+    if tuple(q.shape) != (ld.dim,):
+        raise ValueError(f"q must have shape {(ld.dim,)}, got {tuple(q.shape)}")
+    if metric is None:
+        metric = identity_metric(ld.dim, dtype=dtype, device=device)
+    Q = evaluate_strict(ld, q) if strict else evaluate(ld, q)
+    if eps is not None:
+        eps = torch.as_tensor(eps, dtype=dtype, device=device)
+    return WarmupState(Q=Q, metric=metric, eps=eps)
 
 
 def estimate_metric(welford: WelfordState, kind: str,

@@ -141,7 +141,7 @@ def test_estimate_metric_matches_jax(kind, lam):
 def test_batched_stepsize_search_matches_jax(metric_kind):
     K, C = 4, 12
     jmodel = jm.correlated_gaussian(K, dtype=jnp.float64)
-    tmodel = tm.correlated_gaussian(K, dtype=torch.float64)
+    tmodel = tm.correlated_gaussian(K, dtype=torch.float64, device="cpu")
     q0 = np.random.default_rng(4).normal(size=(C, K))
     vals, grads = _evaluate_b(jmodel, jnp.asarray(q0))
     Qj = JEvaluatedPoint(q=jnp.asarray(q0), logdensity=vals, grad=grads)

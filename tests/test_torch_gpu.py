@@ -10,13 +10,25 @@ the JAX package).
 import pytest
 import torch
 
-from dynamichmc_tpu_torch.metric import dense_metric, diagonal_metric
+import numpy as np
+
+from dynamichmc_tpu_torch.metric import (
+    DiagonalMetric,
+    dense_metric,
+    diagonal_metric,
+)
 from dynamichmc_tpu_torch.models import (
     correlated_gaussian,
     funnel,
     logistic_regression,
+    mvnormal,
 )
-from dynamichmc_tpu_torch.ops import logreg_leaf, tree_kernel
+from dynamichmc_tpu_torch.ops import (
+    gaussian_leaf,
+    gaussian_leapfrog,
+    logreg_leaf,
+    tree_kernel,
+)
 from dynamichmc_tpu_torch.tree_batched import (
     exponential_like,
     gumbel_like,
@@ -205,3 +217,173 @@ def test_cuda_fused_logreg_leaf_poisoning():
         assert torch.equal(torch.isneginf(a), torch.isneginf(b))
         assert bool(torch.isneginf(a[:2]).all())
         assert bool(torch.isfinite(a[2:]).all())
+
+
+def _gaussian_inputs(model, C, minv_kind, seed=0, poison=True):
+    """Exact draws, a diagonal metric from U[0.5, 2] (shared or per chain),
+    momenta from it, the model's gradient, signed eps with |eps| in
+    [0.1, 0.6]; with C > 2 row 0 overflows (p = 1e25) and row 1 is NaN."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    K = model.dim
+    ops = model.fused_leaf_batched_fn.operands
+    q = model.sample(gen, C).float()
+    shape = (C, K) if minv_kind == "chain_diag" else (K,)
+    metric = diagonal_metric(torch.empty(shape, device=dev).uniform_(
+        0.5, 2.0, generator=gen))
+    p = rand_p_b(gen, metric, (C, K), F32)
+    _v, g = model.logdensity_and_gradient(q)
+    sign = torch.where(torch.rand(C, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    eps = sign * torch.empty(C, device=dev).uniform_(0.1, 0.6, generator=gen)
+    if poison and C > 2:
+        p[0] = 1e25
+        q[1, 0] = float("nan")
+    return (metric, q.contiguous(), p.contiguous(), g.contiguous(),
+            eps.contiguous(), ops.prec, ops.lchol, ops.mu)
+
+
+def _gaussian_model(K):
+    dev = _device()
+    if K == 25:
+        return mvnormal(np.zeros(K), np.eye(K), dtype=F32, device=dev,
+                        fused=True)
+    return correlated_gaussian(K, dtype=F32, device=dev, fused=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["leaf", "leapfrog"])
+@pytest.mark.parametrize("C,K,minv_kind", [
+    (4096, 25, "shared_diag"), (4096, 25, "chain_diag"), (37, 7, "chain_diag"),
+    (4096, 100, "chain_diag"), (64, 130, "shared_diag"), (16, 200, "chain_diag"),
+    (1, 25, "shared_diag"),
+])
+def test_cuda_gaussian_kernels_match_plain(which, C, K, minv_kind):
+    """K2 (leaf) and K4 (leapfrog) against their plain versions: the -inf
+    rows are the plain version's; on the other rows every output lies no
+    further from the float64 plain version than twice the plain float32
+    version's distance, plus 1e-5 (1 + |x|). K = 100 stages 80 KB of
+    shared memory, K = 130 140 KB; at K = 200 prec and L (320 KB) no longer
+    fit and are read through L1/L2."""
+    module = gaussian_leaf if which == "leaf" else gaussian_leapfrog
+    kernel = getattr(module, f"gaussian_{which}")
+    args = _gaussian_inputs(_gaussian_model(K), C, minv_kind)
+    module.reset_launches()
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    assert module.launches == 1
+    bad = _check_gaussian_against_plain(which, out, args)
+    assert bad == (2 if C > 2 else 0)
+
+
+def _check_gaussian_against_plain(which, out, args):
+    """The rule of test_cuda_gaussian_kernels_match_plain; returns the
+    number of -inf rows."""
+    module = gaussian_leaf if which == "leaf" else gaussian_leapfrog
+    plain = getattr(module, f"gaussian_{which}_plain")
+    ref = plain(*args)
+    m64 = DiagonalMetric(args[0].m_inv.double(), None)
+    ref64 = plain(m64, *(a.double() for a in args[1:]))
+    assert len(out) == (5 if which == "leaf" else 4)
+    for x, y in zip(out[3:], ref[3:]):
+        assert torch.equal(torch.isneginf(x), torch.isneginf(y))
+    fine = torch.isfinite(ref[3]) & torch.isfinite(ref64[3])
+    for name, x, y, z in zip("qpgLP", out, ref, ref64):
+        err_kernel = float(_rel(x, z, fine).max())
+        err_plain = float(_rel(y, z, fine).max())
+        assert err_kernel <= 2 * err_plain + 1e-5, (name, err_kernel, err_plain)
+    return int((~fine).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1])
+def test_cuda_gaussian_hooks_at_and_past_max_k(extra):
+    """At K = MAX_K the kernels' 16 K floats of shared memory (227 KB) fit
+    and both hooks launch them; one coordinate more and both hooks raise
+    instead of running the plain math on the card."""
+    from dynamichmc_tpu_torch.hamiltonian import EvaluatedPoint, PhasePoint
+
+    dev = _device()
+    K, C = gaussian_leaf.MAX_K + extra, 9
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+    mu = torch.zeros(K, dtype=torch.float64, device=dev)
+    leaf = gaussian_leaf.make_gaussian_fused_leaf_batched(eye, mu, eye)
+    step = gaussian_leapfrog.make_gaussian_fused_leapfrog(eye, mu, eye)
+    ops = leaf.operands
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, p = (torch.randn((C, K), generator=gen, device=dev) for _ in range(2))
+    eps = torch.full((C,), 0.2, device=dev)
+    metric = diagonal_metric(torch.ones(K, device=dev))
+    z = PhasePoint(Q=EvaluatedPoint(q=q, logdensity=-0.5 * (q * q).sum(-1),
+                                    grad=-q), p=p)
+    args = (metric, q, p, -q, eps, ops.prec, ops.lchol, ops.mu)
+    gaussian_leaf.reset_launches()
+    gaussian_leapfrog.reset_launches()
+    if extra:
+        with pytest.raises(ValueError, match=f"K = {K}"):
+            leaf(metric, q, p, -q, eps)
+        with pytest.raises(ValueError, match=f"K = {K}"):
+            step(metric, z, eps)
+        assert gaussian_leaf.launches == gaussian_leapfrog.launches == 0
+        return
+    out = leaf(metric, q, p, -q, eps)
+    z2 = step(metric, z, eps)
+    torch.cuda.synchronize()
+    assert gaussian_leaf.launches == gaussian_leapfrog.launches == 1
+    assert _check_gaussian_against_plain("leaf", out, args) == 0
+    assert _check_gaussian_against_plain(
+        "leapfrog", (z2.Q.q, z2.p, z2.Q.grad, z2.Q.logdensity), args) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_gaussian_wrappers_refuse_what_the_kernel_does_not_take():
+    args = _gaussian_inputs(_gaussian_model(25), 8, "chain_diag", poison=False)
+    metric, q = args[0], args[1]
+    with pytest.raises(TypeError, match="float32"):
+        gaussian_leaf.gaussian_leaf(metric, q.double(), *args[2:])
+    with pytest.raises(ValueError, match="diagonal"):
+        gaussian_leapfrog.gaussian_leapfrog(
+            dense_metric(torch.eye(25, device=q.device)), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        gaussian_leaf.gaussian_leaf(metric, q.mT.contiguous().mT, *args[2:])
+
+
+@pytest.mark.gpu
+def test_cuda_per_chain_path_launches_the_leapfrog_kernel():
+    """mcmc_with_warmup on N(0, I_25) with the fused hooks: every
+    hamiltonian.leapfrog call launches K4 once, and the draws are finite."""
+    from dynamichmc_tpu_torch import TuningNUTS, hamiltonian, mcmc_with_warmup
+    from dynamichmc_tpu_torch.stepsize import InitialStepsizeSearch
+
+    dev = _device()
+    model = _gaussian_model(25)
+    gaussian_leapfrog.reset_launches()
+    hamiltonian.reset_leapfrog_calls()
+    res = mcmc_with_warmup(torch.Generator(device=dev).manual_seed(0), model,
+                           50, warmup_stages=(InitialStepsizeSearch(),
+                                              TuningNUTS(N=50)))
+    torch.cuda.synchronize()
+    assert gaussian_leapfrog.launches == hamiltonian.leapfrog_calls > 0
+    assert res.positions.shape == (50, 25) and res.positions.is_cuda
+    assert bool(torch.isfinite(res.positions).all())
+
+
+@pytest.mark.gpu
+def test_cuda_plain_driver_launches_the_leaf_kernel():
+    """run_chains on N(0, I_25) with the fused hooks and a per-chain
+    diagonal metric: every leaf of the plain driver launches K2."""
+    from dynamichmc_tpu_torch import TuningNUTS, run_chains
+    from dynamichmc_tpu_torch import tree_batched as tb
+    from dynamichmc_tpu_torch.stepsize import InitialStepsizeSearch
+
+    dev = _device()
+    model = _gaussian_model(25)
+    gaussian_leaf.reset_launches()
+    tb.reset_fused_leaf_calls()
+    res = run_chains(torch.Generator(device=dev).manual_seed(0), model, 256,
+                     20, tune="reference", warmup_stages=(
+                         InitialStepsizeSearch(), TuningNUTS(N=20),
+                         TuningNUTS(N=30, metric_kind="diagonal")))
+    torch.cuda.synchronize()
+    assert gaussian_leaf.launches == tb.fused_leaf_calls > 0
+    assert res.metric.m_inv.shape == (256, 25)
+    assert bool(torch.isfinite(res.positions).all())

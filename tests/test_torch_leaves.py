@@ -159,7 +159,7 @@ def _metric_pair(kind, C, K, seed=2):
 
 def _fused_pair(n_obs, K, dtype=jnp.float32):
     jmodel = jm.logistic_regression(n_obs, K, dtype=dtype, fused=True)
-    tmodel = convert.logreg_model(jmodel, dtype=F32, fused=True)
+    tmodel = convert.logreg_model(jmodel, dtype=F32, fused=True, device="cpu")
     return jmodel.fused_leaf_batched_fn, tmodel.fused_leaf_batched_fn
 
 
@@ -229,7 +229,7 @@ def test_fused_leaf_declines_to_plain_leaf_in_float64():
 def test_driver_with_fused_leaf_matches_jax(kind):
     K, C, n_obs, md = 7, 10, 53, 4
     jmodel = jm.logistic_regression(n_obs, K, dtype=jnp.float32, fused=True)
-    tmodel = convert.logreg_model(jmodel, dtype=F32, fused=True)
+    tmodel = convert.logreg_model(jmodel, dtype=F32, fused=True, device="cpu")
     rng = np.random.default_rng(5)
     Q = _jax_point(jmodel, rng.normal(size=(C, K)) * 0.3)
     Qt = convert.evaluated_point(Q, F32)

@@ -23,7 +23,12 @@ from dynamichmc_tpu.warmup import WarmupState as JWarmupState
 from dynamichmc_tpu_torch import DynamicHMCError, NUTS, convert, stats
 from dynamichmc_tpu_torch.mcmc import _check_stepsize_search
 from dynamichmc_tpu_torch.models import correlated_gaussian
-from dynamichmc_tpu_torch.ops import cuda_build, logreg_leaf, tree_kernel
+from dynamichmc_tpu_torch.ops import (
+    cuda_build,
+    gaussian_leaf,
+    logreg_leaf,
+    tree_kernel,
+)
 from dynamichmc_tpu_torch.parallel import init_chain_states
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +42,8 @@ def test_import_leaves_jax_out():
         "import dynamichmc_tpu_torch.ops.tree_kernel, dynamichmc_tpu_torch.stats\n"
         "import dynamichmc_tpu_torch.ops.logreg_leaf, dynamichmc_tpu_torch.stats_device\n"
         "import dynamichmc_tpu_torch.engine, dynamichmc_tpu_torch.parallel\n"
+        "import dynamichmc_tpu_torch.ops.gaussian_leaf\n"
+        "import dynamichmc_tpu_torch.ops.gaussian_leapfrog, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dynamichmc_tpu' or m.startswith('dynamichmc_tpu.')]\n"
         "assert not bad, bad\n"
@@ -54,16 +61,17 @@ def test_no_module_of_the_port_imports_jax():
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|dynamichmc_tpu)\b", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PKG):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as f:
-                    assert not pattern.search(f.read()), name
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
 
 
-@pytest.mark.parametrize("module", [tree_kernel, logreg_leaf])
+@pytest.mark.parametrize("module", [tree_kernel, logreg_leaf, gaussian_leaf])
 def test_kernel_build_is_lazy_and_content_hashed(module, tmp_path):
-    """Both CUDA sources go through the one build helper: nothing is built
+    """Every CUDA source goes through the one build helper: nothing is built
     or loaded at import, and each library's name hashes its own source and
     the flags."""
     lib = module.library
@@ -80,7 +88,9 @@ def test_kernel_build_is_lazy_and_content_hashed(module, tmp_path):
     with open(lib.source) as f, open(copy.source, "w") as g:
         g.write(f.read() + "\n// edited\n")
     assert copy.library_path() != path
-    assert tree_kernel.library.library_path() != logreg_leaf.library.library_path()
+    paths = {m.library.library_path()
+             for m in (tree_kernel, logreg_leaf, gaussian_leaf)}
+    assert len(paths) == 3
 
 
 @pytest.mark.parametrize("fn", ["ess_bulk", "ess_tail", "rhat"])
@@ -167,7 +177,7 @@ def test_convert_carries_state_across():
 
 
 def test_init_chain_states_strict_check():
-    model = correlated_gaussian(3, dtype=torch.float64)
+    model = correlated_gaussian(3, dtype=torch.float64, device="cpu")
     q = torch.zeros((4, 3), dtype=torch.float64)
     q[2, 0] = float("nan")
     with pytest.raises(DynamicHMCError, match="initial positions") as err:

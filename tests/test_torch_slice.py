@@ -57,7 +57,7 @@ def _check(positions, m_inv, cov):
 
 
 def test_port_run_chains_recovers_target():
-    model = correlated_gaussian(K, dtype=torch.float32, tree_kernel=True)
+    model = correlated_gaussian(K, dtype=torch.float32, tree_kernel=True, device="cpu")
     tree_kernel.reset_launches()
     res = run_chains(torch.Generator().manual_seed(0), model, C, N,
                      warmup_stages=_stages(InitialStepsizeSearch, TuningNUTS),
@@ -80,7 +80,7 @@ def test_jax_run_chains_recovers_target():
 def test_port_rejects_what_is_not_ported():
     import pytest
 
-    model = correlated_gaussian(K, dtype=torch.float32)
+    model = correlated_gaussian(K, dtype=torch.float32, device="cpu")
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="tune"):
         run_chains(gen, model, 4, 10, tune="auto")
@@ -124,7 +124,7 @@ def _check_funnel(positions, divergences):
 def test_port_funnel_run_chains_recovers_v_marginal():
     from dynamichmc_tpu_torch.models import funnel
 
-    model = funnel(FUNNEL_K, dtype=torch.float32, tree_kernel=True)
+    model = funnel(FUNNEL_K, dtype=torch.float32, tree_kernel=True, device="cpu")
     res = run_chains(torch.Generator().manual_seed(1), model, FC, FN,
                      warmup_stages=_diag_stages(InitialStepsizeSearch,
                                                 TuningNUTS),
@@ -167,7 +167,7 @@ def test_logreg_run_chains_agree_across_packages_and_kernels():
     runs["jax"] = _posterior_summary(res.positions)
     for name, kw in (("fused", {"fused": True}),
                      ("tree", {"tree_kernel": True})):
-        model = convert.logreg_model(jmodel, dtype=torch.float32, **kw)
+        model = convert.logreg_model(jmodel, dtype=torch.float32, device="cpu", **kw)
         tb.reset_fused_leaf_calls()
         res = run_chains(torch.Generator().manual_seed(2), model, C, N,
                          warmup_stages=_diag_stages(InitialStepsizeSearch,

@@ -54,7 +54,7 @@ def _metrics(kind, jmodel, K, C):
 
 def _run_both(kind, K, C, md, eps, depth_limit=None, seed=0, n_steps=1):
     jmodel = jm.correlated_gaussian(K, dtype=jnp.float64)
-    tmodel = tm.correlated_gaussian(K, dtype=torch.float64)
+    tmodel = tm.correlated_gaussian(K, dtype=torch.float64, device="cpu")
     rng, q0, p, dirs, gum, expo = _inputs(K, C, md, seed)
     vals, grads = _evaluate_b(jmodel, jnp.asarray(q0))
     Qj = JEvaluatedPoint(q=jnp.asarray(q0), logdensity=vals, grad=grads)

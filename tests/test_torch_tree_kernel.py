@@ -138,7 +138,7 @@ def test_plain_kernel_matches_pallas_divergent():
 
 
 def _port_setup(K=3, C=6, dtype=F32):
-    model = tm.correlated_gaussian(K, dtype=dtype, tree_kernel=True)
+    model = tm.correlated_gaussian(K, dtype=dtype, tree_kernel=True, device="cpu")
     q = torch.as_tensor(np.random.default_rng(0).normal(size=(C, K)),
                         dtype=dtype)
     v, g = model.logdensity_and_gradient(q)
@@ -182,7 +182,7 @@ def test_declined_hook_runs_plain_driver():
     """A declined hook (f64 chains) leaves the transition to the plain
     driver: the same draws as a model without the hook."""
     model64, Q64 = _port_setup(dtype=torch.float64)
-    plain64 = tm.correlated_gaussian(3, dtype=torch.float64)
+    plain64 = tm.correlated_gaussian(3, dtype=torch.float64, device="cpu")
     metric = dense_metric(model64.cov_fn())
     a = sample_tree_batched(torch.Generator().manual_seed(1), NUTS(max_depth=3),
                             model64, metric, Q64, 0.3)
