@@ -34,13 +34,36 @@
 //   differs from the rest. s0 = sigma_v^2, s1 = (K-1)/2.
 // - kLogreg (models/logreg.py): logits = X q, ld = sum y l - softplus(l)
 //   - 1/2 ||q||^2 / s^2, grad = X^T (y - sigmoid(l)) - q / s^2, with the
-//   stable softplus and tanh-form sigmoid of ops/pallas_logreg.py. q is
-//   staged in shared memory; threads stride over the observations reading
-//   X^T (K x n_obs), neighbouring threads at neighbouring addresses, four
-//   observations per thread at a time; the residuals y - sigmoid(l) go to a
-//   shared buffer of n_obs floats (16 KB at n_obs = 4000); then thread j sums
-//   X[:, j] * resid. The loops stop at n_obs, so no padded observation row
-//   exists to be masked. m0 = X (n_obs x K), m1 = X^T, m2 = y, s0 = 1/s^2.
+//   stable softplus and tanh-form sigmoid of ops/pallas_logreg.py.
+//   m0 = X with its columns zero-padded to KX = round_up(K, 4) (n_obs x
+//   KX, rows 16-byte aligned; zero columns add nothing to either product),
+//   m1 = y, s0 = 1/s^2. One pass over X per leaf, in tiles of T rows:
+//   cp.async.cg (16 bytes a thread, L1 bypassed) fills a ring of kStages
+//   stages in shared memory with the tile's rows of X (and cp.async.ca
+//   their y), so the next tiles load while tile t is computed. Two
+//   barriers per tile: one after the wait for tile t (which also frees
+//   tile t - 1's stage for the next copy), one after the residuals. From
+//   each staged tile:
+//   * logits: eight threads per row, two rows per group at a time, each
+//     thread reading float4s of the rows and of q (staged in xbuf), summed
+//     by xor shuffles; an 8-lane quarter warp reads 32 consecutive words,
+//     so the rows need no bank padding. Lane 0 of the group finishes row
+//     a, lane 1 row b, side by side: y l - softplus(l) into the lane's
+//     running ll, y - sigmoid(l) into a T-float residual buffer. Rows past
+//     n_obs in the last tile are neither copied nor read.
+//   * gradient: thread j sums X_tile[i][j] r_i over the tile's rows
+//     (consecutive threads, consecutive words; r_i four at a time as a
+//     broadcast float4) in four interleaved partial sums, and adds the
+//     tile's sum to its running sum once: a two-level sum, as in
+//     logreg_leaf.cu. Both running sums across the tiles (ll and the
+//     gradient) are compensated (Kahan).
+//   T = min(kTileRows, what the shared memory left by the merge stack
+//   holds), down to one row per stage. Where not even one row per stage
+//   fits (K near 1024 at max_depth 11-13), the tiles are read from X in
+//   place in global memory, with only the T residuals in shared memory, so
+//   every (K, max_depth) whose merge stack fits takes any n_obs
+//   (logreg_tiles). Sums run in a fixed order, so a launch is
+//   deterministic.
 //
 // What bounds it on the H100:
 // - Gaussian, dense: four K x K matvecs per leaf (M^-1 p_mid, L^T d and
@@ -53,15 +76,29 @@
 //   reductions, the merge stack's shared-memory traffic and the serial
 //   leaf loop (up to 127 leaves at max_depth 7).
 // - Logreg: 2 n_obs K FMAs per chain per leaf (1.0 M at n_obs 4000, K 128;
-//   4.2 GFLOP per fleet leaf at 2048 chains), and each CTA reads X and X^T
-//   (4 MB together) from L2 on every leaf: 8 GB per fleet leaf. The kernel
-//   is bound by L2 bandwidth and FMA issue. Sharing each tile of X across a
-//   block of chains with tensor cores is later work (the fused leaf,
-//   logreg_leaf.cu, shares X across chains; this kernel keeps one chain per
-//   CTA because its control flow is per chain).
-// Tensor cores (wgmma), TMA staging of the matrices into shared memory and
-// several chains per CTA are left to later work. Products are plain fp32
-// FMAs; no TF32 anywhere.
+//   4.2 GFLOP per fleet leaf at 2048 chains), and each CTA reads X once
+//   from L2 on every leaf: 2 MB per chain-leaf at n_obs 4000, K 128 (the
+//   design before read X and X^T, 4 MB), 4 GB per fleet leaf. At that
+//   shape T = 32 rows in 2 stages, and a CTA holds 44,672 bytes of shared
+//   memory (11,520 of merge stack, xbuf and reduction scratch, 33,024 of
+//   ring, 128 of residuals). ptxas -v (printed by chip_smoke.py's build
+//   phase) gives tree_transition_kernel 103 registers for the diagonal
+//   metric and 104 for the dense one, no spill: 4 CTAs of 128 threads per
+//   SM by registers (5 by shared memory). On the H100 (700 W) a transition
+//   of the logreg_tree path takes about 12.3 ms in phase 5 of
+//   chip_smoke.py, against 15.5 ms for the design before: about 5 TB/s of
+//   X from L2, computed from the bytes and the time, not profiled.
+//   Past 608 threads (K > 608) a CTA of tree_transition_kernel would need
+//   more than an SM's 65,536 registers, and the launch takes
+//   tree_transition_kernel_wide, held to 64 registers (the logreg leaf
+//   then spills 72 bytes, 160 with the tiles read in place).
+//   One chain per CTA remains, because the tree control is per chain, so
+//   every chain streams its own copy of X. Several chains per CTA sharing
+//   each tile (lockstep), cluster multicast of the tiles and tensor cores
+//   with an fp32-exact split are later work.
+// Tensor cores (wgmma), TMA staging of the Gaussian's matrices and several
+// chains per CTA are left to later work. Products are plain fp32 FMAs; no
+// TF32 anywhere.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,18 +108,44 @@ namespace {
 
 constexpr int kNumStats = 5;  // p_minus, p_plus, rho, psharp_minus, psharp_plus
 constexpr int kRedSlots = 6;  // widest simultaneous block reduction
+constexpr int kTileRows = 32;  // logreg: most rows of X per tile
+constexpr int kStages = 2;     // logreg: stages of the ring of X, >= 2
+constexpr size_t kMaxSmem = 232448;  // H100: dynamic shared memory per CTA
 
 constexpr int kGaussian = 0;
 constexpr int kFunnel = 1;
 constexpr int kLogreg = 2;
+// kLogreg with its tiles read from X in place, for a CTA whose merge stack
+// leaves no room for the ring (chosen at launch; not a leaf id of the API)
+constexpr int kLogregInPlace = 3;
 
 struct Model {
   const float* m0;
   const float* m1;
   const float* m2;
   int n_obs;
+  int tile;  // logreg: rows of X per tile
   float s0, s1;
 };
+
+// 16-byte asynchronous copy global -> shared, bypassing L1 (cg).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+// 4-byte asynchronous copy global -> shared (through L1: cg takes 16 only).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
@@ -168,57 +231,160 @@ __device__ __forceinline__ bool combine_dir(const Tau& first, const Tau& second,
          (v[5] < 0.f);
 }
 
-// The logreg leaf's value and gradient at the staged position (xbuf); see
-// the header. Returns the raw ld; g is thread j's gradient coordinate.
+// s += x as a compensated (Kahan) sum with compensation c: the error stays
+// at a few ulp of s however many terms are added.
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = x - c;
+  const float t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+// One tile of the logreg leaf: rows rows of X at xs (KX floats apart) and
+// their y at ys, staged in the ring or in place in global memory. Adds the
+// rows' likelihood terms to ll and the tile's gradient sum to gsum (both
+// compensated); resid: T floats, 16-byte aligned. Two barriers, reached by
+// every thread.
+__device__ __forceinline__ void logreg_tile(const float* xs, const float* ys, int rows, int KX,
+                                            const float4* q4, float* resid, int j, bool own,
+                                            float& ll, float& ll_c, float& gsum,
+                                            float& gsum_c) {
+  const int KX4 = KX >> 2;
+  const int lane8 = j & 7;   // lane within the row's group of eight
+  const int group = j >> 3;  // row of the tile pass
+  const int groups = blockDim.x >> 3;
+
+  // logits, likelihood terms and residuals: eight threads per row, two
+  // rows per group at a time; lane 0 finishes row a, lane 1 row b
+  for (int r0 = 0; r0 < rows; r0 += 2 * groups) {
+    const int ra = r0 + group, rb = ra + groups;
+    const bool va = ra < rows, vb = rb < rows;
+    const float4* row_a = reinterpret_cast<const float4*>(xs + ra * KX);
+    const float4* row_b = reinterpret_cast<const float4*>(xs + rb * KX);
+    float la = 0.f, lb = 0.f;
+    for (int c = lane8; c < KX4; c += 8) {
+      const float4 qv = q4[c];
+      if (va) {
+        const float4 xv = row_a[c];
+        la = fmaf(xv.x, qv.x, la);
+        la = fmaf(xv.y, qv.y, la);
+        la = fmaf(xv.z, qv.z, la);
+        la = fmaf(xv.w, qv.w, la);
+      }
+      if (vb) {
+        const float4 xv = row_b[c];
+        lb = fmaf(xv.x, qv.x, lb);
+        lb = fmaf(xv.y, qv.y, lb);
+        lb = fmaf(xv.z, qv.z, lb);
+        lb = fmaf(xv.w, qv.w, lb);
+      }
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      la += __shfl_xor_sync(0xffffffffu, la, o);
+      lb += __shfl_xor_sync(0xffffffffu, lb, o);
+    }
+    if ((lane8 == 0 && va) || (lane8 == 1 && vb)) {
+      const int r = lane8 == 0 ? ra : rb;
+      const float l = lane8 == 0 ? la : lb;
+      const float yi = ys[r];
+      kahan_add(ll, ll_c, yi * l - softplus(l));
+      resid[r] = yi - sigmoid(l);
+    }
+  }
+  __syncthreads();  // the tile's residuals are written
+
+  // gradient: the tile's partial sum, then one add into the running sum
+  if (own) {
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    int i = 0;
+    for (; i + 4 <= rows; i += 4) {
+      const float4 r4 = *reinterpret_cast<const float4*>(resid + i);
+      a0 = fmaf(xs[i * KX + j], r4.x, a0);
+      a1 = fmaf(xs[(i + 1) * KX + j], r4.y, a1);
+      a2 = fmaf(xs[(i + 2) * KX + j], r4.z, a2);
+      a3 = fmaf(xs[(i + 3) * KX + j], r4.w, a3);
+    }
+    for (; i < rows; ++i) a0 = fmaf(xs[i * KX + j], resid[i], a0);
+    kahan_add(gsum, gsum_c, (a0 + a1) + (a2 + a3));
+  }
+}
+
+// The logreg leaf's value and gradient at the staged position (xbuf, zero
+// past K); see the header. RING: the tiles go through xring (kStages x T x
+// KX floats) and yring (kStages x T); else they are read from X in place.
+// resid: T floats, 16-byte aligned. Every
+// thread of the CTA runs every loop trip, barrier and cp.async wait: the
+// trip counts depend on n_obs and T only. Returns the raw ld; g is thread
+// j's gradient coordinate.
+template <bool RING>
 __device__ __forceinline__ float logreg_value_grad(float q_new, const Model& model,
-                                                   const float* xbuf, float* resid, float* red,
+                                                   const float* xbuf, float* xring,
+                                                   float* yring, float* resid, float* red,
                                                    int K, int j, bool own, float& g) {
   const int n_obs = model.n_obs;
+  const int T = model.tile;
   const int Kp = blockDim.x;
+  const int KX = (K + 3) & ~3;
   const float* __restrict__ X = model.m0;
-  const float* __restrict__ Xt = model.m1;
-  const float* __restrict__ y = model.m2;
-  float ll = 0.f;
-  for (int base = j; base < n_obs; base += 4 * Kp) {
-    float l[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < K; ++k) {
-      const float qk = xbuf[k];
-      const float* row = Xt + (size_t)k * n_obs;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = base + u * Kp;
-        if (i < n_obs) l[u] = fmaf(__ldg(row + i), qk, l[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * Kp;
-      if (i < n_obs) {
-        const float yi = __ldg(y + i);
-        ll += yi * l[u] - softplus(l[u]);
-        resid[i] = yi - sigmoid(l[u]);
+  const float* __restrict__ y = model.m1;
+  const float4* q4 = reinterpret_cast<const float4*>(xbuf);
+  const int n_tiles = (n_obs + T - 1) / T;
+
+  // copy tile t (its rows below n_obs, and their y) into stage t % kStages
+  auto load_tile = [&](int t) {
+    const int o0 = t * T;
+    const int rows = min(T, n_obs - o0);
+    const int stage = t % kStages;
+    float* dst = xring + stage * T * KX;
+    const float* src = X + (size_t)o0 * KX;
+    for (int c = j; c < rows * (KX >> 2); c += Kp) cp_async16(dst + 4 * c, src + 4 * c);
+    for (int r = j; r < rows; r += Kp) cp_async4(yring + stage * T + r, y + o0 + r);
+    cp_async_commit();
+  };
+
+  // Running sums over the tiles, compensated: one thread adds n_obs / (Kp /
+  // 4) likelihood terms (7,500 at n_obs 60,001, K 8), and a plain float32
+  // running sum of them lost enough of ld to flip proposals (measured on
+  // the H100)
+  float ll = 0.f, ll_c = 0.f, gsum = 0.f, gsum_c = 0.f;
+  if constexpr (RING) {
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < n_tiles) {
+        load_tile(t);
+      } else {
+        cp_async_commit();  // empty groups keep the wait count uniform
       }
     }
   }
-  __syncthreads();  // every residual is written
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (own) {
-    int i = 0;
-    for (; i + 4 <= n_obs; i += 4) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        acc[u] = fmaf(__ldg(X + (size_t)(i + u) * K + j), resid[i + u], acc[u]);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int o0 = t * T;
+    const int rows = min(T, n_obs - o0);
+    if constexpr (RING) {
+      cp_async_wait<kStages - 2>();  // this thread's copies of tile t have landed
+      __syncthreads();  // everyone's have, and tile t - 1 and resid are read
+      if (t + kStages - 1 < n_tiles) {
+        load_tile(t + kStages - 1);  // into tile t - 1's stage
+      } else {
+        cp_async_commit();
+      }
+      logreg_tile(xring + (t % kStages) * T * KX, yring + (t % kStages) * T, rows, KX, q4,
+                  resid, j, own, ll, ll_c, gsum, gsum_c);
+    } else {
+      __syncthreads();  // resid is read
+      logreg_tile(X + (size_t)o0 * KX, y + o0, rows, KX, q4, resid, j, own, ll, ll_c, gsum,
+                  gsum_c);
     }
-    for (; i < n_obs; ++i) acc[0] = fmaf(__ldg(X + (size_t)i * K + j), resid[i], acc[0]);
   }
-  g = own ? ((acc[0] + acc[1]) + (acc[2] + acc[3])) - model.s0 * q_new : 0.f;
+  g = own ? gsum - model.s0 * q_new : 0.f;
   float r[2] = {ll, q_new * q_new};
   block_sum<2>(r, red);
   return r[0] + (-0.5f * model.s0 * r[1]);
 }
 
+// The transition of chain blockIdx.x, run by the two kernels below.
 template <bool DIAG, int LEAF>
-__global__ void tree_transition_kernel(
+__device__ __forceinline__ void tree_transition(
     const float* __restrict__ q0_, const float* __restrict__ p0_,
     const float* __restrict__ g0_, const float* __restrict__ ld0_,
     const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
@@ -228,7 +394,7 @@ __global__ void tree_transition_kernel(
     float* __restrict__ pin, int* __restrict__ depth_o, int* __restrict__ tl_o,
     int* __restrict__ tr_o, float* __restrict__ logsum_o, int* __restrict__ steps_o,
     int* __restrict__ work_o, int C, int K, int S, int dcap, float min_delta) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int c = blockIdx.x;
   const int j = threadIdx.x;
   const int Kp = blockDim.x;
@@ -236,7 +402,9 @@ __global__ void tree_transition_kernel(
   float* stack = smem;                       // [kNumStats][S][Kp]
   float* xbuf = smem + kNumStats * S * Kp;   // [Kp]
   float* red = xbuf + Kp;                    // [kRedSlots * 32]
-  float* resid = red + kRedSlots * 32;       // [n_obs], logreg only
+  float* xring = red + kRedSlots * 32;       // [kStages][tile][KX], kLogreg only
+  float* resid = xring + (LEAF == kLogreg ? kStages * model.tile * ((K + 3) & ~3) : 0);
+  float* yring = resid + model.tile;         // [kStages][tile], kLogreg only
 
   const size_t base = (size_t)c * K + j;
   const float q0 = own ? q0_[base] : 0.f;
@@ -334,7 +502,8 @@ __global__ void tree_transition_kernel(
         __syncthreads();  // earlier readers of xbuf are done
         xbuf[j] = q_new;
         __syncthreads();
-        ld_new = logreg_value_grad(q_new, model, xbuf, resid, red, K, j, own, g_new);
+        ld_new = logreg_value_grad<LEAF == kLogreg>(q_new, model, xbuf, xring, yring, resid,
+                                                    red, K, j, own, g_new);
         grad_ok = !__syncthreads_or(own && !isfinite(g_new));
       }
       // -inf poisoning, as the plain driver's evaluate
@@ -452,11 +621,65 @@ __global__ void tree_transition_kernel(
   }
 }
 
-// Shared-memory bytes per CTA for max_depth S, K coordinates and a residual
-// buffer of n_res floats (the logreg leaf's n_obs, 0 otherwise).
-size_t smem_bytes(int K, int S, int n_res) {
+template <bool DIAG, int LEAF>
+__global__ void tree_transition_kernel(
+    const float* __restrict__ q0_, const float* __restrict__ p0_,
+    const float* __restrict__ g0_, const float* __restrict__ ld0_,
+    const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
+    const float* __restrict__ gum, const float* __restrict__ expo,
+    const float* __restrict__ minv, const Model model,
+    float* __restrict__ qn, float* __restrict__ gn, float* __restrict__ ldn,
+    float* __restrict__ pin, int* __restrict__ depth_o, int* __restrict__ tl_o,
+    int* __restrict__ tr_o, float* __restrict__ logsum_o, int* __restrict__ steps_o,
+    int* __restrict__ work_o, int C, int K, int S, int dcap, float min_delta) {
+  tree_transition<DIAG, LEAF>(q0_, p0_, g0_, ld0_, eps_, dirs_, gum, expo, minv, model, qn, gn,
+                              ldn, pin, depth_o, tl_o, tr_o, logsum_o, steps_o, work_o, C, K, S,
+                              dcap, min_delta);
+}
+
+// The same for a CTA wider than the registers tree_transition_kernel takes
+// allow on an SM (65,536): at most 64 registers a thread, so that 1024
+// threads fit, spilling where they must. Only the widest K launch it
+// (launch).
+template <bool DIAG, int LEAF>
+__global__ void __launch_bounds__(1024, 1) tree_transition_kernel_wide(
+    const float* __restrict__ q0_, const float* __restrict__ p0_,
+    const float* __restrict__ g0_, const float* __restrict__ ld0_,
+    const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
+    const float* __restrict__ gum, const float* __restrict__ expo,
+    const float* __restrict__ minv, const Model model,
+    float* __restrict__ qn, float* __restrict__ gn, float* __restrict__ ldn,
+    float* __restrict__ pin, int* __restrict__ depth_o, int* __restrict__ tl_o,
+    int* __restrict__ tr_o, float* __restrict__ logsum_o, int* __restrict__ steps_o,
+    int* __restrict__ work_o, int C, int K, int S, int dcap, float min_delta) {
+  tree_transition<DIAG, LEAF>(q0_, p0_, g0_, ld0_, eps_, dirs_, gum, expo, minv, model, qn, gn,
+                              ldn, pin, depth_o, tl_o, tr_o, logsum_o, steps_o, work_o, C, K, S,
+                              dcap, min_delta);
+}
+
+// Shared-memory bytes per CTA for max_depth S, K coordinates and, for the
+// logreg leaf, tile residuals and, with the ring, kStages stages of tile
+// rows of X and y (tile = 0 otherwise).
+size_t smem_bytes(int K, int S, int tile, bool ring) {
   const int Kp = (K + 31) / 32 * 32;
-  return sizeof(float) * ((size_t)(kNumStats * S + 1) * Kp + kRedSlots * 32 + n_res);
+  const int KX = (K + 3) & ~3;
+  return sizeof(float) * ((size_t)(kNumStats * S + 1) * Kp + kRedSlots * 32 +
+                          (size_t)tile * (ring ? kStages * (KX + 1) + 1 : 1));
+}
+
+// The logreg leaf's tiles: kTileRows rows through the ring, or fewer where
+// the merge stack leaves less room. Where not even one row per stage fits,
+// kTileRows rows (or as many residuals as fit) read from X in place, so
+// the leaf fits wherever the merge stack leaves room for one float. Returns
+// false when not even that fits.
+bool logreg_tiles(int K, int S, int& tile, bool& ring) {
+  const size_t base = smem_bytes(K, S, 0, false);
+  const size_t per_row = smem_bytes(K, S, 1, true) - base;
+  const size_t free = base < kMaxSmem ? kMaxSmem - base : 0;
+  ring = free >= per_row;
+  const size_t rows = free / (ring ? per_row : sizeof(float));
+  tile = rows < (size_t)kTileRows ? (int)rows : kTileRows;
+  return tile >= 1;
 }
 
 template <bool DIAG, int LEAF>
@@ -466,11 +689,16 @@ int launch(const float* q0, const float* p0, const float* g0, const float* ld0,
            int* depth, int* term_left, int* term_right, float* log_sum, int* steps, int* work,
            int C, int K, int max_depth, int dcap, float min_delta, cudaStream_t s) {
   const int Kp = (K + 31) / 32 * 32;
-  const size_t smem = smem_bytes(K, max_depth, LEAF == kLogreg ? model.n_obs : 0);
+  const size_t smem = smem_bytes(K, max_depth, model.tile, LEAF == kLogreg);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = tree_transition_kernel<DIAG, LEAF>;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (Kp > attr.maxThreadsPerBlock) kernel = tree_transition_kernel_wide<DIAG, LEAF>;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(tree_transition_kernel<DIAG, LEAF>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  tree_transition_kernel<DIAG, LEAF><<<C, Kp, smem, s>>>(
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<C, Kp, smem, s>>>(
       q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth,
       term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap, min_delta);
   return (int)cudaGetLastError();
@@ -482,7 +710,9 @@ extern "C" {
 
 // Launches one transition for C chains on `stream`. `leaf` selects the
 // model (0 Gaussian, 1 funnel, 2 logreg; see the header for m0..m2, n_obs,
-// s0, s1). Returns the cudaGetLastError() of the launch (0 on success).
+// s0, s1). Returns the cudaGetLastError() of the launch (0 on success), or
+// cudaErrorInvalidValue for a CTA that does not fit or a logreg leaf with
+// no observation or an X that is not 16-byte aligned.
 int tree_transition_f32(const float* q0, const float* p0, const float* g0, const float* ld0,
                         const float* eps, const uint32_t* dirs, const float* gum,
                         const float* expo, const float* minv, int diag, int leaf,
@@ -490,7 +720,12 @@ int tree_transition_f32(const float* q0, const float* p0, const float* g0, const
                         float s1, float* qn, float* gn, float* ldn, float* pin, int* depth,
                         int* term_left, int* term_right, float* log_sum, int* steps, int* work,
                         int C, int K, int max_depth, int dcap, float min_delta, void* stream) {
-  const Model model{m0, m1, m2, n_obs, s0, s1};
+  int tile = 0;
+  bool ring = false;
+  if (leaf == kLogreg && (!logreg_tiles(K, max_depth, tile, ring) || n_obs < 1 ||
+                          (reinterpret_cast<uintptr_t>(m0) & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  const Model model{m0, m1, m2, n_obs, tile, s0, s1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TREE_LAUNCH(D, L)                                                                  \
   launch<D, L>(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth, \
@@ -502,6 +737,8 @@ int tree_transition_f32(const float* q0, const float* p0, const float* g0, const
     case kFunnel:
       return diag ? TREE_LAUNCH(true, kFunnel) : TREE_LAUNCH(false, kFunnel);
     case kLogreg:
+      if (!ring)
+        return diag ? TREE_LAUNCH(true, kLogregInPlace) : TREE_LAUNCH(false, kLogregInPlace);
       return diag ? TREE_LAUNCH(true, kLogreg) : TREE_LAUNCH(false, kLogreg);
     default:
       return (int)cudaErrorInvalidValue;

@@ -148,21 +148,20 @@ def make_logreg_fused_leaf_batched(x, y, prior_scale: float = 10.0,
     ``(metric, q, p, g, eps_signed) -> (q', p', g', ld', pi')``
 
     float32 chains with a shared diagonal, per-chain diagonal or shared
-    dense metric, and K <= 256, take :func:`logreg_leaf` (the kernel on a
-    GPU). Other dtypes (float64 runs), per-chain dense metrics and wider K
-    take the plain leaf in the chains' dtype, as the JAX hook's fallback
-    does for dtypes, per-chain dense metrics and what exceeds its VMEM."""
+    dense metric take :func:`logreg_leaf`: the kernel on a GPU, which
+    raises for K > MAX_K rather than run the plain math on the card; the
+    plain leaf on the CPU. Other dtypes (float64 runs) and per-chain dense
+    metrics take the plain leaf in the chains' dtype, as the JAX hook's
+    fallback does for them."""
     x_full = torch.as_tensor(np.asarray(x), device=device)
     y_full = torch.as_tensor(np.asarray(y), device=device)
     x32 = x_full.to(torch.float32).contiguous()
     y32 = y_full.to(torch.float32).contiguous()
     inv_s2 = 1.0 / float(prior_scale) ** 2
-    K = x_full.shape[1]
 
     def fused(metric, q, p, g, eps_signed):
         dense = isinstance(metric, DenseMetric)
-        if (q.dtype != torch.float32 or (dense and metric.m_inv.ndim == 3)
-                or K > MAX_K):
+        if q.dtype != torch.float32 or (dense and metric.m_inv.ndim == 3):
             return logreg_leaf_plain(metric, q, p, g, eps_signed,
                                      x_full.to(q.device, q.dtype),
                                      y_full.to(q.device, q.dtype), inv_s2)

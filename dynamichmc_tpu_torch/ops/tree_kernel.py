@@ -69,42 +69,76 @@ def reset_launches() -> None:
     launches = 0
 
 
-def smem_bytes(K: int, max_depth: int, n_res: int = 0) -> int:
+TILE_ROWS, STAGES = 32, 2  # the logreg leaf's tiles of X (kTileRows, kStages)
+
+
+def _kx(K: int) -> int:
+    """Row length of the logreg leaf's X: K rounded up to 4 floats."""
+    return (K + 3) // 4 * 4
+
+
+def smem_bytes(K: int, max_depth: int, tile: int = 0,
+               ring: bool = False) -> int:
     """Dynamic shared memory of one CTA (smem_bytes in the CUDA source):
     the 5 x S x Kp merge stack, one staging vector, the reduction scratch
-    and the logreg leaf's residual buffer of ``n_res`` = n_obs floats."""
+    and, for the logreg leaf, ``tile`` residuals and, with the ring, STAGES
+    stages of ``tile`` rows of X and y. It does not depend on n_obs."""
     kp = (K + 31) // 32 * 32
-    return 4 * ((5 * max_depth + 1) * kp + 6 * 32 + n_res)
+    per_row = STAGES * (_kx(K) + 1) + 1 if ring else 1
+    return 4 * ((5 * max_depth + 1) * kp + 6 * 32 + tile * per_row)
 
 
-def kernel_fits(K: int, max_depth: int, n_res: int = 0) -> bool:
-    return (K + 31) // 32 * 32 <= MAX_THREADS and (
-        smem_bytes(K, max_depth, n_res) <= MAX_SMEM_BYTES
-    )
+def logreg_tiles(K: int, max_depth: int) -> tuple:
+    """``(tile, ring)`` of the logreg leaf (logreg_tiles in the CUDA
+    source): TILE_ROWS rows per tile through the ring, fewer where the
+    merge stack leaves less room; where not even one row per stage fits,
+    tiles read from X in place with only their residuals in shared memory.
+    ``tile`` is 0 when not even one residual fits."""
+    free = max(0, MAX_SMEM_BYTES - smem_bytes(K, max_depth))
+    per_row = smem_bytes(K, max_depth, 1, True) - smem_bytes(K, max_depth)
+    ring = free >= per_row
+    return min(TILE_ROWS, free // (per_row if ring else 4)), ring
+
+
+def kernel_fits(K: int, max_depth: int, logreg: bool = False) -> bool:
+    """Whether the CTA of one chain fits the card: at most 1024 threads and
+    227 KB of shared memory, with at least one residual of the logreg
+    leaf's tiles. It does not depend on n_obs."""
+    if (K + 31) // 32 * 32 > MAX_THREADS:
+        return False
+    if logreg:
+        return logreg_tiles(K, max_depth)[0] >= 1
+    return smem_bytes(K, max_depth) <= MAX_SMEM_BYTES
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Leaf:
     """The model inside the kernel: ``kind`` (GAUSSIAN, FUNNEL or LOGREG),
     up to three float32 arrays (m0..m2 of the CUDA source), two scalars
-    (s0, s1) and, for logreg, the observation count."""
+    (s0, s1) and, for logreg, the observation count and the coordinates
+    (``dim``: X's columns before its padding, see :meth:`logreg_data`)."""
 
     kind: int
     operands: tuple = ()
     scalars: tuple = (0.0, 0.0)
     n_obs: int = 0
+    dim: int = 0
 
     def to(self, device) -> "Leaf":
         return dataclasses.replace(
             self, operands=tuple(t.to(device) for t in self.operands))
 
+    def logreg_data(self):
+        """The logreg leaf's X (n_obs, K) without its pad columns, and y."""
+        x, y = self.operands
+        return x[:, :self.dim], y
+
     def value_and_grad(self, q):
         """The kernel leaf's value and analytic gradient in torch, row form
         (q: (C, K)), in q's dtype."""
-        ops = tuple(t.to(q.dtype) for t in self.operands)
         s0, s1 = self.scalars
         if self.kind == GAUSSIAN:
-            prec_t, lchol, mu = ops
+            prec_t, lchol, mu = (t.to(q.dtype) for t in self.operands)
             d = q - mu
             w = d @ lchol
             return -0.5 * (w * w).sum(-1), -(d @ prec_t)
@@ -115,8 +149,8 @@ class Leaf:
             ld = -0.5 * (v * v) / s0 - s1 * v - 0.5 * emv * x2
             gv = -v / s0 - s1 + 0.5 * emv * x2
             return ld, torch.cat([gv[:, None], -emv[:, None] * q[:, 1:]], 1)
-        x, xt, y = ops
-        logits = q @ xt
+        x, y = (t.to(q.dtype) for t in self.logreg_data())
+        logits = q @ x.mT
         ll = (y * logits - softplus(logits)).sum(-1)
         grad = (y - sigmoid(logits)) @ x - s0 * q
         return ll + (-0.5 * s0 * (q * q).sum(-1)), grad
@@ -132,14 +166,18 @@ def funnel_leaf(dim: int, sigma_v: float) -> Leaf:
 
 
 def logreg_leaf(x, y, prior_scale: float, device=None) -> Leaf:
-    """X (n_obs, K) and y (n_obs,) as float32, with X^T stored beside X so
-    that both of the kernel's passes read contiguous rows."""
-    x32 = np.ascontiguousarray(np.asarray(x, np.float32))
+    """X (n_obs, K) and y (n_obs,) as float32, X with its columns
+    zero-padded to a multiple of 4, so that every row starts 16 bytes
+    apart for the kernel's asynchronous copies."""
+    x = np.asarray(x, np.float32)
+    n_obs, K = x.shape
+    x_pad = np.zeros((n_obs, _kx(K)), np.float32)
+    x_pad[:, :K] = x
     y32 = np.ascontiguousarray(np.asarray(y, np.float32))
-    ops = (x32, np.ascontiguousarray(x32.T), y32)
-    return Leaf(LOGREG, tuple(torch.as_tensor(a, device=device) for a in ops),
-                scalars=(1.0 / float(prior_scale) ** 2, 0.0),
-                n_obs=x32.shape[0])
+    return Leaf(LOGREG, tuple(torch.as_tensor(a, device=device)
+                              for a in (x_pad, y32)),
+                scalars=(1.0 / float(prior_scale) ** 2, 0.0), n_obs=n_obs,
+                dim=K)
 
 
 def _noise_from_rows(gum: torch.Tensor, expo: torch.Tensor,
@@ -181,7 +219,7 @@ def _operand_shapes(leaf: Leaf, K: int) -> tuple:
         return ()
     if leaf.kind == LOGREG:
         n = leaf.n_obs
-        return ((n, K), (K, n), (n,))
+        return ((n, _kx(K)), (n,))
     raise ValueError(f"tree kernel: unknown leaf kind {leaf.kind}")
 
 
@@ -232,8 +270,12 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
                              f"{tuple(t.shape)}, expected {shape}")
     if tuple(minv.shape) not in ((K,), (K, K)):
         raise ValueError("tree kernel: minv must be (K,) or (K, K)")
-    if not (1 <= dcap <= max_depth) or not kernel_fits(K, max_depth, leaf.n_obs):
+    logreg = leaf.kind == LOGREG
+    if not (1 <= dcap <= max_depth) or not kernel_fits(K, max_depth, logreg):
         raise ValueError("tree kernel: dcap or shape outside the kernel")
+    if logreg and (leaf.n_obs < 1 or operands[0].data_ptr() % 16):
+        raise ValueError("tree kernel: the logreg leaf needs observations "
+                         "and a 16-byte-aligned X")
     lib = library.load()
     f32, i32 = torch.float32, torch.int32
     qn = torch.empty((C, K), dtype=f32, device=q0.device)
@@ -271,8 +313,9 @@ def make_tree_transition(leaf: Leaf, dim: int):
 
     It declines (returns None, and the plain driver runs) for chains that
     are not float32, a turn statistic other than "generalized", a per-chain
-    metric, or a K, max_depth and n_obs whose CTA does not fit the card
-    (more than 1024 threads or 227 KB of shared memory). Otherwise it draws
+    metric, or a K and max_depth whose CTA does not fit the card (more than
+    1024 threads or 227 KB of shared memory; see :func:`kernel_fits`, which
+    does not depend on n_obs). Otherwise it draws
     the momenta, direction bits, Gumbel rows and Exponential rows with the
     caller's generator on the chains' device and runs
     :func:`tree_transition`.
@@ -290,7 +333,7 @@ def make_tree_transition(leaf: Leaf, dim: int):
             return None  # per-chain metric
         C, K = Q.q.shape
         md = algorithm.max_depth
-        if K != dim or not kernel_fits(K, md, leaf.n_obs):
+        if K != dim or not kernel_fits(K, md, leaf.kind == LOGREG):
             return None
         device = Q.q.device
         p0 = rand_p_b(generator, metric, (C, K), f32)
@@ -331,4 +374,4 @@ def make_logreg_tree_transition(x, y, prior_scale: float = 10.0, device=None):
     """Hook of Bayesian logistic regression (models/logreg.py):
     pallas_tree.py::make_logreg_tree_transition without its padding."""
     leaf = logreg_leaf(x, y, prior_scale, device=device)
-    return make_tree_transition(leaf, leaf.operands[0].shape[1])
+    return make_tree_transition(leaf, leaf.dim)

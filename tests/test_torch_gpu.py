@@ -60,11 +60,34 @@ def _start(model, C, gen, scale):
     return q, model.cov_fn().to(F32)
 
 
+def _laplace_start(model, C, gen):
+    """Draws of the Laplace approximation of a logreg posterior (Newton's
+    method from 0 in float64) and its covariance as M^-1."""
+    leaf = model.tree_transition_fn.leaf
+    K = model.dim
+    x, y = (t.double() for t in leaf.logreg_data())
+    eye = torch.eye(K, dtype=torch.float64, device=x.device)
+    beta = torch.zeros(K, dtype=torch.float64, device=x.device)
+    for _ in range(20):
+        s = torch.sigmoid(x @ beta)
+        hess = x.mT @ (x * (s * (1 - s))[:, None]) + leaf.scalars[0] * eye
+        beta = beta + torch.linalg.solve(
+            hess, x.mT @ (y - s) - leaf.scalars[0] * beta)
+    cov = torch.linalg.inv(hess)
+    z = torch.randn((C, K), generator=gen, dtype=torch.float64, device=x.device)
+    return (beta + z @ torch.linalg.cholesky(cov).mT).float(), cov.float()
+
+
 def _kernel_args(model, C, md, kind, dcap, eps_range, scale=0.3, seed=0):
+    """Inputs of one tree-kernel transition; ``scale=None`` starts a logreg
+    model at draws of its Laplace approximation with its covariance."""
     dev = _device()
     gen = torch.Generator(device=dev).manual_seed(seed)
     K = model.dim
-    q, minv = _start(model, C, gen, scale)
+    if scale is None:
+        q, minv = _laplace_start(model, C, gen)
+    else:
+        q, minv = _start(model, C, gen, scale)
     v, g = model.logdensity_and_gradient(q)
     if kind == "diag":
         minv = torch.diagonal(minv).contiguous()
@@ -109,6 +132,9 @@ def _check_transition(args, C, dcap, min_match):
     for name in ("depth", "steps", "term_left", "term_right"):
         same &= (out[name] == ref[name]) & (ref64[name] == ref[name])
     assert same.float().mean() >= min_match
+    for name in ("prop_ld", "prop_pi"):  # the -inf rows match exactly
+        assert torch.equal(torch.isneginf(out[name])[same],
+                           torch.isneginf(ref[name])[same]), name
     assert float(_rel(out["prop_ld"], ref["prop_ld"], same).max()) <= 1e-4
     for name in ("prop_q", "prop_grad", "log_sum"):
         err_kernel = float(_rel(out[name], ref64[name], same).max())
@@ -146,15 +172,53 @@ def test_cuda_funnel_kernel_matches_plain(K, C, md, kind, dcap):
 @pytest.mark.parametrize("n_obs,K,C,md,kind,scale,eps", [
     (53, 7, 64, 4, "diag", 0.3, 0.1), (300, 40, 64, 4, "dense", 0.1, 0.05),
     (4000, 128, 2048, 4, "diag", 0.03, 0.02),
+    # K = 33: rows of 36 floats, and one coordinate past a warp
+    (300, 33, 64, 4, "diag", 0.1, 0.05),
+    # past the n_obs the residual buffer of the earlier design capped
+    # (57,248 at K = 8, md 4), from draws of the Laplace approximation
+    (60001, 8, 64, 4, "diag", None, 0.4),
 ])
 def test_cuda_logreg_kernel_matches_plain(n_obs, K, C, md, kind, scale, eps):
     """Starts at N(0, scale^2), about the posterior's spread, with eps in
-    [eps / 4, eps] on an identity metric."""
+    [eps / 4, eps] on an identity metric (scale None: Laplace draws and
+    covariance). 53 and 300 observations end in a partial tile of X."""
     dev = _device()
     model = logistic_regression(n_obs, K, dtype=F32, device=dev,
                                 tree_kernel=True)
     _check_transition(_kernel_args(model, C, md, kind, md, (eps / 4, eps),
                                    scale=scale), C, md, 0.99)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md,tiles", [(10, (2, True)), (11, (32, False))])
+def test_cuda_logreg_kernel_at_the_widest_k(md, tiles):
+    """K = 1024, through the 64-register wide kernel: at max_depth 10 the
+    merge stack leaves room for two rows per ring stage; at 11 for less
+    than one, and the tiles are read from X in place. Trees are capped at
+    depth 4; 300 observations end in a partial tile."""
+    dev = _device()
+    K, C, n_obs = 1024, 16, 300
+    assert tree_kernel.logreg_tiles(K, md) == tiles
+    model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                tree_kernel=True)
+    _check_transition(_kernel_args(model, C, md, "diag", 4, (0.005, 0.02),
+                                   scale=0.1), C, 4, 0.99)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_obs,K,C", [(53, 7, 64), (4000, 128, 256)])
+def test_cuda_logreg_kernel_is_deterministic(n_obs, K, C):
+    """Two launches on the same inputs give bitwise the same outputs: every
+    sum runs in a fixed order."""
+    dev = _device()
+    model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                tree_kernel=True)
+    args = _kernel_args(model, C, 4, "diag", 4, (0.005, 0.02), scale=0.03)
+    a = tree_kernel.tree_transition(*args)
+    b = tree_kernel.tree_transition(*args)
+    torch.cuda.synchronize()
+    for name, x in a.items():
+        assert torch.equal(x, b[name]), name
 
 
 def _leaf_inputs(C, K, n_obs, kind, seed=0):
@@ -192,6 +256,35 @@ def test_cuda_fused_logreg_leaf_matches_plain(kind, C, K, n_obs):
     out = logreg_leaf.logreg_leaf(*args)
     torch.cuda.synchronize()
     assert logreg_leaf.launches == 1
+    _check_fused_against_plain(out, args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1])
+def test_cuda_fused_logreg_hook_at_and_past_max_k(extra):
+    """The fused logreg hook on float32 chains on the card: at K = MAX_K it
+    launches the kernel; one coordinate more and it raises instead of
+    running the plain leaf on the card."""
+    dev = _device()
+    K, C, n_obs = logreg_leaf.MAX_K + extra, 16, 100
+    args = _leaf_inputs(C, K, n_obs, "shared_diag")
+    hook = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                               fused=True).fused_leaf_batched_fn
+    logreg_leaf.reset_launches()
+    if extra:
+        with pytest.raises(ValueError, match=f"K = {K}"):
+            hook(*args[:5])
+        assert logreg_leaf.launches == 0
+        return
+    out = hook(*args[:5])
+    torch.cuda.synchronize()
+    assert logreg_leaf.launches == 1
+    _check_fused_against_plain(out, args)
+
+
+def _check_fused_against_plain(out, args):
+    """The rule of test_cuda_fused_logreg_leaf_matches_plain."""
+    C = args[1].shape[0]
     ref = logreg_leaf.logreg_leaf_plain(*args)
     m = args[0]
     m64 = type(m)(m.m_inv.double(), None)

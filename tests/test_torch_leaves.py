@@ -203,6 +203,21 @@ def test_plain_fused_leaf_poisoning_matches_pallas():
     _check_leaf([v[3:] for v in a], [v[3:] for v in b])
 
 
+def test_fused_leaf_past_max_k_runs_plain_leaf_on_cpu():
+    """K = 257, one past the kernel's layout: on the CPU the float32 hook
+    still takes the plain leaf (no launch), at the JAX hook's value; on the
+    card it raises (tests/test_torch_gpu.py)."""
+    K, C = logreg_leaf.MAX_K + 1, 4
+    jfused, tfused = _fused_pair(53, K)
+    jmet, tmet = _metric_pair("shared_diag", C, K)
+    q, p, g, eps = _leaf_operands(6, C, K, scale=0.1)
+    a = jfused(jmet, *(jnp.asarray(v) for v in (q, p, g, eps)))
+    logreg_leaf.reset_launches()
+    b = tfused(tmet, *(torch.as_tensor(v) for v in (q, p, g, eps)))
+    assert logreg_leaf.launches == 0 and b[0].dtype == F32
+    _check_leaf(a, b)
+
+
 def test_fused_leaf_declines_to_plain_leaf_in_float64():
     """float64 chains and a per-chain dense metric take the plain leaf in
     the chains' dtype, as the JAX hook's fallback does."""

@@ -211,3 +211,130 @@ def test_wrapper_rejects_other_devices():
                                     q, tree_kernel.funnel_leaf(3, 3.0), 1,
                                     -1000.0, 1)
 
+
+
+# --- the logreg leaf: one pass over X through a ring of row tiles ----------
+
+def _old_smem_bytes(K, md, n_obs):
+    """The earlier design's shared memory: a residual buffer of n_obs
+    floats beside the merge stack."""
+    kp = (K + 31) // 32 * 32
+    return 4 * ((5 * md + 1) * kp + 6 * 32 + n_obs)
+
+
+@pytest.mark.parametrize("K,md,n_obs,ring", [
+    (1024, 10, 100, True), (128, 4, 4000, True), (128, 4, 55000, True),
+    (7, 4, 53, True), (33, 6, 300, True), (1000, 9, 2000, True),
+    (256, 10, 20000, True), (1, 1, 1, True),
+    # the merge stack leaves less than one row per ring stage: the tiles
+    # are read from X in place
+    (1024, 11, 1, False), (1024, 11, 500, False), (928, 12, 100, False),
+    (864, 13, 1, False), (864, 13, 800, False), (1024, 11, 576, False),
+])
+def test_logreg_kernel_fits_what_fit_before(K, md, n_obs, ring):
+    """The logreg leaf's shared memory no longer grows with n_obs: every
+    (K, max_depth, n_obs) whose CTA fit with the n_obs-float residual buffer
+    still fits, through the ring where one row per stage fits and else with
+    the tiles read in place."""
+    assert _old_smem_bytes(K, md, n_obs) <= tree_kernel.MAX_SMEM_BYTES
+    assert tree_kernel.kernel_fits(K, md, logreg=True)
+    tile, got_ring = tree_kernel.logreg_tiles(K, md)
+    assert got_ring == ring
+    assert 1 <= tile <= tree_kernel.TILE_ROWS
+    assert tree_kernel.smem_bytes(K, md, tile, ring) <= tree_kernel.MAX_SMEM_BYTES
+
+
+def test_logreg_ring_at_the_path_shape_and_at_the_widest_k():
+    """K = 128, md 4 (the logreg_tree path): 32 rows per stage, 44,672
+    bytes per CTA whatever n_obs (10^6 fits); K = 1024, md 10: the merge
+    stack leaves room for 2 rows per stage; K = 1024, md 11 leaves less than
+    one, so 32-row tiles are read in place with 128 bytes of residuals;
+    md 12 leaves no room for the merge stack itself."""
+    assert tree_kernel.logreg_tiles(128, 4) == (32, True)
+    assert tree_kernel.smem_bytes(128, 4, 32, True) == 44672
+    assert tree_kernel.kernel_fits(128, 4, logreg=True)
+    assert _old_smem_bytes(128, 4, 10**6) > tree_kernel.MAX_SMEM_BYTES
+    assert tree_kernel.logreg_tiles(1024, 10) == (2, True)
+    assert tree_kernel.logreg_tiles(1024, 11) == (32, False)
+    assert (tree_kernel.smem_bytes(1024, 11, 32, False)
+            == tree_kernel.smem_bytes(1024, 11) + 128)
+    assert tree_kernel.kernel_fits(1024, 11, logreg=True)
+    assert tree_kernel.logreg_tiles(1024, 12)[0] == 0
+    assert not tree_kernel.kernel_fits(1024, 12, logreg=True)
+    assert _old_smem_bytes(1024, 12, 1) > tree_kernel.MAX_SMEM_BYTES
+    assert not tree_kernel.kernel_fits(1025, 4, logreg=True)
+
+
+def test_logreg_hook_takes_n_obs_past_the_old_cap():
+    """60,001 observations at K = 8, md 2: the earlier hook declined them
+    (the residual buffer needed 235 KB); now the hook runs, on the CPU
+    through the plain version."""
+    assert _old_smem_bytes(8, 2, 60001) > tree_kernel.MAX_SMEM_BYTES
+    model = tm.logistic_regression(60001, 8, dtype=F32, device="cpu",
+                                   tree_kernel=True)
+    q = torch.zeros((2, 8), dtype=F32)
+    v, g = model.logdensity_and_gradient(q)
+    tree_kernel.reset_launches()
+    out = model.tree_transition_fn(
+        torch.Generator().manual_seed(0), NUTS(max_depth=2),
+        diagonal_metric(torch.full((8,), 1e-4)),
+        EvaluatedPoint(q=q, logdensity=v, grad=g), 1e-3)
+    assert out is not None and tree_kernel.launches == 0
+    assert bool(torch.isfinite(out[0].q).all())
+
+
+@pytest.mark.parametrize("K", [1, 5, 7, 8, 33, 40, 128])
+def test_logreg_leaf_pads_x_and_stores_no_transpose(K):
+    """X is stored with zero columns up to a multiple of 4 (16-byte rows)
+    beside y, and nothing else: no X^T."""
+    rng = np.random.default_rng(K)
+    x, y = rng.normal(size=(13, K)), rng.integers(0, 2, 13).astype(float)
+    leaf = tree_kernel.logreg_leaf(x, y, 10.0)
+    assert len(leaf.operands) == 2 and leaf.n_obs == 13 and leaf.dim == K
+    xp, yt = leaf.operands
+    kx = (K + 3) // 4 * 4
+    assert xp.shape == (13, kx) and xp.dtype == F32 and xp.is_contiguous()
+    assert torch.equal(xp[:, :K], torch.as_tensor(x, dtype=F32))
+    assert not bool(xp[:, K:].any())
+    assert torch.equal(yt, torch.as_tensor(y, dtype=F32))
+    assert tree_kernel._operand_shapes(leaf, K) == ((13, kx), (13,))
+    x_logical, y_logical = leaf.logreg_data()
+    assert torch.equal(x_logical, torch.as_tensor(x, dtype=F32))
+    assert y_logical is yt
+
+
+@pytest.mark.parametrize("n_obs,K", [(53, 7), (300, 33)])
+def test_logreg_leaf_value_and_grad_matches_jax_leaf(monkeypatch, n_obs, K):
+    """Leaf.value_and_grad on the padded operands against the JAX kernel's
+    logreg_leaf (pallas_tree.py), captured from its hook factory, on the
+    same numpy inputs at float64. The JAX leaf's dots return float32
+    (preferred_element_type), so the tolerance is float32's: 1e-5
+    (1 + |x|) on ld and the gradient."""
+    from dynamichmc_tpu.ops import pallas_tree
+
+    captured = {}
+
+    def capture(leaf_builder, model_arrays, dim, **kw):
+        captured.update(leaf=leaf_builder, arrays=model_arrays)
+
+    monkeypatch.setattr(pallas_tree, "make_tree_transition", capture)
+    x, y = _logreg_data(n_obs, K)
+    pallas_tree.make_logreg_tree_transition(x, y, prior_scale=2.0)
+    q = 0.3 * np.random.default_rng(1).normal(size=(5, K))
+    kp = captured["arrays"][0].shape[1]
+    q_col = jnp.asarray(np.pad(q.T, ((0, kp - K), (0, 0))), jnp.float64)
+    refs = tuple(a.astype(jnp.float64) for a in captured["arrays"])
+    ld_j, g_j = captured["leaf"](q_col, refs)
+    leaf = tree_kernel.logreg_leaf(x, y, 2.0)
+    ld_t, g_t = leaf.value_and_grad(torch.as_tensor(q, dtype=torch.float64))
+    assert ld_t.dtype == torch.float64
+    for a, b in ((np.asarray(ld_j)[0], ld_t), (np.asarray(g_j)[:K].T, g_t)):
+        b = b.numpy()
+        assert np.max(np.abs(a - b) / (1 + np.abs(b))) <= 1e-5
+
+
+def _logreg_data(n_obs, K):
+    rng = np.random.RandomState(n_obs)
+    x = rng.randn(n_obs, K)
+    y = (rng.uniform(size=n_obs) < 0.5).astype(np.float64)
+    return x, y
