@@ -18,36 +18,59 @@
 // (unless it is -inf already), pi' becomes -inf when it or ld' is
 // non-finite.
 //
-// Design. The leaf has no tree state, so chains are independent and one CTA
-// takes a block of BC = 16 chains with 256 threads. It walks X in tiles of
-// TN = 64 observations: each tile is staged once in shared memory and used
-// by all 16 chains for both products, the Hopper counterpart of the TPU
-// kernel keeping X resident in VMEM across both matmuls.
-// - Phase A, logits: thread (o, chain group) computes the 4 logits of
-//   observation o for 4 chains, reading the tile row and q' as float4 from
-//   shared memory (q' is a broadcast; rows are padded by 4 floats so the
-//   lanes of a quarter warp hit distinct banks). It adds the chain's
-//   likelihood terms and writes the residuals y - sigmoid(l) to shared
-//   memory. Observations past n_obs in the last tile are masked: their
-//   residual and likelihood term are 0.
-// - Phase B, gradient: thread (k, half) accumulates g'[c, k] for 8 chains
-//   in registers over the tile's observations: one tile element and two
-//   broadcast float4 residual loads per 8 FMAs. Each tile's sum is added
-//   to the running sum once, which keeps float32 rounding at the level of
-//   cuBLAS's blocked sums (a single running sum over 4000 observations
-//   was 5x further from float64, measured on the H100).
-// Sums over observations and coordinates are taken in a fixed order (warp
-// shuffles, then shared memory), so the result is deterministic. Products
-// are plain fp32 FMAs; no TF32.
+// Design. The leaf has no tree state, so chains are independent. Two
+// kernels run one after the other on the caller's stream:
+// - logreg_leaf_slice_kernel: one CTA of 256 threads takes a block of 16
+//   chains, one slice of the observations and one chunk of the gradient's
+//   coordinates (grid: chain blocks x slices x chunks). It computes the
+//   drift q' of its 16 chains (every CTA of the block does, a cheap
+//   redundancy), then walks its slice of X in tiles of TN rows: each tile is
+//   staged once in shared memory and used by all 16 chains for both
+//   products, the Hopper counterpart of the TPU kernel keeping X resident in
+//   VMEM across both matmuls.
+//   * Phase A, logits: thread (o, chain group) computes the logits of tile
+//     row o for TN / 16 chains, reading the row and q' as float4 from
+//     shared memory (q' is a broadcast; rows are padded by 4 floats so the
+//     lanes of a quarter warp hit distinct banks). It adds the chain's
+//     likelihood terms and writes the residuals y - sigmoid(l) to shared
+//     memory. Rows past n_obs are zero and masked: residual and likelihood
+//     term 0.
+//   * Phase B, gradient: thread (k, half) accumulates the chunk's
+//     coordinates k, k + 128 of 8 chains in registers over the tile's rows:
+//     one tile element and two broadcast float4 residual loads per 8 FMAs.
+//     Each tile's sum is added to the slice's running sum once, which keeps
+//     float32 rounding at the level of cuBLAS's blocked sums (a single
+//     running sum over 4000 observations was 5x further from float64,
+//     measured on the H100).
+//   The CTA writes its chains' partial gradient over its chunk, and (chunk
+//   0) their partial likelihood sums, to a workspace of S x C x (K + 1)
+//   floats that the caller allocates.
+// - logreg_leaf_finish_kernel: one warp per chain sums the S partials in
+//   slice order, then forms g', p', the kinetic energy, ld' and pi' with
+//   the poisoning.
+// Every sum runs in a fixed order (no atomics), so two launches on the same
+// inputs are bitwise equal. Products are plain fp32 FMAs; no TF32.
+//
+// Any K. The per-thread gradient registers cover 256 coordinates (8 chains
+// x 2 coordinates a thread), so past K = 256 the grid's third dimension
+// splits the gradient into 256-wide chunks, each CTA recomputing the
+// logits over all of K; the logits are half the leaf's FMAs, and K > 256 is
+// off the path the kernel was shaped for. This keeps both phases' thread
+// mappings and FMA order for every K. The tile has 64 rows while its CTA
+// fits in shared memory (K up to 708) and 16 rows past that; with 16 rows
+// the CTA's shared memory, 16 (K + 4) + 16 K + 256 floats, bounds K at
+// 1804 (ops/logreg_leaf.py: MAX_K, the plan).
+//
+// The slices. 2048 chains make 128 chain blocks, one CTA on 128 of the 132
+// SMs: every barrier and global load then stalls its SM. The caller
+// (ops/logreg_leaf.py: launch_plan) picks S, the slices of the
+// observations, so that the grid fills the card.
 //
 // What bounds it on the H100: 2 n_obs K FMAs per chain (1.0 M at n_obs
 // 4000, K 128; 4.2 GFLOP per leaf at 2048 chains) issued from shared memory,
 // about 2.5 shared-memory wavefronts per 8 FMAs; X (2 MB) is read from L2
-// once per CTA: 256 MB per leaf at 2048 chains. The tile load is not
-// overlapped with compute inside a CTA (no cp.async / TMA pipeline yet), and
-// 2048 chains make 128 CTAs, one per SM. Tensor cores over the chain block
-// (wgmma with fp32-exact splitting) and a TMA ring for the tiles are later
-// work.
+// once per chain block. Tensor cores over the chain block (wgmma with
+// fp32-exact splitting) are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,9 +79,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChains = 16;  // chains per CTA
-constexpr int kTile = 64;    // observations per staged tile of X
-constexpr int kRedFloats = 8 * 24 + 8 * 4;
+constexpr int kChains = 16;                    // chains per slice-kernel CTA
+constexpr int kFinishChains = kThreads / 32;   // finish kernel: a warp per chain
+constexpr size_t kMaxSmem = 232448;            // H100: dynamic shared memory per CTA
 
 constexpr int kSharedDiag = 0;
 constexpr int kChainDiag = 1;
@@ -80,30 +103,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// MODE: kSharedDiag, kChainDiag or kSharedDense. KM: K <= 128 * KM.
-template <int MODE, int KM>
+// Shared memory of one slice-kernel CTA: the tile of X (TN rows of KX + 4
+// floats), q' of its 16 chains (KX floats each) and the tile's residuals
+// (TN x 16). p_mid of the dense drift lies in the tile's place before the
+// first tile. KX = K rounded up to 4: X's rows as the caller pads them.
+size_t slice_smem_bytes(int K, int TN) {
+  const size_t KX = (K + 3) & ~3;
+  return sizeof(float) * ((size_t)TN * (KX + 4) + kChains * KX + (size_t)TN * kChains);
+}
+
+// MODE: kSharedDiag, kChainDiag or kSharedDense. KM: the CTA's gradient
+// chunk is 128 KM coordinates. TN: rows of X per tile (a multiple of 16).
+template <int MODE, int KM, int TN>
 __global__ void __launch_bounds__(kThreads)
-    logreg_leaf_kernel(const float* __restrict__ q, const float* __restrict__ p,
-                       const float* __restrict__ g, const float* __restrict__ eps,
-                       const float* __restrict__ minv, const float* __restrict__ X,
-                       const float* __restrict__ y, float* __restrict__ qn,
-                       float* __restrict__ pn, float* __restrict__ gn, float* __restrict__ ldn,
-                       float* __restrict__ pin, int C, int K, int n_obs, float inv_s2) {
+    logreg_leaf_slice_kernel(const float* __restrict__ q, const float* __restrict__ p,
+                             const float* __restrict__ g, const float* __restrict__ eps,
+                             const float* __restrict__ minv, const float* __restrict__ X,
+                             const float* __restrict__ y, float* __restrict__ qn,
+                             float* __restrict__ ws, int C, int K, int n_obs,
+                             int tiles_per_slice) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int KP4 = (K + 3) & ~3;
-  const int XS = KP4 + 4;            // tile row stride (floats)
-  float* Xs = smem;                  // [kTile][XS]
-  float* Qs = Xs + kTile * XS;       // [kChains][KP4]  q'
-  float* Ps = Qs + kChains * KP4;    // [kChains][KP4]  p_mid, then p' (dense)
-  float* Rs = Ps + kChains * KP4;    // [kTile][kChains] residuals
-  float* red = Rs + kTile * kChains; // reduction scratch
+  const int KX = (K + 3) & ~3;
+  const int XS = KX + 4;              // tile row stride (floats)
+  float* Xs = smem;                   // [TN][XS]
+  float* Qs = Xs + TN * XS;           // [kChains][KX]  q'
+  float* Rs = Qs + kChains * KX;      // [TN][kChains] residuals
+  float* Ps = Xs;                     // [kChains][KX]  p_mid (dense), before the tiles
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
   const int c0 = blockIdx.x * kChains;
+  const int slice = blockIdx.y;
+  const int kc0 = blockIdx.z * 128 * KM;  // the chunk's first coordinate
 
-  // (k, half) mapping: coordinates kl + 128 m of chains ch * 8 + i
+  // drift: thread (kl, ch) takes coordinates kl, kl + 128, ... of chains
+  // ch * 8 .. ch * 8 + 7; q' of every coordinate goes to Qs (0 past K)
   const int kl = t & 127, ch = t >> 7;
+  const bool write_q = slice == 0 && blockIdx.z == 0;
   float eps_c[8], half_c[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -111,78 +146,84 @@ __global__ void __launch_bounds__(kThreads)
     eps_c[i] = c < C ? eps[c] : 0.f;
     half_c[i] = 0.5f * eps_c[i];
   }
-  for (int idx = t; idx < 2 * kChains * KP4; idx += kThreads) Qs[idx] = 0.f;  // pads
-  __syncthreads();
-
-  float pm[KM][8], qv[KM][8];
-#pragma unroll
-  for (int m = 0; m < KM; ++m) {
-    const int k = kl + 128 * m;
+  for (int k = kl; k < KX; k += 128) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int c = c0 + ch * 8 + i;
       const bool v = k < K && c < C;
       const size_t off = (size_t)c * K + k;
-      pm[m][i] = (v ? p[off] : 0.f) + half_c[i] * (v ? g[off] : 0.f);
-      if (MODE == kSharedDense && k < K) Ps[(ch * 8 + i) * KP4 + k] = pm[m][i];
+      const float pm = (v ? p[off] : 0.f) + half_c[i] * (v ? g[off] : 0.f);
+      if (MODE == kSharedDense) {
+        Ps[(ch * 8 + i) * KX + k] = pm;
+      } else {
+        const float m = MODE == kSharedDiag ? (k < K ? __ldg(minv + k) : 0.f)
+                                            : (v ? __ldg(minv + off) : 0.f);
+        const float qv = (v ? q[off] : 0.f) + eps_c[i] * (m * pm);
+        Qs[(ch * 8 + i) * KX + k] = k < K ? qv : 0.f;
+        if (write_q && v) qn[off] = qv;
+      }
     }
   }
-  if (MODE == kSharedDense) __syncthreads();
-#pragma unroll
-  for (int m = 0; m < KM; ++m) {
-    const int k = kl + 128 * m;
-    float drift[8];
-    if (MODE == kSharedDense) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) drift[i] = 0.f;
+  if (MODE == kSharedDense) {
+    __syncthreads();  // p_mid is staged
+    for (int k = kl; k < KX; k += 128) {
+      float drift[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (k < K) {
         for (int ii = 0; ii < K; ++ii) {
           const float mv = __ldg(minv + (size_t)ii * K + k);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) drift[i] = fmaf(Ps[(ch * 8 + i) * KP4 + ii], mv, drift[i]);
+          for (int i = 0; i < 8; ++i) drift[i] = fmaf(Ps[(ch * 8 + i) * KX + ii], mv, drift[i]);
         }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = c0 + ch * 8 + i;
-      const bool v = k < K && c < C;
-      const size_t off = (size_t)c * K + k;
-      if (MODE == kSharedDiag) drift[i] = (k < K ? __ldg(minv + k) : 0.f) * pm[m][i];
-      if (MODE == kChainDiag) drift[i] = (v ? __ldg(minv + off) : 0.f) * pm[m][i];
-      qv[m][i] = (v ? q[off] : 0.f) + eps_c[i] * drift[i];
-      if (k < K) Qs[(ch * 8 + i) * KP4 + k] = qv[m][i];
+      for (int i = 0; i < 8; ++i) {
+        const int c = c0 + ch * 8 + i;
+        const bool v = k < K && c < C;
+        const size_t off = (size_t)c * K + k;
+        const float qv = (v ? q[off] : 0.f) + eps_c[i] * drift[i];
+        Qs[(ch * 8 + i) * KX + k] = k < K ? qv : 0.f;
+        if (write_q && v) qn[off] = qv;
+      }
     }
   }
 
-  // tiles of X: logits (phase A), then the gradient (phase B)
-  const int oa = t & (kTile - 1), cg = t / kTile;  // cg in 0..3: chains cg*4..cg*4+3
-  float ll[4] = {0.f, 0.f, 0.f, 0.f};
+  // the slice's tiles of X: logits (phase A), then the gradient (phase B)
+  constexpr int CPT = TN / 16;  // phase A: chains per thread
+  const int oa = t % TN, cg = t / TN;  // chains cg * CPT .. cg * CPT + CPT - 1
+  const int n_tiles = (n_obs + TN - 1) / TN;
+  const int t_begin = slice * tiles_per_slice;
+  const int t_end = min(n_tiles, t_begin + tiles_per_slice);
+  float ll[CPT];
+#pragma unroll
+  for (int cc = 0; cc < CPT; ++cc) ll[cc] = 0.f;
   float G[KM][8];
 #pragma unroll
   for (int m = 0; m < KM; ++m)
 #pragma unroll
     for (int i = 0; i < 8; ++i) G[m][i] = 0.f;
 
-  for (int o0 = 0; o0 < n_obs; o0 += kTile) {
-    __syncthreads();  // the last tile's readers are done; q' is staged
-    for (int idx = t; idx < kTile * KP4; idx += kThreads) {
-      const int o = idx / KP4;
-      const int k = idx - o * KP4;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int o0 = tile * TN;
+    __syncthreads();  // the last tile's readers (and p_mid's) are done; q' is staged
+    for (int idx = t; idx < TN * KX; idx += kThreads) {
+      const int o = idx / KX;
+      const int k = idx - o * KX;
       const int og = o0 + o;
-      Xs[o * XS + k] = (og < n_obs && k < K) ? __ldg(X + (size_t)og * K + k) : 0.f;
+      Xs[o * XS + k] = og < n_obs ? __ldg(X + (size_t)og * KX + k) : 0.f;
     }
     __syncthreads();
 
-    float l[4] = {0.f, 0.f, 0.f, 0.f};
+    float l[CPT];
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) l[cc] = 0.f;
     const float4* xrow = reinterpret_cast<const float4*>(Xs + oa * XS);
-    const float4* qrow = reinterpret_cast<const float4*>(Qs + cg * 4 * KP4);
-    const int kp4 = KP4 / 4;
-    for (int k4 = 0; k4 < kp4; ++k4) {
+    const float4* qrow = reinterpret_cast<const float4*>(Qs + cg * CPT * KX);
+    const int kx4 = KX / 4;
+    for (int k4 = 0; k4 < kx4; ++k4) {
       const float4 xv = xrow[k4];
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float4 q4 = qrow[cc * kp4 + k4];
+      for (int cc = 0; cc < CPT; ++cc) {
+        const float4 q4 = qrow[cc * kx4 + k4];
         l[cc] = fmaf(xv.x, q4.x, l[cc]);
         l[cc] = fmaf(xv.y, q4.y, l[cc]);
         l[cc] = fmaf(xv.z, q4.z, l[cc]);
@@ -192,28 +233,28 @@ __global__ void __launch_bounds__(kThreads)
     const int og = o0 + oa;
     const float yi = og < n_obs ? __ldg(y + og) : 0.f;
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const bool valid = og < n_obs && c0 + cg * 4 + cc < C;
+    for (int cc = 0; cc < CPT; ++cc) {
+      const bool valid = og < n_obs && c0 + cg * CPT + cc < C;
       if (valid) ll[cc] += yi * l[cc] - softplus(l[cc]);
-      Rs[oa * kChains + cg * 4 + cc] = valid ? yi - sigmoid(l[cc]) : 0.f;
+      Rs[oa * kChains + cg * CPT + cc] = valid ? yi - sigmoid(l[cc]) : 0.f;
     }
     __syncthreads();
 
     // the tile's partial sums, then one add into G: a two-level sum whose
-    // rounding error grows with 64 + n_obs / 64 terms, not with n_obs
+    // rounding error grows with TN + n_obs / TN terms, not with n_obs
     float T[KM][8];
 #pragma unroll
     for (int m = 0; m < KM; ++m)
 #pragma unroll
       for (int i = 0; i < 8; ++i) T[m][i] = 0.f;
     const float4* r4 = reinterpret_cast<const float4*>(Rs);
-    for (int o = 0; o < kTile; ++o) {
+    for (int o = 0; o < TN; ++o) {
       const float4 ra = r4[o * (kChains / 4) + ch * 2];
       const float4 rb = r4[o * (kChains / 4) + ch * 2 + 1];
       const float rr[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
 #pragma unroll
       for (int m = 0; m < KM; ++m) {
-        const int k = kl + 128 * m;
+        const int k = kc0 + kl + 128 * m;
         const float xv = k < K ? Xs[o * XS + k] : 0.f;
 #pragma unroll
         for (int i = 0; i < 8; ++i) T[m][i] = fmaf(xv, rr[i], T[m][i]);
@@ -224,89 +265,85 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 8; ++i) G[m][i] += T[m][i];
   }
-  __syncthreads();  // every reader of Ps (the dense drift) is done
 
-  // epilogue: g', p', outputs, and the per-chain sums
-  float kin[8], sq[8], bad[8];
+  // the slice's partials: the likelihood sum of each chain over the TN
+  // row threads in row order (Rs reused), and the chunk's gradient
+  __syncthreads();  // the last tile's readers of Rs are done
 #pragma unroll
-  for (int i = 0; i < 8; ++i) kin[i] = sq[i] = bad[i] = 0.f;
-  float pnv[KM][8];
+  for (int cc = 0; cc < CPT; ++cc) Rs[(cg * CPT + cc) * TN + oa] = ll[cc];
+  __syncthreads();
+  float* wsl = ws + (size_t)slice * C * (K + 1);
+  if (blockIdx.z == 0 && t < kChains && c0 + t < C) {
+    float s = 0.f;
+    for (int o = 0; o < TN; ++o) s += Rs[t * TN + o];
+    wsl[(size_t)(c0 + t) * (K + 1) + K] = s;
+  }
 #pragma unroll
   for (int m = 0; m < KM; ++m) {
-    const int k = kl + 128 * m;
+    const int k = kc0 + kl + 128 * m;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int c = c0 + ch * 8 + i;
-      const bool v = k < K && c < C;
-      const size_t off = (size_t)c * K + k;
-      const float gnew = G[m][i] - inv_s2 * qv[m][i];
-      const float pnew = pm[m][i] + half_c[i] * gnew;
-      pnv[m][i] = pnew;
-      if (k < K) {
-        sq[i] += qv[m][i] * qv[m][i];
-        bad[i] += isfinite(gnew) ? 0.f : 1.f;
-        if (MODE == kSharedDiag) kin[i] += __ldg(minv + k) * pnew * pnew;
-        if (MODE == kChainDiag && v) kin[i] += __ldg(minv + off) * pnew * pnew;
-        if (MODE == kSharedDense) Ps[(ch * 8 + i) * KP4 + k] = pnew;
-      }
-      if (v) {
-        qn[off] = qv[m][i];
-        pn[off] = pnew;
-        gn[off] = gnew;
-      }
+      if (k < K && c < C) wsl[(size_t)c * (K + 1) + k] = G[m][i];
     }
+  }
+}
+
+// One warp per chain: the S partials summed in slice order, then g', p',
+// the kinetic energy, ld' and pi'. q' is read back from qn (the slice
+// kernel wrote it). Dense: p' of the warp's chain is staged in shared
+// memory (kFinishChains x KX floats) for the matvec.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+    logreg_leaf_finish_kernel(const float* __restrict__ p, const float* __restrict__ g,
+                              const float* __restrict__ eps, const float* __restrict__ minv,
+                              const float* __restrict__ qn, const float* __restrict__ ws,
+                              float* __restrict__ pn, float* __restrict__ gn,
+                              float* __restrict__ ldn, float* __restrict__ pin, int C, int K,
+                              int S, float inv_s2) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kFinishChains + warp;
+  if (c >= C) return;  // a whole warp; no CTA barrier follows
+  const int KX = (K + 3) & ~3;
+  float* Pw = reinterpret_cast<float*>(smem4) + warp * KX;
+  const float half = 0.5f * eps[c];
+  const size_t stride = (size_t)C * (K + 1);  // one slice of the workspace
+  const float* wc = ws + (size_t)c * (K + 1);
+  float kin = 0.f, sq = 0.f, bad = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const size_t off = (size_t)c * K + k;
+    float G = wc[k];
+    for (int s = 1; s < S; ++s) G += wc[s * stride + k];
+    const float qv = qn[off];
+    const float pm = p[off] + half * g[off];
+    const float gnew = G - inv_s2 * qv;
+    const float pnew = pm + half * gnew;
+    sq += qv * qv;
+    bad += isfinite(gnew) ? 0.f : 1.f;
+    if (MODE == kSharedDiag) kin += __ldg(minv + k) * pnew * pnew;
+    if (MODE == kChainDiag) kin += __ldg(minv + off) * pnew * pnew;
+    if (MODE == kSharedDense) Pw[k] = pnew;
+    pn[off] = pnew;
+    gn[off] = gnew;
   }
   if (MODE == kSharedDense) {
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < KM; ++m) {
-      const int k = kl + 128 * m;
-      if (k < K) {
-        float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        for (int ii = 0; ii < K; ++ii) {
-          const float mv = __ldg(minv + (size_t)ii * K + k);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) s[i] = fmaf(Ps[(ch * 8 + i) * KP4 + ii], mv, s[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) kin[i] += pnv[m][i] * s[i];
-      }
+    __syncwarp();
+    for (int k = lane; k < K; k += 32) {
+      float s = 0.f;
+      for (int ii = 0; ii < K; ++ii) s = fmaf(Pw[ii], __ldg(minv + (size_t)ii * K + k), s);
+      kin += Pw[k] * s;
     }
   }
-
-  // warp sums: 24 values per warp of the (k, half) mapping (a warp lies in
-  // one half), 4 likelihood sums per warp of the phase-A mapping
-  float* redB = red;           // [8 warps][24]
-  float* redA = red + 8 * 24;  // [8 warps][4]
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float a = warp_sum(kin[i]), b = warp_sum(sq[i]), d = warp_sum(bad[i]);
-    if (lane == 0) {
-      redB[warp * 24 + i] = a;
-      redB[warp * 24 + 8 + i] = b;
-      redB[warp * 24 + 16 + i] = d;
-    }
-  }
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc) {
-    const float a = warp_sum(ll[cc]);
-    if (lane == 0) redA[warp * 4 + cc] = a;
-  }
-  __syncthreads();
-  if (t < kChains && c0 + t < C) {
-    const int c = c0 + t;
-    const int hb = t / 8, i = t % 8;  // (k, half) mapping: warps 4 hb .. 4 hb + 3
-    const int ga = t / 4, cc = t % 4;  // phase-A mapping: warps 2 ga, 2 ga + 1
-    float k_sum = 0.f, q_sum = 0.f, n_bad = 0.f;
-    for (int w = 0; w < 4; ++w) {
-      k_sum += redB[(hb * 4 + w) * 24 + i];
-      q_sum += redB[(hb * 4 + w) * 24 + 8 + i];
-      n_bad += redB[(hb * 4 + w) * 24 + 16 + i];
-    }
-    const float l_sum = redA[(ga * 2) * 4 + cc] + redA[(ga * 2 + 1) * 4 + cc];
-    float ld = l_sum + (-0.5f * inv_s2 * q_sum);
-    float pi = ld - 0.5f * k_sum;
-    const bool ok = isfinite(ld) && n_bad == 0.f;
+  kin = warp_sum(kin);
+  sq = warp_sum(sq);
+  bad = warp_sum(bad);
+  if (lane == 0) {
+    float l_sum = wc[K];
+    for (int s = 1; s < S; ++s) l_sum += wc[s * stride + K];
+    float ld = l_sum + (-0.5f * inv_s2 * sq);
+    float pi = ld - 0.5f * kin;
+    const bool ok = isfinite(ld) && bad == 0.f;
     if (!(ok || ld == neg_inf())) ld = neg_inf();
     if (!isfinite(pi) || !isfinite(ld)) pi = neg_inf();
     ldn[c] = ld;
@@ -314,55 +351,116 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t smem_bytes(int K) {
-  const int KP4 = (K + 3) & ~3;
-  return sizeof(float) *
-         ((size_t)kTile * (KP4 + 4) + 2 * kChains * KP4 + kTile * kChains + kRedFloats);
+using SliceKernel = void (*)(const float*, const float*, const float*, const float*,
+                             const float*, const float*, const float*, float*, float*, int,
+                             int, int, int);
+using FinishKernel = void (*)(const float*, const float*, const float*, const float*,
+                              const float*, const float*, float*, float*, float*, float*, int,
+                              int, int, float);
+
+// The slice kernel for (K, TN): 128-coordinate chunks up to K = 128, 256
+// past it. nullptr for a TN without an instantiation.
+template <int MODE>
+SliceKernel slice_kernel_for(int K, int TN) {
+  if (TN == 64) {
+    return K <= 128 ? logreg_leaf_slice_kernel<MODE, 1, 64>
+                    : logreg_leaf_slice_kernel<MODE, 2, 64>;
+  }
+  if (TN == 16) return logreg_leaf_slice_kernel<MODE, 2, 16>;
+  return nullptr;
 }
 
-template <int MODE, int KM>
-int launch(const float* q, const float* p, const float* g, const float* eps,
-           const float* minv, const float* X, const float* y, float* qn, float* pn,
-           float* gn, float* ldn, float* pin, int C, int K, int n_obs, float inv_s2,
-           cudaStream_t s) {
-  const size_t smem = smem_bytes(K);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(logreg_leaf_kernel<MODE, KM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const int blocks = (C + kChains - 1) / kChains;
-  logreg_leaf_kernel<MODE, KM><<<blocks, kThreads, smem, s>>>(
-      q, p, g, eps, minv, X, y, qn, pn, gn, ldn, pin, C, K, n_obs, inv_s2);
-  return (int)cudaGetLastError();
+SliceKernel slice_kernel(int mode, int K, int TN) {
+  switch (mode) {
+    case kSharedDiag: return slice_kernel_for<kSharedDiag>(K, TN);
+    case kChainDiag: return slice_kernel_for<kChainDiag>(K, TN);
+    case kSharedDense: return slice_kernel_for<kSharedDense>(K, TN);
+    default: return nullptr;
+  }
+}
+
+FinishKernel finish_kernel(int mode) {
+  switch (mode) {
+    case kSharedDiag: return logreg_leaf_finish_kernel<kSharedDiag>;
+    case kChainDiag: return logreg_leaf_finish_kernel<kChainDiag>;
+    case kSharedDense: return logreg_leaf_finish_kernel<kSharedDense>;
+    default: return nullptr;
+  }
+}
+
+// The slice kernel for (mode, K, TN) with its dynamic shared memory
+// allowed; nullptr where there is none or it does not fit.
+SliceKernel prepared_slice_kernel(int mode, int K, int TN, size_t& smem) {
+  SliceKernel kern = slice_kernel(mode, K, TN);
+  smem = slice_smem_bytes(K, TN);
+  if (kern == nullptr || K < 1 || smem > kMaxSmem) return nullptr;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return nullptr;
+  return kern;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The slice kernel that (mode, K, tile) launches: its dynamic shared memory
+// (bytes), registers per thread and CTAs per SM at 256 threads
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a CUDA error
+// code (0 on success).
+int logreg_leaf_info(int mode, int K, int tile, int* smem, int* regs, int* blocks_per_sm) {
+  size_t bytes = 0;
+  SliceKernel kern = prepared_slice_kernel(mode, K, tile, bytes);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kern));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, kThreads, bytes);
+  *smem = (int)bytes;
+  *regs = attr.numRegs;
+  return (int)err;
+}
+
 // One leaf for C chains on `stream`. mode: 0 shared diagonal minv (K),
-// 1 per-chain diagonal (C, K), 2 shared dense (K, K). X is (n_obs, K)
-// row-major, y (n_obs). K <= 256. Returns the cudaGetLastError() of the
-// launch (0 on success).
+// 1 per-chain diagonal (C, K), 2 shared dense (K, K). X is (n_obs, KX)
+// row-major with KX = K rounded up to 4 and zero pad columns; y (n_obs).
+// ws: slices x C x (K + 1) floats of workspace. The observations' n_tiles
+// tiles of `tile` rows go to `slices` slices of tiles_per_slice tiles, none
+// empty. Returns the cudaGetLastError() of the launches (0 on success).
 int logreg_leaf_f32(const float* q, const float* p, const float* g, const float* eps,
                     const float* minv, int mode, const float* X, const float* y, float* qn,
-                    float* pn, float* gn, float* ldn, float* pin, int C, int K, int n_obs,
-                    float inv_s2, void* stream) {
+                    float* pn, float* gn, float* ldn, float* pin, float* ws, int C, int K,
+                    int n_obs, int tile, int slices, int tiles_per_slice, float inv_s2,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K < 1 || K > 256 || C < 1 || n_obs < 1) return (int)cudaErrorInvalidValue;
-#define LEAF_LAUNCH(M, KM) \
-  launch<M, KM>(q, p, g, eps, minv, X, y, qn, pn, gn, ldn, pin, C, K, n_obs, inv_s2, s)
-  const bool wide = K > 128;
-  switch (mode) {
-    case kSharedDiag:
-      return wide ? LEAF_LAUNCH(kSharedDiag, 2) : LEAF_LAUNCH(kSharedDiag, 1);
-    case kChainDiag:
-      return wide ? LEAF_LAUNCH(kChainDiag, 2) : LEAF_LAUNCH(kChainDiag, 1);
-    case kSharedDense:
-      return wide ? LEAF_LAUNCH(kSharedDense, 2) : LEAF_LAUNCH(kSharedDense, 1);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (C < 1 || K < 1 || n_obs < 1 || slices < 1 || tiles_per_slice < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n_obs + tile - 1) / tile;
+  if ((long long)slices * tiles_per_slice < n_tiles ||
+      (long long)(slices - 1) * tiles_per_slice >= n_tiles)
+    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  SliceKernel slice = prepared_slice_kernel(mode, K, tile, smem);
+  FinishKernel finish = finish_kernel(mode);
+  if (slice == nullptr || finish == nullptr) return (int)cudaErrorInvalidValue;
+  const int chunk = K <= 128 ? 128 : 256;
+  const dim3 grid((C + kChains - 1) / kChains, slices, (K + chunk - 1) / chunk);
+  slice<<<grid, kThreads, smem, s>>>(q, p, g, eps, minv, X, y, qn, ws, C, K, n_obs,
+                                     tiles_per_slice);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t KX = (K + 3) & ~3;
+  const size_t fsmem = mode == kSharedDense ? sizeof(float) * kFinishChains * KX : 0;
+  if (fsmem > 48 * 1024) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(finish),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fsmem);
+    if (err != cudaSuccess) return (int)err;
   }
-#undef LEAF_LAUNCH
+  finish<<<(C + kFinishChains - 1) / kFinishChains, kThreads, fsmem, s>>>(
+      p, g, eps, minv, qn, ws, pn, gn, ldn, pin, C, K, slices, inv_s2);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

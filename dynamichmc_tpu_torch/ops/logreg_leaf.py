@@ -1,22 +1,25 @@
-"""Fused logistic-regression leaf: build, binding, plain version and the
-``LogDensity.fused_leaf_batched_fn`` hook.
+"""Fused logistic-regression leaf: build, binding, launch plan, plain
+version and the ``LogDensity.fused_leaf_batched_fn`` hook.
 
 The kernel (csrc/logreg_leaf.cu, CUDA C++ for sm_90a) replaces the Pallas
 kernel ``dynamichmc_tpu/ops/pallas_logreg.py::_make_kernel``: one whole
 leapfrog leaf of Bayesian logistic regression for every chain of the
 batch (both half-kicks, the drift, both products with X, the log density,
-its gradient and pi = ld - K(p')), with one CTA per block of 16 chains
-sharing each staged tile of X.
+its gradient and pi = ld - K(p')). A slice kernel, one CTA per block of 16
+chains, slice of the observations and chunk of the gradient, writes
+partial sums to a workspace; a finish kernel sums them in a fixed order.
+:func:`launch_plan` sizes the grid.
 
 :func:`logreg_leaf` is the wrapper. A tensor on the CPU goes to
 :func:`logreg_leaf_plain`, the same leaf in torch ops. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``launches`` counts the
-kernel launches.
+wrapper's launches (one slice and one finish kernel each).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -25,16 +28,81 @@ from ..metric import DenseMetric, DiagonalMetric, Metric
 from ..tree_batched import kinetic_b, psharp_b
 from .cuda_build import CudaLibrary
 
-MAX_K = 256  # the kernel keeps 8 chains x 2 coordinates per thread
+CHAINS = 16  # chains per CTA of the slice kernel
+TILE_ROWS = (64, 16)  # rows of X per tile: the first whose CTA fits
+MAX_SMEM_BYTES = 232448  # H100: dynamic shared memory of one CTA
+
+
+def _kx(K: int) -> int:
+    """X's row length in the kernel: K rounded up to 4 (16-byte rows)."""
+    return (K + 3) // 4 * 4
+
+
+def smem_bytes(K: int, tile: int) -> int:
+    """Dynamic shared memory of one slice-kernel CTA (slice_smem_bytes in
+    the CUDA source): the tile of X (rows of KX + 4 floats), q' of 16
+    chains and the tile's residuals."""
+    kx = _kx(K)
+    return 4 * (tile * (kx + 4) + CHAINS * kx + tile * CHAINS)
+
+
+def tile_rows(K: int) -> int:
+    """Rows of X per tile: the first of TILE_ROWS whose CTA fits in shared
+    memory, 0 if none does."""
+    return next((t for t in TILE_ROWS if smem_bytes(K, t) <= MAX_SMEM_BYTES), 0)
+
+
+# the widest K the kernel takes: the smallest tile's CTA fills the shared
+# memory (smem_bytes is affine in KX)
+_T = TILE_ROWS[-1]
+MAX_K = ((MAX_SMEM_BYTES - smem_bytes(0, _T))
+         // ((smem_bytes(4, _T) - smem_bytes(0, _T)) // 4) // 4 * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The grid of one launch: ``tile`` rows of X per tile, ``smem`` bytes
+    of shared memory per slice CTA, ``chunks`` CTAs over the gradient's
+    coordinates (128 each up to K = 128, 256 past it), ``slices`` CTAs over
+    the observations with ``tiles_per_slice`` tiles each (the last may have
+    fewer, none is empty)."""
+
+    tile: int
+    smem: int
+    chunks: int
+    slices: int
+    tiles_per_slice: int
+
+
+def launch_plan(C: int, K: int, n_obs: int) -> Plan:
+    """The launch plan of (C, K, n_obs); raises past MAX_K."""
+    tile = tile_rows(K)
+    if not (C >= 1 and 1 <= K and tile and n_obs >= 1):
+        raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K}, "
+                         f"or no chains or observations")
+    chunks = -(-K // (128 if K <= 128 else 256))
+    n_tiles = -(-n_obs // tile)
+    return Plan(tile, smem_bytes(K, tile), chunks, 1, n_tiles)
+
+
+def pad_columns(x):
+    """x (n, K) as a view of a zero-padded (n, KX) float32 tensor: rows 16
+    bytes aligned for the kernel, the same (n, K) values for everyone
+    else."""
+    n, K = x.shape
+    out = torch.zeros((n, _kx(K)), dtype=torch.float32, device=x.device)
+    out[:, :K] = x
+    return out[:, :K]
+
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 library = CudaLibrary("logreg_leaf", {
     "logreg_leaf_f32": (
-        [_vp] * 5 + [_ci] + [_vp] * 7 + [_ci] * 3 + [_cf, _vp], _ci,
+        [_vp] * 5 + [_ci] + [_vp] * 8 + [_ci] * 6 + [_cf, _vp], _ci,
     ),
 })
 
-launches = 0  # kernel launches made by logreg_leaf
+launches = 0  # wrapper launches made by logreg_leaf
 
 
 def reset_launches() -> None:
@@ -94,7 +162,10 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
     q, p, g: (C, K); eps_signed: (C,); metric: shared diagonal (K,),
     per-chain diagonal (C, K) or shared dense (K, K) M^-1; x: (n_obs, K);
     y: (n_obs,); all float32 on one CUDA device (or the CPU, which takes
-    the plain version). Returns (q', p', g', ld', pi')."""
+    the plain version). The kernel reads x's rows with a stride of K
+    rounded up to 4: an x laid out otherwise is copied so first
+    (:func:`pad_columns`; the hook's operand needs no copy). Raises for
+    K > MAX_K. Returns (q', p', g', ld', pi')."""
     global launches
     if q.device.type == "cpu":
         return logreg_leaf_plain(metric, q, p, g, eps_signed, x, y, inv_s2)
@@ -107,7 +178,7 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
     tensors = {"q": q, "p": p, "g": g, "eps_signed": eps_signed, "minv": minv,
                "x": x, "y": y}
     for name, t in tensors.items():
-        if t.device != q.device or not t.is_contiguous():
+        if t.device != q.device or not (t.is_contiguous() or name == "x"):
             raise ValueError(f"logreg leaf kernel: {name} must be a "
                              f"contiguous tensor on {q.device}")
         if t.dtype != torch.float32:
@@ -119,19 +190,21 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
         if tuple(t.shape) != shape:
             raise ValueError(f"logreg leaf kernel: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
-    if not 1 <= K <= MAX_K or n_obs < 1:
-        raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K} "
-                         f"or no observations")
+    plan = launch_plan(C, K, n_obs)
+    if x.stride() != (_kx(K), 1):
+        x = pad_columns(x)  # the hook's operand is padded already
     lib = library.load()
     qn, pn, gn = (torch.empty_like(q) for _ in range(3))
     ldn = torch.empty((C,), dtype=q.dtype, device=q.device)
     pin = torch.empty_like(ldn)
+    ws = torch.empty((plan.slices, C, K + 1), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.logreg_leaf_f32(
         q.data_ptr(), p.data_ptr(), g.data_ptr(), eps_signed.data_ptr(),
         minv.data_ptr(), mode, x.data_ptr(), y.data_ptr(), qn.data_ptr(),
         pn.data_ptr(), gn.data_ptr(), ldn.data_ptr(), pin.data_ptr(),
-        C, K, n_obs, float(inv_s2), stream,
+        ws.data_ptr(), C, K, n_obs, plan.tile, plan.slices,
+        plan.tiles_per_slice, float(inv_s2), stream,
     )
     if err != 0:
         raise RuntimeError(f"logreg leaf kernel launch failed: CUDA error {err}")
@@ -152,10 +225,11 @@ def make_logreg_fused_leaf_batched(x, y, prior_scale: float = 10.0,
     raises for K > MAX_K rather than run the plain math on the card; the
     plain leaf on the CPU. Other dtypes (float64 runs) and per-chain dense
     metrics take the plain leaf in the chains' dtype, as the JAX hook's
-    fallback does for them."""
+    fallback does for them. The float32 X is kept with its columns padded
+    to a multiple of 4 (:func:`pad_columns`)."""
     x_full = torch.as_tensor(np.asarray(x), device=device)
     y_full = torch.as_tensor(np.asarray(y), device=device)
-    x32 = x_full.to(torch.float32).contiguous()
+    x32 = pad_columns(x_full)
     y32 = y_full.to(torch.float32).contiguous()
     inv_s2 = 1.0 / float(prior_scale) ** 2
 

@@ -246,6 +246,12 @@ def _leaf_inputs(C, K, n_obs, kind, seed=0):
 @pytest.mark.parametrize("kind", ["shared_diag", "chain_diag", "shared_dense"])
 @pytest.mark.parametrize("C,K,n_obs", [
     (37, 7, 53), (16, 200, 100), (2048, 128, 4000),
+    # past 256 coordinates: the gradient in two and four chunks, the
+    # latter with 16-row tiles
+    (37, 300, 53), (16, 1024, 100),
+    # 1000 rows end in a partial tile, and the observations split into
+    # several slices
+    (64, 40, 1000),
 ])
 def test_cuda_fused_logreg_leaf_matches_plain(kind, C, K, n_obs):
     """The fused leaf against its plain version: every output within twice
@@ -260,18 +266,20 @@ def test_cuda_fused_logreg_leaf_matches_plain(kind, C, K, n_obs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("extra", [0, 1])
-def test_cuda_fused_logreg_hook_at_and_past_max_k(extra):
-    """The fused logreg hook on float32 chains on the card: at K = MAX_K it
-    launches the kernel; one coordinate more and it raises instead of
-    running the plain leaf on the card."""
+@pytest.mark.parametrize("K", [257, 1024, logreg_leaf.MAX_K,
+                               logreg_leaf.MAX_K + 1])
+def test_cuda_fused_logreg_hook_at_and_past_max_k(K):
+    """The fused logreg hook on float32 chains on the card launches the
+    kernel for every K up to MAX_K, where the smallest tile's CTA fills the
+    shared memory; one coordinate more and it raises instead of running the
+    plain leaf on the card."""
     dev = _device()
-    K, C, n_obs = logreg_leaf.MAX_K + extra, 16, 100
+    C, n_obs = 16, 100
     args = _leaf_inputs(C, K, n_obs, "shared_diag")
     hook = logistic_regression(n_obs, K, dtype=F32, device=dev,
                                fused=True).fused_leaf_batched_fn
     logreg_leaf.reset_launches()
-    if extra:
+    if K > logreg_leaf.MAX_K:
         with pytest.raises(ValueError, match=f"K = {K}"):
             hook(*args[:5])
         assert logreg_leaf.launches == 0
@@ -280,6 +288,22 @@ def test_cuda_fused_logreg_hook_at_and_past_max_k(extra):
     torch.cuda.synchronize()
     assert logreg_leaf.launches == 1
     _check_fused_against_plain(out, args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,K,n_obs,kind", [
+    (2048, 128, 4000, "shared_diag"), (64, 40, 1000, "chain_diag"),
+    (16, 1024, 100, "shared_dense"),
+])
+def test_cuda_fused_logreg_leaf_is_deterministic(C, K, n_obs, kind):
+    """Two launches on the same inputs give bitwise the same outputs: the
+    slices' partial sums are added in a fixed order, with no atomics."""
+    args = _leaf_inputs(C, K, n_obs, kind)
+    a = logreg_leaf.logreg_leaf(*args)
+    b = logreg_leaf.logreg_leaf(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def _check_fused_against_plain(out, args):

@@ -172,15 +172,21 @@ def _check_leaf(a, b, atol=ATOL, ld_atol=1e-4):
 
 
 @pytest.mark.parametrize("kind", ["shared_diag", "chain_diag", "shared_dense"])
-@pytest.mark.parametrize("n_obs,K,C", [(53, 7, 10), (200, 11, 24)])
+@pytest.mark.parametrize("n_obs,K,C", [(53, 7, 10), (200, 11, 24),
+                                       (53, 257, 4), (53, 300, 6)])
 def test_plain_fused_leaf_matches_pallas(kind, n_obs, K, C):
+    """On CPU tensors the float32 hook takes the plain leaf (no launch) at
+    the JAX hook's value, for every K the JAX kernel takes: 257 and 300
+    (kp 384 at n_obs 53) lie past the 256 coordinates one CTA of the CUDA
+    kernel covers, where it splits the gradient into chunks."""
     jfused, tfused = _fused_pair(n_obs, K)
     jmet, tmet = _metric_pair(kind, C, K)
-    q, p, g, eps = _leaf_operands(n_obs, C, K)
+    q, p, g, eps = _leaf_operands(n_obs, C, K, scale=0.5 if K < 256 else 0.1)
     a = jfused(jmet, *(jnp.asarray(v) for v in (q, p, g, eps)))
     logreg_leaf.reset_launches()
     b = tfused(tmet, *(torch.as_tensor(v) for v in (q, p, g, eps)))
     assert logreg_leaf.launches == 0  # CPU tensors: the plain version
+    assert b[0].dtype == F32
     _check_leaf(a, b)
 
 
@@ -201,21 +207,6 @@ def test_plain_fused_leaf_poisoning_matches_pallas():
         np.testing.assert_array_equal(np.isneginf(y), np.isneginf(x), name)
         assert np.isneginf(y[:n_bad]).all() and np.isfinite(y[n_bad:]).all()
     _check_leaf([v[3:] for v in a], [v[3:] for v in b])
-
-
-def test_fused_leaf_past_max_k_runs_plain_leaf_on_cpu():
-    """K = 257, one past the kernel's layout: on the CPU the float32 hook
-    still takes the plain leaf (no launch), at the JAX hook's value; on the
-    card it raises (tests/test_torch_gpu.py)."""
-    K, C = logreg_leaf.MAX_K + 1, 4
-    jfused, tfused = _fused_pair(53, K)
-    jmet, tmet = _metric_pair("shared_diag", C, K)
-    q, p, g, eps = _leaf_operands(6, C, K, scale=0.1)
-    a = jfused(jmet, *(jnp.asarray(v) for v in (q, p, g, eps)))
-    logreg_leaf.reset_launches()
-    b = tfused(tmet, *(torch.as_tensor(v) for v in (q, p, g, eps)))
-    assert logreg_leaf.launches == 0 and b[0].dtype == F32
-    _check_leaf(a, b)
 
 
 def test_fused_leaf_declines_to_plain_leaf_in_float64():
