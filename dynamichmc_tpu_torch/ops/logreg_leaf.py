@@ -32,6 +32,14 @@ CHAINS = 16  # chains per CTA of the slice kernel
 TILE_ROWS = (64, 16)  # rows of X per tile: the first whose CTA fits
 MAX_SMEM_BYTES = 232448  # H100: dynamic shared memory of one CTA
 
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+library = CudaLibrary("logreg_leaf", {
+    "logreg_leaf_f32": (
+        [_vp] * 5 + [_ci] + [_vp] * 8 + [_ci] * 6 + [_cf, _vp], _ci,
+    ),
+    "logreg_leaf_info": ([_ci] * 3 + [_vp] * 3, _ci),
+})
+
 
 def _kx(K: int) -> int:
     """X's row length in the kernel: K rounded up to 4 (16-byte rows)."""
@@ -74,15 +82,61 @@ class Plan:
     tiles_per_slice: int
 
 
-def launch_plan(C: int, K: int, n_obs: int) -> Plan:
-    """The launch plan of (C, K, n_obs); raises past MAX_K."""
+def launch_plan(C: int, K: int, n_obs: int, sm_count: int,
+                blocks_per_sm: int) -> Plan:
+    """The launch plan of (C, K, n_obs) on a card of ``sm_count`` SMs that
+    holds ``blocks_per_sm`` slice CTAs each (:func:`kernel_info`); raises
+    past MAX_K.
+
+    S, the slices: the grid takes as many CTAs as the card holds at once
+    and no more (a second, partial wave would take as long as a full one),
+    with at least two tiles per slice; one slice where the chain blocks and
+    chunks fill the card by themselves."""
     tile = tile_rows(K)
     if not (C >= 1 and 1 <= K and tile and n_obs >= 1):
         raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K}, "
                          f"or no chains or observations")
     chunks = -(-K // (128 if K <= 128 else 256))
+    blocks = -(-C // CHAINS) * chunks
     n_tiles = -(-n_obs // tile)
-    return Plan(tile, smem_bytes(K, tile), chunks, 1, n_tiles)
+    slices = max(1, min(sm_count * blocks_per_sm // blocks, n_tiles // 2))
+    per_slice = -(-n_tiles // slices)
+    return Plan(tile, smem_bytes(K, tile), chunks, -(-n_tiles // per_slice),
+                per_slice)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelInfo:
+    """What the CUDA runtime says of the slice kernel of one (mode, K):
+    the card's SMs, registers per thread, shared memory per CTA (bytes) and
+    CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+
+    sm_count: int
+    registers: int
+    smem: int
+    blocks_per_sm: int
+
+
+_infos: dict = {}
+
+
+def kernel_info(device, mode: int, K: int) -> KernelInfo:
+    """:class:`KernelInfo` of the slice kernel that (mode, K) launches on
+    ``device``, queried once per (device, mode, K). mode: 0 shared
+    diagonal, 1 per-chain diagonal, 2 shared dense."""
+    key = (device.index, mode, K)
+    if key not in _infos:
+        lib = library.load()
+        smem, regs, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            err = lib.logreg_leaf_info(mode, K, tile_rows(K), ctypes.byref(smem),
+                                       ctypes.byref(regs), ctypes.byref(per_sm))
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if err != 0:
+            raise RuntimeError(f"logreg leaf kernel: no kernel for mode {mode}, "
+                               f"K = {K} (CUDA error {err})")
+        _infos[key] = KernelInfo(sms, regs.value, smem.value, per_sm.value)
+    return _infos[key]
 
 
 def pad_columns(x):
@@ -94,13 +148,6 @@ def pad_columns(x):
     out[:, :K] = x
     return out[:, :K]
 
-
-_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-library = CudaLibrary("logreg_leaf", {
-    "logreg_leaf_f32": (
-        [_vp] * 5 + [_ci] + [_vp] * 8 + [_ci] * 6 + [_cf, _vp], _ci,
-    ),
-})
 
 launches = 0  # wrapper launches made by logreg_leaf
 
@@ -190,7 +237,11 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
         if tuple(t.shape) != shape:
             raise ValueError(f"logreg leaf kernel: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
-    plan = launch_plan(C, K, n_obs)
+    if not 1 <= K <= MAX_K or n_obs < 1:
+        raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K} "
+                         f"or no observations")
+    info = kernel_info(q.device, mode, K)
+    plan = launch_plan(C, K, n_obs, info.sm_count, info.blocks_per_sm)
     if x.stride() != (_kx(K), 1):
         x = pad_columns(x)  # the hook's operand is padded already
     lib = library.load()

@@ -306,6 +306,22 @@ def test_cuda_fused_logreg_leaf_is_deterministic(C, K, n_obs, kind):
         assert torch.equal(x, y)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_cuda_fused_logreg_plan_matches_the_source(mode):
+    """The CUDA runtime's view of each slice kernel: its shared memory is
+    the plan's (the CUDA source and ops/logreg_leaf.py agree), and at
+    least one CTA fits on an SM."""
+    dev = _device()
+    for K in (7, 128, 300, 1024, logreg_leaf.MAX_K):
+        info = logreg_leaf.kernel_info(dev, mode, K)
+        tile = logreg_leaf.tile_rows(K)
+        assert info.smem == logreg_leaf.smem_bytes(K, tile), K
+        assert info.blocks_per_sm >= 1 and info.registers > 0, K
+        assert info.sm_count == torch.cuda.get_device_properties(
+            dev).multi_processor_count
+
+
 def _check_fused_against_plain(out, args):
     """The rule of test_cuda_fused_logreg_leaf_matches_plain."""
     C = args[1].shape[0]

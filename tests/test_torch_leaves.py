@@ -229,6 +229,48 @@ def test_fused_leaf_declines_to_plain_leaf_in_float64():
     _check_leaf(a, b, atol=1e-10, ld_atol=1e-9)
 
 
+# --- the fused leaf's launch plan -------------------------------------------
+
+@pytest.mark.parametrize("sm_count,blocks_per_sm", [(132, 1), (132, 2),
+                                                    (78, 3)])
+def test_fused_leaf_launch_plan(sm_count, blocks_per_sm):
+    """Every K from 1 to MAX_K gets a plan whose slice CTA fits the card's
+    227 KB of shared memory, with the largest tile that fits; past MAX_K
+    there is none. The observations' tiles go to S slices, none empty, of
+    at least two tiles when S > 1, and the grid never outgrows what the
+    card holds at once; S = 1 where the chain blocks and chunks fill the
+    card by themselves. The SM count and the occupancy are arguments here:
+    nothing is queried."""
+    lp, limit = logreg_leaf, logreg_leaf.MAX_SMEM_BYTES
+    assert lp.MAX_K >= 1024  # the tree kernel's widest K
+    for K in range(1, lp.MAX_K + 1):
+        plan = lp.launch_plan(64, K, 1000, sm_count, blocks_per_sm)
+        assert plan.smem == lp.smem_bytes(K, plan.tile) <= limit
+        assert plan.tile == max(t for t in lp.TILE_ROWS
+                                if lp.smem_bytes(K, t) <= limit)
+    with pytest.raises(ValueError, match=f"K = {lp.MAX_K + 1} "):
+        lp.launch_plan(64, lp.MAX_K + 1, 1000, sm_count, blocks_per_sm)
+    holds = sm_count * blocks_per_sm
+    for C, K, n_obs in [(2048, 128, 4000), (37, 300, 53), (16, 1024, 100),
+                        (64, 40, 1000), (4096, 7, 100000), (1, 1, 1),
+                        (300, 1500, 7000)]:
+        plan = lp.launch_plan(C, K, n_obs, sm_count, blocks_per_sm)
+        n_tiles = -(-n_obs // plan.tile)
+        assert ((plan.slices - 1) * plan.tiles_per_slice < n_tiles
+                <= plan.slices * plan.tiles_per_slice)
+        blocks = -(-C // lp.CHAINS) * plan.chunks
+        assert plan.chunks == -(-K // (128 if K <= 128 else 256))
+        if blocks >= holds:
+            assert plan.slices == 1, (C, K, n_obs)
+        elif plan.slices > 1:
+            assert plan.tiles_per_slice >= 2
+            assert blocks * plan.slices <= holds
+    # the path's shape on the H100: 128 chain blocks, two CTAs per SM
+    if (sm_count, blocks_per_sm) == (132, 2):
+        plan = lp.launch_plan(2048, 128, 4000, sm_count, blocks_per_sm)
+        assert (plan.slices, plan.tiles_per_slice) == (2, 32)
+
+
 # --- the plain driver with a fused-leaf hook --------------------------------
 
 @pytest.mark.parametrize("kind", ["diag", "dense"])
