@@ -19,7 +19,8 @@ Phases (each one that fails ends the script with a non-zero exit code):
        n_obs = 4000, max_depth 4, diagonal metric = the Laplace posterior
        variances, start at draws of the Laplace approximation;
      - the fused logreg leaf at 2048 x 128 x 4000 with a shared diagonal,
-       a per-chain diagonal and a shared dense metric;
+       a per-chain diagonal and a shared dense metric, and the same at
+       K = 300 (the gradient in two chunks of coordinates);
      - the fused Gaussian leaf (K2) at 4096 x 25 on N(0, I) with a shared
        and a per-chain diagonal metric, and at 4096 x 100 on
        correlated_gaussian(100) with a per-chain one; the fused Gaussian
@@ -57,7 +58,9 @@ Phases (each one that fails ends the script with a non-zero exit code):
      phase-3 shape (CUDA events around the wrapper calls), the fused
      Gaussian kernels' device time (torch.profiler), and each kernel's
      bound: the larger of its operations over the fp32 peak and its bytes
-     over the memory rate, counted from this run's inputs.
+     over the memory rate, counted from this run's inputs. The fused
+     logreg leaf's line also gives its launch plan: the observation
+     slices S, registers, shared memory and CTAs per SM.
 With --profile, each path's timed run is repeated under torch.profiler
 after phase 5 and the device split is printed.
 
@@ -79,6 +82,7 @@ import torch
 C_MAIN, K_MAIN, MD_MAIN, N_DRAWS = 4096, 100, 4, 512
 C_FUNNEL, K_FUNNEL, MD_FUNNEL = 4096, 25, 7
 C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
+K_WIDE = 300  # the fused logreg leaf past 256 coordinates, phase 3
 C_GAUSS, K_GAUSS = 4096, 25  # BASELINE config 1 under the fleet
 N_PER_CHAIN, PER_CHAIN_SEEDS = 1000, (0, 1, 2, 3)
 SEED = 0
@@ -333,7 +337,7 @@ def compare_fused_leaf(model, C, kind, gen):
     metric64 = type(metric)(metric.m_inv.double(), None)
     ref64 = logreg_leaf.logreg_leaf_plain(metric64, *_as64(args[1:]))
     torch.cuda.synchronize()
-    result = {"config": f"logreg_fused {kind}", "chains": C}
+    result = {"config": f"logreg_fused K={model.dim} {kind}", "chains": C}
     fails = []
     want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
     names = ("q", "p", "g", "ld", "pi")
@@ -676,7 +680,8 @@ def profile_run(name, fn):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
     kern = [r for r in rows if any(k in r[0] for k in (
-        "tree_transition_kernel", "logreg_leaf_kernel", "gaussian_leaf_kernel"))]
+        "tree_transition_kernel", "logreg_leaf_slice_kernel",
+        "logreg_leaf_finish_kernel", "gaussian_leaf_kernel"))]
     ours = sum(r[1] for r in kern) / 1e6
     return {"path": name, "profiled_wall_s": wall,
             "kernels": [{"name": r[0][:60], "device_s": r[1] / 1e6,
@@ -826,6 +831,8 @@ def run_phases(dev, smi, profile=False):
                                   device=dev, tree_kernel=True)
     lr_fused = logistic_regression(N_OBS, K_LOGREG, dtype=torch.float32,
                                    device=dev, fused=True)
+    lr_wide = logistic_regression(N_OBS, K_WIDE, dtype=torch.float32,
+                                  device=dev, fused=True)
     # BASELINE config 1: N(0, I_25) through the Gaussian model with hooks
     normal = mvnormal(np.zeros(K_GAUSS), np.eye(K_GAUSS), dtype=torch.float32,
                       device=dev, fused=True)
@@ -845,9 +852,10 @@ def run_phases(dev, smi, profile=False):
         "funnel", fun, C_FUNNEL, MD_FUNNEL, "diag", MD_FUNNEL, gen))
     phase3_result("logreg_tree", compare_kernel_plain(
         "logreg", lr_tree, C_LOGREG, MD_LOGREG, "diag", MD_LOGREG, gen))
-    for kind in ("shared_diag", "chain_diag", "shared_dense"):
-        phase3_result("logreg_fused",
-                      compare_fused_leaf(lr_fused, C_LOGREG, kind, gen))
+    for model in (lr_fused, lr_wide):
+        for kind in ("shared_diag", "chain_diag", "shared_dense"):
+            phase3_result("logreg_fused",
+                          compare_fused_leaf(model, C_LOGREG, kind, gen))
     leaf_inputs = {  # name -> (model, C, metric form)
         "gaussian_leaf 4096x25 shared_diag": (normal, C_GAUSS, "shared_diag"),
         "gaussian_leaf 4096x25 chain_diag": (normal, C_GAUSS, "chain_diag"),
@@ -965,6 +973,14 @@ def run_phases(dev, smi, profile=False):
     times["logreg_fused"] = (time_call(logreg_leaf.logreg_leaf, args, 50),
                              time_call(logreg_leaf.logreg_leaf_plain, args, 50))
     bounds["logreg_fused"] = logreg_leaf_bound(args)
+    info = logreg_leaf.kernel_info(dev, 0, K_LOGREG)
+    plan = logreg_leaf.launch_plan(C_LOGREG, K_LOGREG, N_OBS, info.sm_count,
+                                   info.blocks_per_sm)
+    plans = {"logreg_fused": {
+        "slices": plan.slices, "tiles_per_slice": plan.tiles_per_slice,
+        "tile_rows": plan.tile, "chunks": plan.chunks,
+        "registers": info.registers, "smem_bytes": info.smem,
+        "ctas_per_sm": info.blocks_per_sm, "sms": info.sm_count}}
     shapes = {"gaussian": [C_MAIN, K_MAIN, MD_MAIN, "dense"],
               "funnel": [C_FUNNEL, K_FUNNEL, MD_FUNNEL, "diag"],
               "logreg_tree": [C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG, "diag"],
@@ -996,6 +1012,8 @@ def run_phases(dev, smi, profile=False):
                 "shape": shapes[name], "gpu": smi}
         if name in device_times:
             line["kernel_device_ms"] = device_times[name]
+        if name in plans:
+            line["plan"] = plans[name]
         log(f"[5 kernel time] {json.dumps(line)}")
 
     log_phase_done(5)

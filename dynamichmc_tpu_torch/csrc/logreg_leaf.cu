@@ -27,7 +27,12 @@
 //   redundancy), then walks its slice of X in tiles of TN rows: each tile is
 //   staged once in shared memory and used by all 16 chains for both
 //   products, the Hopper counterpart of the TPU kernel keeping X resident in
-//   VMEM across both matmuls.
+//   VMEM across both matmuls. The tiles come through a ring of two stages:
+//   cp.async.cg copies tile i + 1's rows (16 bytes a thread, L1 bypassed;
+//   X's rows are padded to a multiple of 4 floats) and cp.async.ca their y
+//   while tile i is computed. Two barriers per tile: one after the wait for
+//   tile i (which also frees tile i - 1's stage and the residuals), one
+//   after the residuals.
 //   * Phase A, logits: thread (o, chain group) computes the logits of tile
 //     row o for TN / 16 chains, reading the row and q' as float4 from
 //     shared memory (q' is a broadcast; rows are padded by 4 floats so the
@@ -57,20 +62,25 @@
 // logits over all of K; the logits are half the leaf's FMAs, and K > 256 is
 // off the path the kernel was shaped for. This keeps both phases' thread
 // mappings and FMA order for every K. The tile has 64 rows while its CTA
-// fits in shared memory (K up to 708) and 16 rows past that; with 16 rows
-// the CTA's shared memory, 16 (K + 4) + 16 K + 256 floats, bounds K at
-// 1804 (ops/logreg_leaf.py: MAX_K, the plan).
+// fits in shared memory (K up to 392) and 16 rows past that; with 16 rows
+// the CTA's shared memory, 2 x 16 (K + 5) + 16 K + 256 floats, bounds K at
+// 1200 (ops/logreg_leaf.py: MAX_K, the plan).
 //
 // The slices. 2048 chains make 128 chain blocks, one CTA on 128 of the 132
 // SMs: every barrier and global load then stalls its SM. The caller
 // (ops/logreg_leaf.py: launch_plan) picks S, the slices of the
-// observations, so that the grid fills the card.
+// observations, so that the grid holds as many CTAs as the card runs at
+// once. At 2048 x 128 x 4000 a CTA holds 80,384 bytes of shared memory.
 //
 // What bounds it on the H100: 2 n_obs K FMAs per chain (1.0 M at n_obs
 // 4000, K 128; 4.2 GFLOP per leaf at 2048 chains) issued from shared memory,
 // about 2.5 shared-memory wavefronts per 8 FMAs; X (2 MB) is read from L2
-// once per chain block. Tensor cores over the chain block (wgmma with
-// fp32-exact splitting) are later work.
+// once per chain block. At that shape (H100 80GB HBM3, 700 W; CUDA events
+// over 50 calls) a leaf takes 0.244 ms: 73 registers, 2 CTAs per SM, S = 2.
+// The same kernel without the ring (46,080 bytes, 4 CTAs per SM, S = 4)
+// took 0.309 ms, the one-CTA-per-chain-block design before 0.583 ms.
+// Tensor cores over the chain block (wgmma with fp32-exact splitting) are
+// later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,11 +91,31 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChains = 16;                    // chains per slice-kernel CTA
 constexpr int kFinishChains = kThreads / 32;   // finish kernel: a warp per chain
+constexpr int kStages = 2;                     // stages of the ring of X tiles, >= 2
 constexpr size_t kMaxSmem = 232448;            // H100: dynamic shared memory per CTA
 
 constexpr int kSharedDiag = 0;
 constexpr int kChainDiag = 1;
 constexpr int kSharedDense = 2;
+
+// 16-byte asynchronous copy global -> shared, bypassing L1 (cg).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+// 4-byte asynchronous copy global -> shared (through L1: cg takes 16 only).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -103,13 +133,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory of one slice-kernel CTA: the tile of X (TN rows of KX + 4
-// floats), q' of its 16 chains (KX floats each) and the tile's residuals
-// (TN x 16). p_mid of the dense drift lies in the tile's place before the
-// first tile. KX = K rounded up to 4: X's rows as the caller pads them.
+// Shared memory of one slice-kernel CTA: the ring of kStages tiles of X (TN
+// rows of KX + 4 floats) with their y (TN floats), q' of its 16 chains (KX
+// floats each) and the tile's residuals (TN x 16). p_mid of the dense
+// drift lies in the ring's place before the first copy. KX = K rounded up
+// to 4: X's rows as the caller pads them.
 size_t slice_smem_bytes(int K, int TN) {
   const size_t KX = (K + 3) & ~3;
-  return sizeof(float) * ((size_t)TN * (KX + 4) + kChains * KX + (size_t)TN * kChains);
+  return sizeof(float) *
+         ((size_t)kStages * TN * (KX + 5) + kChains * KX + (size_t)TN * kChains);
 }
 
 // MODE: kSharedDiag, kChainDiag or kSharedDense. KM: the CTA's gradient
@@ -126,10 +158,11 @@ __global__ void __launch_bounds__(kThreads)
   float* smem = reinterpret_cast<float*>(smem4);
   const int KX = (K + 3) & ~3;
   const int XS = KX + 4;              // tile row stride (floats)
-  float* Xs = smem;                   // [TN][XS]
-  float* Qs = Xs + TN * XS;           // [kChains][KX]  q'
+  float* Xr = smem;                   // [kStages][TN][XS] the ring of tiles
+  float* Yr = Xr + kStages * TN * XS; // [kStages][TN]     their y
+  float* Qs = Yr + kStages * TN;      // [kChains][KX]  q'
   float* Rs = Qs + kChains * KX;      // [TN][kChains] residuals
-  float* Ps = Xs;                     // [kChains][KX]  p_mid (dense), before the tiles
+  float* Ps = Xr;                     // [kChains][KX]  p_mid (dense), before the ring
   const int t = threadIdx.x;
   const int c0 = blockIdx.x * kChains;
   const int slice = blockIdx.y;
@@ -202,23 +235,54 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 8; ++i) G[m][i] = 0.f;
 
-  for (int tile = t_begin; tile < t_end; ++tile) {
+  // copy tile `tile` (its rows below n_obs, and their y) into `stage`;
+  // rows past n_obs (the last tile only) are zeroed instead, so that phase
+  // B's zero residuals meet finite values
+  const int kx4 = KX / 4;
+  auto load_tile = [&](int tile, int stage) {
     const int o0 = tile * TN;
-    __syncthreads();  // the last tile's readers (and p_mid's) are done; q' is staged
-    for (int idx = t; idx < TN * KX; idx += kThreads) {
-      const int o = idx / KX;
-      const int k = idx - o * KX;
-      const int og = o0 + o;
-      Xs[o * XS + k] = og < n_obs ? __ldg(X + (size_t)og * KX + k) : 0.f;
+    const int rows = min(TN, n_obs - o0);
+    float* xs = Xr + stage * TN * XS;
+    float* ys = Yr + stage * TN;
+    const float* src = X + (size_t)o0 * KX;
+    for (int i = t; i < rows * kx4; i += kThreads) {
+      const int r = i / kx4, c4 = i - r * kx4;
+      cp_async16(xs + r * XS + 4 * c4, src + (size_t)r * KX + 4 * c4);
     }
-    __syncthreads();
+    for (int r = t; r < rows; r += kThreads) cp_async4(ys + r, y + o0 + r);
+    for (int i = rows * XS + t; i < TN * XS; i += kThreads) xs[i] = 0.f;
+    for (int r = rows + t; r < TN; r += kThreads) ys[r] = 0.f;
+    cp_async_commit();
+  };
+
+  // Every thread runs every copy loop trip, wait and barrier below: the
+  // trip counts depend on n_obs, TN and the slice only.
+  const int nt = t_end - t_begin;  // >= 1 (the caller leaves no slice empty)
+  __syncthreads();  // p_mid's readers are done before a copy lands in its place
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nt) {
+      load_tile(t_begin + i, i);
+    } else {
+      cp_async_commit();  // empty groups keep the wait count uniform
+    }
+  }
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile i have landed
+    __syncthreads();  // everyone's have; tile i - 1's stage and Rs are free; q' is staged
+    if (i + kStages - 1 < nt) {
+      load_tile(t_begin + i + kStages - 1, (i + kStages - 1) % kStages);
+    } else {
+      cp_async_commit();
+    }
+    const float* Xs = Xr + (i % kStages) * TN * XS;
+    const float* Ys = Yr + (i % kStages) * TN;
+    const int o0 = (t_begin + i) * TN;
 
     float l[CPT];
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) l[cc] = 0.f;
     const float4* xrow = reinterpret_cast<const float4*>(Xs + oa * XS);
     const float4* qrow = reinterpret_cast<const float4*>(Qs + cg * CPT * KX);
-    const int kx4 = KX / 4;
     for (int k4 = 0; k4 < kx4; ++k4) {
       const float4 xv = xrow[k4];
 #pragma unroll
@@ -231,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     const int og = o0 + oa;
-    const float yi = og < n_obs ? __ldg(y + og) : 0.f;
+    const float yi = Ys[oa];
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) {
       const bool valid = og < n_obs && c0 + cg * CPT + cc < C;

@@ -29,6 +29,7 @@ from ..tree_batched import kinetic_b, psharp_b
 from .cuda_build import CudaLibrary
 
 CHAINS = 16  # chains per CTA of the slice kernel
+STAGES = 2  # stages of the ring of X tiles
 TILE_ROWS = (64, 16)  # rows of X per tile: the first whose CTA fits
 MAX_SMEM_BYTES = 232448  # H100: dynamic shared memory of one CTA
 
@@ -48,10 +49,10 @@ def _kx(K: int) -> int:
 
 def smem_bytes(K: int, tile: int) -> int:
     """Dynamic shared memory of one slice-kernel CTA (slice_smem_bytes in
-    the CUDA source): the tile of X (rows of KX + 4 floats), q' of 16
-    chains and the tile's residuals."""
+    the CUDA source): the ring's STAGES tiles of X (rows of KX + 4 floats)
+    and their y, q' of 16 chains and the tile's residuals."""
     kx = _kx(K)
-    return 4 * (tile * (kx + 4) + CHAINS * kx + tile * CHAINS)
+    return 4 * (STAGES * tile * (kx + 5) + CHAINS * kx + tile * CHAINS)
 
 
 def tile_rows(K: int) -> int:
@@ -242,7 +243,7 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
                          f"or no observations")
     info = kernel_info(q.device, mode, K)
     plan = launch_plan(C, K, n_obs, info.sm_count, info.blocks_per_sm)
-    if x.stride() != (_kx(K), 1):
+    if x.stride() != (_kx(K), 1) or x.data_ptr() % 16:
         x = pad_columns(x)  # the hook's operand is padded already
     lib = library.load()
     qn, pn, gn = (torch.empty_like(q) for _ in range(3))

@@ -253,7 +253,7 @@ def test_fused_leaf_launch_plan(sm_count, blocks_per_sm):
     holds = sm_count * blocks_per_sm
     for C, K, n_obs in [(2048, 128, 4000), (37, 300, 53), (16, 1024, 100),
                         (64, 40, 1000), (4096, 7, 100000), (1, 1, 1),
-                        (300, 1500, 7000)]:
+                        (300, 1100, 7000)]:
         plan = lp.launch_plan(C, K, n_obs, sm_count, blocks_per_sm)
         n_tiles = -(-n_obs // plan.tile)
         assert ((plan.slices - 1) * plan.tiles_per_slice < n_tiles
