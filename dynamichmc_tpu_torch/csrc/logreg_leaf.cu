@@ -75,12 +75,12 @@
 // What bounds it on the H100: 2 n_obs K FMAs per chain (1.0 M at n_obs
 // 4000, K 128; 4.2 GFLOP per leaf at 2048 chains) issued from shared memory,
 // about 2.5 shared-memory wavefronts per 8 FMAs; X (2 MB) is read from L2
-// once per chain block. At that shape (H100 80GB HBM3, 700 W; CUDA events
-// over 50 calls) a leaf takes 0.244 ms: 73 registers, 2 CTAs per SM, S = 2.
-// The same kernel without the ring (46,080 bytes, 4 CTAs per SM, S = 4)
-// took 0.309 ms, the one-CTA-per-chain-block design before 0.583 ms.
-// Tensor cores over the chain block (wgmma with fp32-exact splitting) are
-// later work.
+// once per chain block. At that shape (H100 80GB HBM3, 700 W; chip_smoke.py
+// phase 5) a leaf takes about 0.25 ms with 73 registers, 2 CTAs per SM and
+// S = 2, against 0.59 ms for one CTA per chain block without the ring.
+// Without the ring 4 CTAs fit on an SM (46,080 bytes), yet the leaf ran
+// slower. Tensor cores over the chain block (wgmma with fp32-exact
+// splitting) are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>

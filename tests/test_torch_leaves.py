@@ -8,7 +8,8 @@
   holds the JAX kernel), discrete statistics exact.
 - The fused logreg leaf's plain version (ops/logreg_leaf.py) against
   ``make_logreg_fused_leaf_batched`` in interpret mode, in all three metric
-  forms, with an observation count no tile divides and with poisoning.
+  forms, with an observation count no tile divides, past 256 coordinates
+  and with poisoning; and the CUDA kernel's launch plan (pure Python).
 - The plain batch driver with a fused-leaf hook against the JAX driver with
   the same hook, on injected momenta, directions and noise.
 
