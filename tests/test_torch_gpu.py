@@ -266,16 +266,18 @@ def test_cuda_fused_logreg_leaf_matches_plain(kind, C, K, n_obs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [257, 1024, logreg_leaf.MAX_K,
-                               logreg_leaf.MAX_K + 1])
-def test_cuda_fused_logreg_hook_at_and_past_max_k(K):
+@pytest.mark.parametrize("K,kind", [
+    (K, kind) for K in (257, 300, 1024)
+    for kind in ("shared_diag", "chain_diag", "shared_dense")
+] + [(logreg_leaf.MAX_K, "shared_diag"), (logreg_leaf.MAX_K + 1, "shared_diag")])
+def test_cuda_fused_logreg_hook_at_and_past_max_k(K, kind):
     """The fused logreg hook on float32 chains on the card launches the
     kernel for every K up to MAX_K, where the smallest tile's CTA fills the
-    shared memory; one coordinate more and it raises instead of running the
-    plain leaf on the card."""
+    shared memory, in each metric form; one coordinate more and it raises
+    instead of running the plain leaf on the card."""
     dev = _device()
     C, n_obs = 16, 100
-    args = _leaf_inputs(C, K, n_obs, "shared_diag")
+    args = _leaf_inputs(C, K, n_obs, kind)
     hook = logistic_regression(n_obs, K, dtype=F32, device=dev,
                                fused=True).fused_leaf_batched_fn
     logreg_leaf.reset_launches()
