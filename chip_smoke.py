@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile[=PATH,...]]
 
 Phases (each one that fails ends the script with a non-zero exit code):
   1. Device: the nvidia-smi name and power limit.
   2. Build: compile the three CUDA sources (csrc/tree_kernel.cu,
      csrc/logreg_leaf.cu, csrc/gaussian_leaf.cu) with nvcc, one process
-     each, started together.
+     each, started together; print ptxas's registers and spills, and fail
+     if an instantiation of the tree kernel's warp variant spills.
   3. Kernel against plain, on the same injected noise / inputs:
      - the tree kernel with the Gaussian leaf at the main-path shape (4096
        chains, K = 100, max_depth 4, per-chain eps in [0.2, 0.6], start at
        draws of the target): dense metric = the target covariance, the
-       diagonal metric, then dcap = 2;
+       diagonal metric, then dcap = 2; each launch must take the warp
+       variant (one warp per chain), and no other configuration may;
      - the tree kernel with the funnel leaf: funnel(25), 4096 chains,
        max_depth 7, diagonal metric, per-chain eps, start at exact draws;
      - the tree kernel with the logreg leaf: 2048 chains, K = 128,
@@ -47,7 +49,9 @@ Phases (each one that fails ends the script with a non-zero exit code):
        the four calls timed together.
      Each checks that its kernel launched on every transition (for the
      fused leaves: on every leaf the driver executed; for the leapfrog: on
-     every hamiltonian.leapfrog call), that the draws are finite, and the
+     every hamiltonian.leapfrog call; on the main path every transition
+     through the tree kernel's warp variant, on no other path any), that
+     the draws are finite, and the
      path's gate: the Gaussian's moments, the funnel's v-marginal (|mean
      v| <= 0.4, sd(v) in [2.7, 3.3]), the two logreg runs' agreement
      (every posterior mean within 5 combined MCSE), N(0, I)'s moments and,
@@ -60,9 +64,12 @@ Phases (each one that fails ends the script with a non-zero exit code):
      bound: the larger of its operations over the fp32 peak and its bytes
      over the memory rate, counted from this run's inputs. The fused
      logreg leaf's line also gives its launch plan: the observation
-     slices S, registers, shared memory and CTAs per SM.
+     slices S, registers, shared memory and CTAs per SM; the Gaussian tree
+     kernel's its variant and plan: warps per CTA, registers, shared
+     memory and CTAs per SM.
 With --profile, each path's timed run is repeated under torch.profiler
-after phase 5 and the device split is printed.
+after phase 5 and the device split is printed; --profile=main,funnel
+profiles the paths named only.
 
 The line before the last is the nvidia-smi name and power limit; the last
 line is {"ok": true, "device": {...}}. Needs CUDA; never runs on the CPU.
@@ -234,8 +241,10 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
     from dynamichmc_tpu_torch.ops import tree_kernel
 
     args = kernel_inputs(model, C, md, kind, dcap, gen)
+    warp0 = tree_kernel.warp_launches
     out = tree_kernel.tree_transition(*args)
     again = tree_kernel.tree_transition(*args)
+    warp_runs = tree_kernel.warp_launches - warp0
     ref = tree_kernel.tree_transition_plain(*args)
     ref64 = tree_kernel.tree_transition_plain(*_as64(args))
     torch.cuda.synchronize()
@@ -248,9 +257,13 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
     frac = float(same.float().mean())
     result = {"config": f"{name} {kind} dcap={dcap}", "chains": C,
               "mismatched_chains": mismatch, "matching_fraction": frac,
-              "divergent_chains": int((ref["prop_pi"] == -torch.inf).sum())}
+              "divergent_chains": int((ref["prop_pi"] == -torch.inf).sum()),
+              "warp_variant_launches": warp_runs}
     fails = []
     want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
+    gaussian = args[9].kind == tree_kernel.GAUSSIAN
+    want(warp_runs == (2 if gaussian else 0),
+         f"{result['config']}: {warp_runs} of 2 launches took the warp variant")
     want(frac >= 0.999, f"{result['config']}: discrete statistics match on "
                         f"only {frac:.4%} of chains")
     result["repeat_bitwise_equal"] = all(
@@ -477,6 +490,7 @@ def read_counts():
         gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel)
 
     return {"tree_transition": tree_kernel.launches,
+            "tree_transition_warp": tree_kernel.warp_launches,
             "logreg_fused_leaf": logreg_leaf.launches,
             "gaussian_fused_leaf": gaussian_leaf.launches,
             "gaussian_leapfrog": gaussian_leapfrog.launches,
@@ -680,7 +694,8 @@ def profile_run(name, fn):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
     kern = [r for r in rows if any(k in r[0] for k in (
-        "tree_transition_kernel", "logreg_leaf_slice_kernel",
+        "tree_transition_kernel", "tree_transition_warp_kernel",
+        "logreg_leaf_slice_kernel",
         "logreg_leaf_finish_kernel", "gaussian_leaf_kernel"))]
     ours = sum(r[1] for r in kern) / 1e6
     return {"path": name, "profiled_wall_s": wall,
@@ -793,6 +808,26 @@ def build_all():
                     "registers" in line or "Compiling" in line):
                 log(f"[2 build] {line.strip()}")
         lib.load()
+    spills = warp_variant_spills(tree_kernel.library.build_log)
+    check(len(spills) == 8, f"ptxas reported {len(spills)} warp-variant "
+                            "instantiations, expected 8")
+    spilled = {f: line for f, line in spills.items()
+               if "0 bytes spill stores, 0 bytes spill loads" not in line}
+    check(not spilled, f"the warp variant spills: {spilled}")
+
+
+def warp_variant_spills(build_log):
+    """ptxas's spill line of each instantiation of the tree kernel's warp
+    variant, by mangled name (the line after "Function properties for")."""
+    spills, current = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for", 1)[1].strip()
+        elif current and "spill stores" in line:
+            if "tree_transition_warp_kernel" in current:
+                spills[current] = line.strip()
+            current = None
+    return spills
 
 
 def main():
@@ -807,7 +842,7 @@ def main():
     log(f"[1 device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32}")
     build_all()
-    run_phases(dev, smi, profile="--profile" in sys.argv[1:])
+    run_phases(dev, smi, profile=profiled_paths(sys.argv[1:]))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -815,9 +850,26 @@ def main():
     return 0
 
 
-def run_phases(dev, smi, profile=False):
-    """Phases 3-5 on ``dev``; prints the kernels line. ``profile``: repeat
-    each path under torch.profiler."""
+PATHS = ("main", "funnel", "logreg_tree", "logreg_fused", "gauss_fused",
+         "per_chain")
+
+
+def profiled_paths(argv):
+    """The paths --profile names (all six for a bare --profile)."""
+    names = ()
+    for arg in argv:
+        if arg == "--profile":
+            names = PATHS
+        elif arg.startswith("--profile="):
+            names = tuple(arg.split("=", 1)[1].split(","))
+            unknown = set(names) - set(PATHS)
+            check(not unknown, f"--profile: no path {sorted(unknown)}")
+    return names
+
+
+def run_phases(dev, smi, profile=()):
+    """Phases 3-5 on ``dev``; prints the kernels line. ``profile``: the
+    paths to repeat under torch.profiler."""
     from dynamichmc_tpu_torch.models import (
         correlated_gaussian, funnel, logistic_regression, mvnormal)
     from dynamichmc_tpu_torch.ops import (
@@ -913,6 +965,11 @@ def run_phases(dev, smi, profile=False):
             check(counts["logreg_fused_leaf"] == counts["gaussian_fused_leaf"] == 0,
                   f"{name}: a fused leaf launched")
             launches[name] = counts["tree_transition"]
+        # the warp variant carries the Gaussian leaf, and nothing else
+        want_warp = counts["tree_transition"] if name == "main" else 0
+        check(counts["tree_transition_warp"] == want_warp,
+              f"{name}: the warp variant launched {counts['tree_transition_warp']} "
+              f"times, expected {want_warp}")
         if name == "main":
             metrics = check_draws(model, res, seconds)
         elif name == "funnel":
@@ -944,8 +1001,9 @@ def run_phases(dev, smi, profile=False):
     check(counts["gaussian_leapfrog"] == counts["leapfrog_calls"] > 0,
           f"per_chain: fused leapfrog launched {counts['gaussian_leapfrog']} "
           f"times for {counts['leapfrog_calls']} leapfrog calls")
-    check(counts["tree_transition"] == counts["gaussian_fused_leaf"]
-          == counts["logreg_fused_leaf"] == 0, "per_chain: another kernel launched")
+    check(counts["tree_transition"] == counts["tree_transition_warp"]
+          == counts["gaussian_fused_leaf"] == counts["logreg_fused_leaf"] == 0,
+          "per_chain: another kernel launched")
     launches["per_chain"] = counts["gaussian_leapfrog"]
     metrics = check_per_chain(results, seconds)
     metrics.update({"path": "per_chain", "launch_counts": counts,
@@ -976,11 +1034,18 @@ def run_phases(dev, smi, profile=False):
     info = logreg_leaf.kernel_info(dev, 0, K_LOGREG)
     plan = logreg_leaf.launch_plan(C_LOGREG, K_LOGREG, N_OBS, info.sm_count,
                                    info.blocks_per_sm)
+    warp = tree_kernel.warp_kernel_info(dev, K_MAIN, MD_MAIN, False)
     plans = {"logreg_fused": {
         "slices": plan.slices, "tiles_per_slice": plan.tiles_per_slice,
         "tile_rows": plan.tile, "chunks": plan.chunks,
         "registers": info.registers, "smem_bytes": info.smem,
-        "ctas_per_sm": info.blocks_per_sm, "sms": info.sm_count}}
+        "ctas_per_sm": info.blocks_per_sm, "sms": info.sm_count},
+        "gaussian": {
+        "variant": tree_kernel.kernel_variant(
+            tree_kernel.GAUSSIAN, K_MAIN, MD_MAIN, False),
+        "warps_per_cta": warp.warps, "registers": warp.registers,
+        "smem_bytes": warp.smem, "ctas_per_sm": warp.ctas_per_sm,
+        "sms": warp.sm_count}}
     shapes = {"gaussian": [C_MAIN, K_MAIN, MD_MAIN, "dense"],
               "funnel": [C_FUNNEL, K_FUNNEL, MD_FUNNEL, "diag"],
               "logreg_tree": [C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG, "diag"],
@@ -1017,9 +1082,10 @@ def run_phases(dev, smi, profile=False):
         log(f"[5 kernel time] {json.dumps(line)}")
 
     log_phase_done(5)
-    if profile:
-        for name, (model, C, config) in paths.items():
+    for name, (model, C, config) in paths.items():
+        if name in profile:
             log(f"[profile] {json.dumps(profile_run(name, lambda: run_path(model, C, N_DRAWS, SEED, config, dev)))}")
+    if "per_chain" in profile:
         log(f"[profile] {json.dumps(profile_run('per_chain', lambda: run_per_chain(normal, dev)))}")
 
     entries = [  # name, phase-3/5 key, path, replaces, source

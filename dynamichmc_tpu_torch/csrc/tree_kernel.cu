@@ -657,6 +657,500 @@ __global__ void __launch_bounds__(1024, 1) tree_transition_kernel_wide(
                               dcap, min_delta);
 }
 
+// --- The Gaussian leaf, one warp per chain ----------------------------------
+//
+// tree_transition_warp_kernel<DIAG, R> runs the transition of
+// tree_transition<DIAG, kGaussian> for K <= 32 R coordinates with one warp
+// per chain: lane l keeps coordinates l + 32 s, s < R, of every per-chain
+// vector in registers. Every dot product is the lane's R partials added in
+// order, then an xor butterfly over the warp, which leaves the bitwise same
+// value in every lane, so the warp's control flow stays uniform. The CTA
+// copies prec^T, L and the dense M^-1 into shared memory once and crosses
+// one barrier; after it each warp takes chains from the queue counter until
+// none is left, with no CTA barrier inside a transition. Each warp keeps its
+// merge stack (5 x S x 32 R floats) and one staging vector (32 R floats) in
+// shared memory; a lane reads and writes only its own coordinates of the
+// stack, and __syncwarp fences the staging vector.
+
+constexpr int kWarpMaxR = 4;  // K <= 128
+
+// Warps per CTA at most, by R: what the registers allow at one CTA per SM.
+__host__ __device__ constexpr int warp_max_warps(int R) { return R < 4 ? 16 : 12; }
+
+template <int R>
+struct TauW {
+  float pm[R], pp[R], rho[R], spm[R], spp[R];
+};
+
+// The lane's R partials in order, then the xor butterfly over the warp.
+template <int R>
+__device__ __forceinline__ float warp_sum(const float (&v)[R]) {
+  float s = v[0];
+#pragma unroll
+  for (int i = 1; i < R; ++i) s += v[i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// combine_dir over the lane's coordinates: `first` precedes `second` in
+// traversal order. Selected element by element: a select between two
+// register arrays by reference would put them in local memory.
+template <int R>
+__device__ __forceinline__ bool combine_dir_warp(const TauW<R>& first, const TauW<R>& second,
+                                                 bool fwd, TauW<R>& out) {
+  float v[6][R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const float xpm = fwd ? first.pm[s] : second.pm[s];
+    const float xpp = fwd ? first.pp[s] : second.pp[s];
+    const float xrho = fwd ? first.rho[s] : second.rho[s];
+    const float xspm = fwd ? first.spm[s] : second.spm[s];
+    const float xspp = fwd ? first.spp[s] : second.spp[s];
+    const float ypm = fwd ? second.pm[s] : first.pm[s];
+    const float ypp = fwd ? second.pp[s] : first.pp[s];
+    const float yrho = fwd ? second.rho[s] : first.rho[s];
+    const float yspm = fwd ? second.spm[s] : first.spm[s];
+    const float yspp = fwd ? second.spp[s] : first.spp[s];
+    const float r1 = xrho + ypm;
+    const float r2 = xpp + yrho;
+    const float rho = xrho + yrho;
+    v[0][s] = xspm * r1;
+    v[1][s] = yspm * r1;
+    v[2][s] = xspp * r2;
+    v[3][s] = yspp * r2;
+    v[4][s] = xspm * rho;
+    v[5][s] = yspp * rho;
+    out.pm[s] = xpm;
+    out.pp[s] = ypp;
+    out.rho[s] = rho;
+    out.spm[s] = xspm;
+    out.spp[s] = yspp;
+  }
+  bool turn = false;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) turn |= warp_sum<R>(v[k]) < 0.f;
+  return turn;
+}
+
+// Copy n floats of a matrix into shared memory with every thread of the
+// CTA, 16 bytes a thread where src is 16-byte aligned.
+__device__ __forceinline__ void stage_matrix(float* dst, const float* __restrict__ src, int n) {
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+    i0 = 4 * n4;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+}
+
+// Floats of one staged K x K matrix: rounded up to 4, so that the next
+// starts 16 bytes aligned.
+__host__ __device__ __forceinline__ int padded_kk(int K) { return (K * K + 3) & ~3; }
+
+template <bool DIAG, int R>
+__global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_warp_kernel(
+    const float* __restrict__ q0_, const float* __restrict__ p0_,
+    const float* __restrict__ g0_, const float* __restrict__ ld0_,
+    const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
+    const float* __restrict__ gum, const float* __restrict__ expo,
+    const float* __restrict__ minv, const Model model,
+    float* __restrict__ qn, float* __restrict__ gn, float* __restrict__ ldn,
+    float* __restrict__ pin, int* __restrict__ depth_o, int* __restrict__ tl_o,
+    int* __restrict__ tr_o, float* __restrict__ logsum_o, int* __restrict__ steps_o,
+    int* __restrict__ work_o, int* __restrict__ queue, int C, int K, int S, int dcap,
+    float min_delta) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kk = padded_kk(K);
+  float* s_prec = smem;          // prec^T
+  float* s_chol = smem + kk;     // L
+  float* s_minv = s_chol + kk;   // dense M^-1
+  float* stack = smem + (DIAG ? 2 : 3) * kk + warp * (kNumStats * S + 1) * 32 * R;
+  float* xbuf = stack + kNumStats * S * 32 * R;  // [32 R], 16-byte aligned
+
+  stage_matrix(s_prec, model.m0, K * K);
+  stage_matrix(s_chol, model.m1, K * K);
+  if (!DIAG) stage_matrix(s_minv, minv, K * K);
+  __syncthreads();  // the CTA's only barrier
+
+  // lane owns coordinate lane + 32 s for every s < R - 1, and for s = R - 1
+  // when own_last
+  const bool own_last = lane + 32 * (R - 1) < K;
+  auto own = [&](int s) { return s < R - 1 || own_last; };
+  float mu[R], mdiag[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    mu[s] = own(s) ? model.m2[lane + 32 * s] : 0.f;
+    mdiag[s] = (DIAG && own(s)) ? minv[lane + 32 * s] : 0.f;
+  }
+
+  // publish x (0 past K) into the staging vector
+  auto stage = [&](const float (&x)[R]) {
+    __syncwarp();  // earlier readers of xbuf are done
+#pragma unroll
+    for (int s = 0; s < R; ++s) xbuf[lane + 32 * s] = x[s];
+    __syncwarp();
+  };
+  // y = A^T x for the staged x: y_j = sum_i A[i][j] x_i, i in order; lane
+  // l reads A[i][l + 32 s], 32 consecutive words (no bank conflict), and x_i
+  // as a broadcast
+  auto matvec = [&](const float* A, float (&y)[R]) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) y[s] = 0.f;
+    auto row = [&](int i, float xi) {
+      const float* a = A + i * K + lane;
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        if (own(s)) y[s] = fmaf(a[32 * s], xi, y[s]);
+    };
+    int i = 0;
+    for (; i + 4 <= K; i += 4) {
+      const float4 x4 = *reinterpret_cast<const float4*>(xbuf + i);
+      row(i, x4.x);
+      row(i + 1, x4.y);
+      row(i + 2, x4.z);
+      row(i + 3, x4.w);
+    }
+    for (; i < K; ++i) row(i, xbuf[i]);
+  };
+  auto psharp = [&](const float (&p)[R], float (&sp)[R]) {
+    if constexpr (DIAG) {
+#pragma unroll
+      for (int s = 0; s < R; ++s) sp[s] = p[s] * mdiag[s];
+    } else {
+      stage(p);
+      matvec(s_minv, sp);
+    }
+  };
+  // joint log density pi = ld - K(p), as in tree_transition
+  auto joint = [&](float ld, const float (&p)[R], const float (&sp)[R]) -> float {
+    float t[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) t[s] = p[s] * sp[s];
+    float kin = 0.5f * warp_sum<R>(t);
+    if (!isfinite(kin)) kin = pos_inf();
+    return isfinite(ld) ? ld - kin : neg_inf();
+  };
+  auto stack_at = [&](int stat, int level, int s) -> float& {
+    return stack[(stat * S + level) * 32 * R + lane + 32 * s];
+  };
+
+  for (;;) {
+    int c = 0;
+    if (lane == 0) c = atomicAdd(queue, 1);
+    c = __shfl_sync(0xffffffffu, c, 0);
+    if (c >= C) return;
+
+    const size_t base = (size_t)c * K + lane;
+    float zmq[R], zmp[R], zmg[R], zpq[R], zpp[R], zpg[R], pq[R], pg[R], sp0[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      zmq[s] = own(s) ? q0_[base + 32 * s] : 0.f;
+      zmp[s] = own(s) ? p0_[base + 32 * s] : 0.f;
+      zmg[s] = own(s) ? g0_[base + 32 * s] : 0.f;
+    }
+    const float ld0 = ld0_[c];
+    const float eps = eps_[c];
+    const uint32_t dirs = dirs_[c];
+    psharp(zmp, sp0);
+    const float pi0 = joint(ld0, zmp, sp0);
+
+    // edges (minus / plus), proposal, trajectory turn statistic
+    TauW<R> tau;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      zpq[s] = pq[s] = zmq[s];
+      zpp[s] = tau.pm[s] = tau.pp[s] = tau.rho[s] = zmp[s];
+      zpg[s] = pg[s] = zmg[s];
+      tau.spm[s] = tau.spp[s] = sp0[s];
+    }
+    float prop_ld = ld0, prop_pi = pi0;
+    int i_minus = 0, i_plus = 0;
+    float omega = 0.f, log_sum = neg_inf();
+    int steps = 0, depth = 0, term_left = 1, term_right = 0, work = 0;
+    bool terminated = false;
+
+    for (int d = 0; d < dcap && !terminated; ++d) {
+      const bool fwd = ((dirs >> d) & 1u) == 1u;
+      float wq[R], wp[R], wg[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        wq[s] = fwd ? zpq[s] : zmq[s];
+        wp[s] = fwd ? zpp[s] : zmp[s];
+        wg[s] = fwd ? zpg[s] : zmg[s];
+      }
+      const int i_edge = fwd ? i_plus : i_minus;
+      const int step = fwd ? 1 : -1;
+      const float eps_s = fwd ? eps : -eps;
+      const float half = 0.5f * eps_s;
+      const int row0 = (1 << d) - 1;  // gum row of this doubling's leaf 0
+      const int n_leaves = 1 << d;
+
+      // --- the depth-d adjacent tree ----------------------------------
+      bool building = true;
+      float a_logsum = neg_inf(), a_omega = neg_inf(), best_score = neg_inf();
+      int a_steps = 0, inv_left = 0, inv_right = 0;
+      float bq[R], bg[R], best_ld = 0.f, best_pi = 0.f;
+      TauW<R> node;
+#pragma unroll
+      for (int s = 0; s < R; ++s) bq[s] = bg[s] = 0.f;
+      int n = 0;
+      while (n < n_leaves && building) {
+        // leapfrog leaf: d = q - mu, ld = -1/2 ||L^T d||^2, grad = -prec d
+        float p_mid[R], sp[R], q_new[R], dq[R];
+#pragma unroll
+        for (int s = 0; s < R; ++s) p_mid[s] = wp[s] + half * wg[s];
+        psharp(p_mid, sp);
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          q_new[s] = wq[s] + eps_s * sp[s];
+          dq[s] = own(s) ? q_new[s] - mu[s] : 0.f;
+        }
+        stage(dq);
+        float w[R], pd[R];
+#pragma unroll
+        for (int s = 0; s < R; ++s) w[s] = pd[s] = 0.f;
+        {  // L^T d and prec d in one pass over the staged d
+          auto row = [&](int i, float di) {
+            const float* l = s_chol + i * K + lane;
+            const float* pr = s_prec + i * K + lane;
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+              if (own(s)) {
+                w[s] = fmaf(l[32 * s], di, w[s]);
+                pd[s] = fmaf(pr[32 * s], di, pd[s]);
+              }
+            }
+          };
+          int i = 0;
+          for (; i + 4 <= K; i += 4) {
+            const float4 d4 = *reinterpret_cast<const float4*>(xbuf + i);
+            row(i, d4.x);
+            row(i + 1, d4.y);
+            row(i + 2, d4.z);
+            row(i + 3, d4.w);
+          }
+          for (; i < K; ++i) row(i, xbuf[i]);
+        }
+        float g_new[R], ww[R];
+        bool bad = false;
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          g_new[s] = -pd[s];
+          ww[s] = w[s] * w[s];
+          bad |= !isfinite(g_new[s]);
+        }
+        float ld_new = -0.5f * warp_sum<R>(ww);
+        const bool grad_ok = !__any_sync(0xffffffffu, bad);
+        // -inf poisoning, as the plain driver's evaluate
+        if (!((isfinite(ld_new) && grad_ok) || ld_new == neg_inf())) ld_new = neg_inf();
+        float p_new[R];
+#pragma unroll
+        for (int s = 0; s < R; ++s) p_new[s] = p_mid[s] + half * g_new[s];
+        psharp(p_new, sp);
+        const float pi = joint(ld_new, p_new, sp);
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          wq[s] = q_new[s];
+          wp[s] = p_new[s];
+          wg[s] = g_new[s];
+        }
+
+        const int i_new = i_edge + step * (n + 1);
+        const float delta = pi - pi0;
+        const bool divergent = delta < min_delta;
+        a_logsum = logaddexp(a_logsum, fminf(delta, 0.f));
+        a_steps += 1;
+        const float score = divergent ? neg_inf() : delta + gum[(size_t)(row0 + n) * C + c];
+        if (score > best_score) {
+          best_score = score;
+#pragma unroll
+          for (int s = 0; s < R; ++s) {
+            bq[s] = q_new[s];
+            bg[s] = g_new[s];
+          }
+          best_ld = ld_new;
+          best_pi = pi;
+        }
+        a_omega = logaddexp(a_omega, divergent ? neg_inf() : delta);
+
+        if (divergent) {
+          inv_left = i_new;
+          inv_right = i_new;
+          building = false;
+        } else {
+          // trailing-ones merge run of the leaf counter
+#pragma unroll
+          for (int s = 0; s < R; ++s) {
+            node.pm[s] = node.pp[s] = node.rho[s] = p_new[s];
+            node.spm[s] = node.spp[s] = sp[s];
+          }
+          int level = 0;
+          bool turned = false;
+          while ((n >> level) & 1) {
+            TauW<R> popped, merged;
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+              popped.pm[s] = stack_at(0, level, s);
+              popped.pp[s] = stack_at(1, level, s);
+              popped.rho[s] = stack_at(2, level, s);
+              popped.spm[s] = stack_at(3, level, s);
+              popped.spp[s] = stack_at(4, level, s);
+            }
+            if (combine_dir_warp<R>(popped, node, fwd, merged)) {
+              turned = true;
+              inv_left = i_edge + step * (n - (1 << (level + 1)) + 2);
+              inv_right = i_new;
+              break;
+            }
+            node = merged;
+            ++level;
+          }
+          if (turned) {
+            building = false;
+          } else {
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+              stack_at(0, level, s) = node.pm[s];
+              stack_at(1, level, s) = node.pp[s];
+              stack_at(2, level, s) = node.rho[s];
+              stack_at(3, level, s) = node.spm[s];
+              stack_at(4, level, s) = node.spp[s];
+            }
+          }
+        }
+        ++n;
+      }
+      work += n;
+
+      // --- doubling bookkeeping ----------------------------------------
+      log_sum = logaddexp(log_sum, a_logsum);
+      steps += a_steps;
+      if (!building) {
+        // invalid adjacent tree: divergence or a turning subtree
+        term_left = inv_left;
+        term_right = inv_right;
+        terminated = true;
+        continue;
+      }
+      // `node` holds the completed subtree's statistic (stack slot d)
+      const int i_end = i_edge + step * n;
+      if (fwd) {
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          zpq[s] = wq[s];
+          zpp[s] = wp[s];
+          zpg[s] = wg[s];
+        }
+        i_plus = i_end;
+      } else {
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          zmq[s] = wq[s];
+          zmp[s] = wp[s];
+          zmg[s] = wg[s];
+        }
+        i_minus = i_end;
+      }
+      const float omega_old = omega;
+      omega = logaddexp(omega_old, a_omega);
+      TauW<R> merged;
+      const bool turning = combine_dir_warp<R>(tau, node, fwd, merged);
+      if (!turning) tau = merged;
+      depth += 1;
+      if (turning) {
+        term_left = i_minus;
+        term_right = i_plus;
+        terminated = true;
+      }
+      // biased progressive combine: accept with probability min(1, e^lp2)
+      const float lp2 = a_omega - omega_old;
+      const bool accept = (lp2 >= 0.f) | (expo[(size_t)d * C + c] > -lp2);
+      if (accept) {
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          pq[s] = bq[s];
+          pg[s] = bg[s];
+        }
+        prop_ld = best_ld;
+        prop_pi = best_pi;
+      }
+    }
+
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (own(s)) {
+        qn[base + 32 * s] = pq[s];
+        gn[base + 32 * s] = pg[s];
+      }
+    }
+    if (lane == 0) {
+      ldn[c] = prop_ld;
+      pin[c] = prop_pi;
+      depth_o[c] = depth;
+      tl_o[c] = term_left;
+      tr_o[c] = term_right;
+      logsum_o[c] = log_sum;
+      steps_o[c] = steps;
+      work_o[c] = work;
+    }
+  }
+}
+
+// Warps per CTA of tree_transition_warp_kernel for K coordinates and
+// max_depth S (0 when it does not take the shape) and its dynamic shared
+// memory: the staged matrices (prec^T and L, and the dense M^-1 unless
+// diag) and W per-warp regions of merge stack and staging vector, W as
+// many as fit in kMaxSmem, at most warp_max_warps(R).
+int warp_plan(int K, int S, bool diag, size_t& smem) {
+  smem = 0;
+  const int R = (K + 31) / 32;
+  if (K < 1 || R > kWarpMaxR || S < 1) return 0;
+  const size_t mats = sizeof(float) * (diag ? 2 : 3) * (size_t)padded_kk(K);
+  const size_t per_warp = sizeof(float) * (size_t)(kNumStats * S + 1) * 32 * R;
+  if (mats >= kMaxSmem) return 0;
+  size_t w = (kMaxSmem - mats) / per_warp;
+  if (w > (size_t)warp_max_warps(R)) w = warp_max_warps(R);
+  if (w >= 1) smem = mats + w * per_warp;
+  return (int)w;
+}
+
+using WarpKernel = decltype(&tree_transition_warp_kernel<true, 1>);
+
+WarpKernel warp_kernel(bool diag, int R) {
+  switch (R) {
+    case 1:
+      return diag ? &tree_transition_warp_kernel<true, 1> : &tree_transition_warp_kernel<false, 1>;
+    case 2:
+      return diag ? &tree_transition_warp_kernel<true, 2> : &tree_transition_warp_kernel<false, 2>;
+    case 3:
+      return diag ? &tree_transition_warp_kernel<true, 3> : &tree_transition_warp_kernel<false, 3>;
+    case 4:
+      return diag ? &tree_transition_warp_kernel<true, 4> : &tree_transition_warp_kernel<false, 4>;
+    default: return nullptr;
+  }
+}
+
+// The warp kernel of (K, S, diag) with its shared memory allowed, its
+// warps per CTA and its CTAs per SM; nullptr where the plan takes no warp.
+WarpKernel prepared_warp_kernel(int K, int S, bool diag, int& warps, size_t& smem,
+                                int& per_sm, cudaError_t& err) {
+  per_sm = 0;
+  err = cudaSuccess;
+  warps = warp_plan(K, S, diag, smem);
+  if (warps < 1) return nullptr;
+  WarpKernel kernel = warp_kernel(diag, (K + 31) / 32);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  return kernel;
+}
+
 // Shared-memory bytes per CTA for max_depth S, K coordinates and, for the
 // logreg leaf, tile residuals and, with the ring, kStages stages of tile
 // rows of X and y (tile = 0 otherwise).
@@ -708,18 +1202,43 @@ int launch(const float* q0, const float* p0, const float* g0, const float* ld0,
 
 extern "C" {
 
+// The warp kernel's plan for (K, max_depth, diag): warps per CTA (0 where
+// the launch takes the CTA kernel), dynamic shared memory per CTA (bytes),
+// registers per thread and CTAs per SM (0 and 0 without warps). Returns a
+// CUDA error code (0 on success).
+int tree_warp_plan(int K, int max_depth, int diag, int* warps, int* smem, int* regs,
+                   int* ctas_per_sm) {
+  size_t bytes = 0;
+  int per_sm = 0;
+  cudaError_t err;
+  WarpKernel kernel = prepared_warp_kernel(K, max_depth, diag != 0, *warps, bytes, per_sm, err);
+  *smem = (int)bytes;
+  *regs = 0;
+  *ctas_per_sm = per_sm;
+  if (kernel == nullptr || err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  *regs = attr.numRegs;
+  return (int)err;
+}
+
 // Launches one transition for C chains on `stream`. `leaf` selects the
 // model (0 Gaussian, 1 funnel, 2 logreg; see the header for m0..m2, n_obs,
-// s0, s1). Returns the cudaGetLastError() of the launch (0 on success), or
-// cudaErrorInvalidValue for a CTA that does not fit or a logreg leaf with
-// no observation or an X that is not 16-byte aligned.
+// s0, s1). The Gaussian leaf takes tree_transition_warp_kernel wherever
+// warp_plan gives it a warp, with `queue` a zeroed int32 the caller
+// allocates; every other launch takes the CTA kernel, with queue null.
+// Returns the cudaGetLastError() of the launch (0 on success), or
+// cudaErrorInvalidValue for a CTA that does not fit, a queue given or
+// missing against the plan, or a logreg leaf with no observation or an X
+// that is not 16-byte aligned.
 int tree_transition_f32(const float* q0, const float* p0, const float* g0, const float* ld0,
                         const float* eps, const uint32_t* dirs, const float* gum,
                         const float* expo, const float* minv, int diag, int leaf,
                         const float* m0, const float* m1, const float* m2, int n_obs, float s0,
                         float s1, float* qn, float* gn, float* ldn, float* pin, int* depth,
                         int* term_left, int* term_right, float* log_sum, int* steps, int* work,
-                        int C, int K, int max_depth, int dcap, float min_delta, void* stream) {
+                        int* queue, int C, int K, int max_depth, int dcap, float min_delta,
+                        void* stream) {
   int tile = 0;
   bool ring = false;
   if (leaf == kLogreg && (!logreg_tiles(K, max_depth, tile, ring) || n_obs < 1 ||
@@ -727,6 +1246,29 @@ int tree_transition_f32(const float* q0, const float* p0, const float* g0, const
     return (int)cudaErrorInvalidValue;
   const Model model{m0, m1, m2, n_obs, tile, s0, s1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int warps = 0, per_sm = 0;
+  size_t warp_smem = 0;
+  cudaError_t err = cudaSuccess;
+  WarpKernel warp_kern = leaf == kGaussian ? prepared_warp_kernel(K, max_depth, diag != 0, warps,
+                                                                  warp_smem, per_sm, err)
+                                           : nullptr;
+  if (err != cudaSuccess) return (int)err;
+  if ((warp_kern != nullptr) != (queue != nullptr)) return (int)cudaErrorInvalidValue;
+  if (warp_kern != nullptr) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    // persistent CTAs: as many as the card holds at once, no more than the
+    // chains need
+    const long long need = ((long long)C + warps - 1) / warps;
+    const int grid = (int)(need < (long long)sms * per_sm ? need : (long long)sms * per_sm);
+    warp_kern<<<grid, 32 * warps, warp_smem, s>>>(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
+                                                 model, qn, gn, ldn, pin, depth, term_left,
+                                                 term_right, log_sum, steps, work, queue, C, K,
+                                                 max_depth, dcap, min_delta);
+    return (int)cudaGetLastError();
+  }
 #define TREE_LAUNCH(D, L)                                                                  \
   launch<D, L>(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth, \
                term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap,          \

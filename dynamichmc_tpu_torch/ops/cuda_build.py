@@ -52,7 +52,7 @@ class CudaLibrary:
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.signatures = signatures
-        self.build_log = ""  # compiler output of the last build (ptxas usage)
+        self.build_log = ""  # compiler output of the build (ptxas usage)
         self._lib = None
         self._lock = threading.Lock()
 
@@ -65,9 +65,14 @@ class CudaLibrary:
 
     def build(self) -> str:
         """Compile the source for sm_90a if its library is missing; returns
-        the library path. Raises with the compiler's output on failure."""
+        the library path. Raises with the compiler's output on failure. The
+        compiler's output is kept beside the library (``.log``), so that
+        ``build_log`` holds it for a library built earlier too."""
         so = self.library_path()
         if os.path.exists(so):
+            if os.path.exists(f"{so}.log"):
+                with open(f"{so}.log") as f:
+                    self.build_log = f.read()
             return so
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -81,6 +86,9 @@ class CudaLibrary:
                 f"nvcc failed on {self.source} ({proc.returncode}):\n"
                 f"{self.build_log}"
             )
+        with open(f"{tmp}.log", "w") as f:
+            f.write(self.build_log)
+        os.replace(f"{tmp}.log", f"{so}.log")
         os.replace(tmp, so)
         return so
 

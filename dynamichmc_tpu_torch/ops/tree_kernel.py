@@ -4,17 +4,22 @@ the ``LogDensity.tree_transition_fn`` hooks.
 The kernel (csrc/tree_kernel.cu, CUDA C++ for sm_90a) replaces the Pallas
 kernel ``dynamichmc_tpu/ops/pallas_tree.py::_build_kernel`` with each of its
 leaves (``_gaussian_leaf``, ``funnel_leaf``, ``logreg_leaf``): one complete
-NUTS transition per chain, one CTA per chain. A :class:`Leaf` names the
-model: its id in the CUDA source, its float32 arrays and scalars, and the
-same value and gradient in torch for the plain version. The library is
-built with ``nvcc`` at first use (ops/cuda_build.py) and called through a
-plain C entry point with ``ctypes``, on PyTorch's current stream.
+NUTS transition per chain. It comes in two variants, chosen by shape alone
+(:func:`kernel_variant`): the Gaussian leaf runs one warp per chain, with
+the model's matrices staged once per CTA in shared memory, wherever
+:func:`gaussian_warp_plan` gives it a warp (K <= 128); every other launch
+runs one CTA per chain. A :class:`Leaf` names the model: its id in the CUDA
+source, its float32 arrays and scalars, and the same value and gradient in
+torch for the plain version. The library is built with ``nvcc`` at first
+use (ops/cuda_build.py) and called through a plain C entry point with
+``ctypes``, on PyTorch's current stream.
 
 :func:`tree_transition` is the wrapper. A tensor on the CPU goes to
 :func:`tree_transition_plain`, the same transition computed by the plain
 batched driver (tree_batched.py) from the same injected noise with the
 leaf's torch value and gradient. A CUDA tensor launches the kernel or
-raises; nothing falls back. ``launches`` counts the kernel launches.
+raises; nothing falls back. ``launches`` counts the kernel launches,
+``warp_launches`` those of the warp variant among them.
 
 ``work`` differs between the two on purpose: the kernel reports each
 chain's own executed leaf count, the plain driver the lockstep count of the
@@ -55,18 +60,21 @@ GAUSSIAN, FUNNEL, LOGREG = 0, 1, 2  # leaf ids of csrc/tree_kernel.cu
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 library = CudaLibrary("tree_kernel", {
     "tree_transition_f32": (
-        [_vp] * 9 + [_ci, _ci] + [_vp] * 3 + [_ci, _cf, _cf] + [_vp] * 10
+        [_vp] * 9 + [_ci, _ci] + [_vp] * 3 + [_ci, _cf, _cf] + [_vp] * 11
         + [_ci] * 4 + [_cf, _vp],
         _ci,
     ),
+    "tree_warp_plan": ([_ci] * 3 + [_vp] * 4, _ci),
 })
 
 launches = 0  # kernel launches made by tree_transition
+warp_launches = 0  # the launches among them that ran the warp variant
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, warp_launches
     launches = 0
+    warp_launches = 0
 
 
 TILE_ROWS, STAGES = 32, 2  # the logreg leaf's tiles of X (kTileRows, kStages)
@@ -100,10 +108,75 @@ def logreg_tiles(K: int, max_depth: int) -> tuple:
     return min(TILE_ROWS, free // (per_row if ring else 4)), ring
 
 
+WARP_MAX_R = 4  # the warp variant keeps R = ceil(K / 32) <= 4 coordinates a lane
+
+
+def warp_max_warps(r: int) -> int:
+    """Warps per CTA of the warp variant at most, by R: what the registers
+    allow at one CTA per SM (warp_max_warps in the CUDA source)."""
+    return 16 if r < 4 else 12
+
+
+def gaussian_warp_plan(K: int, max_depth: int, diag: bool) -> tuple:
+    """``(warps_per_cta, smem_bytes)`` of the Gaussian leaf's warp variant
+    (warp_plan in the CUDA source): the staged matrices (prec^T and L, and
+    the dense M^-1 unless ``diag``, each K^2 floats rounded up to 4) and one
+    region per warp of merge stack and staging vector, (5 max_depth + 1) x
+    32 R floats, with as many warps as MAX_SMEM_BYTES holds, at most
+    :func:`warp_max_warps`. ``(0, 0)`` where it takes no warp: past
+    K = 128, or where the matrices leave no room for one warp's region."""
+    r = -(-K // 32)
+    if not (K >= 1 and r <= WARP_MAX_R and max_depth >= 1):
+        return 0, 0
+    mats = 4 * (2 if diag else 3) * ((K * K + 3) // 4 * 4)
+    per_warp = 4 * (5 * max_depth + 1) * 32 * r
+    warps = min(warp_max_warps(r), max(0, MAX_SMEM_BYTES - mats) // per_warp)
+    return (warps, mats + warps * per_warp) if warps else (0, 0)
+
+
+def kernel_variant(kind: int, K: int, max_depth: int, diag: bool):
+    """The kernel a launch of leaf ``kind`` takes, by shape only: "warp"
+    for the Gaussian leaf wherever :func:`gaussian_warp_plan` gives it a
+    warp, else "cta" where one chain's CTA fits (:func:`kernel_fits`), else
+    None (the launch raises, the hook declines)."""
+    if kind == GAUSSIAN and gaussian_warp_plan(K, max_depth, diag)[0]:
+        return "warp"
+    return "cta" if kernel_fits(K, max_depth, kind == LOGREG) else None
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpKernelInfo:
+    """What the CUDA source and runtime say of the warp variant of one
+    (K, max_depth, diag): warps per CTA and dynamic shared memory (the
+    source's plan), registers per thread, CTAs per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the card's SMs."""
+
+    warps: int
+    smem: int
+    registers: int
+    ctas_per_sm: int
+    sm_count: int
+
+
+def warp_kernel_info(device, K: int, max_depth: int, diag: bool) -> WarpKernelInfo:
+    """:class:`WarpKernelInfo` of (K, max_depth, diag) on ``device``, from
+    the built library (all zero where the plan takes no warp)."""
+    lib = library.load()
+    out = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device):
+        err = lib.tree_warp_plan(K, max_depth, int(diag),
+                                 *(ctypes.byref(x) for x in out))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if err != 0:
+        raise RuntimeError(f"tree kernel: no warp plan for K = {K}, "
+                           f"max_depth {max_depth} (CUDA error {err})")
+    return WarpKernelInfo(*(x.value for x in out), sms)
+
+
 def kernel_fits(K: int, max_depth: int, logreg: bool = False) -> bool:
-    """Whether the CTA of one chain fits the card: at most 1024 threads and
-    227 KB of shared memory, with at least one residual of the logreg
-    leaf's tiles. It does not depend on n_obs."""
+    """Whether the CTA variant's CTA of one chain fits the card: at most
+    1024 threads and 227 KB of shared memory, with at least one residual of
+    the logreg leaf's tiles. It does not depend on n_obs."""
     if (K + 31) // 32 * 32 > MAX_THREADS:
         return False
     if logreg:
@@ -238,7 +311,7 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
     Returns the raw fields prop_q, prop_grad, prop_ld, prop_pi, depth,
     term_left, term_right, log_sum, steps, work, directions.
     """
-    global launches
+    global launches, warp_launches
     if q0.device.type == "cpu":
         return tree_transition_plain(q0, p0, g0, ld0, eps, dirs, gum, expo,
                                      minv, leaf, dcap, min_delta, max_depth)
@@ -270,10 +343,10 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
                              f"{tuple(t.shape)}, expected {shape}")
     if tuple(minv.shape) not in ((K,), (K, K)):
         raise ValueError("tree kernel: minv must be (K,) or (K, K)")
-    logreg = leaf.kind == LOGREG
-    if not (1 <= dcap <= max_depth) or not kernel_fits(K, max_depth, logreg):
+    variant = kernel_variant(leaf.kind, K, max_depth, minv.ndim == 1)
+    if not (1 <= dcap <= max_depth) or variant is None:
         raise ValueError("tree kernel: dcap or shape outside the kernel")
-    if logreg and (leaf.n_obs < 1 or operands[0].data_ptr() % 16):
+    if leaf.kind == LOGREG and (leaf.n_obs < 1 or operands[0].data_ptr() % 16):
         raise ValueError("tree kernel: the logreg leaf needs observations "
                          "and a 16-byte-aligned X")
     lib = library.load()
@@ -285,6 +358,9 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
     ints = {n: torch.empty((C,), dtype=i32, device=q0.device)
             for n in ("depth", "term_left", "term_right", "steps", "work")}
     ptrs = [t.data_ptr() for t in operands] + [None] * (3 - len(operands))
+    # the warp variant's chain queue: the next chain a warp takes
+    queue = (torch.zeros((1,), dtype=i32, device=q0.device)
+             if variant == "warp" else None)
     stream = torch.cuda.current_stream(q0.device).cuda_stream
     err = lib.tree_transition_f32(
         q0.data_ptr(), p0.data_ptr(), g0.data_ptr(), ld0.data_ptr(),
@@ -296,11 +372,14 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
         ints["depth"].data_ptr(), ints["term_left"].data_ptr(),
         ints["term_right"].data_ptr(), rows["log_sum"].data_ptr(),
         ints["steps"].data_ptr(), ints["work"].data_ptr(),
+        None if queue is None else queue.data_ptr(),
         C, K, max_depth, int(dcap), float(min_delta), stream,
     )
     if err != 0:
         raise RuntimeError(f"tree kernel launch failed: CUDA error {err}")
     launches += 1
+    if variant == "warp":
+        warp_launches += 1
     return {"prop_q": qn, "prop_grad": gn, **rows, **ints, "directions": dirs}
 
 
@@ -313,9 +392,9 @@ def make_tree_transition(leaf: Leaf, dim: int):
 
     It declines (returns None, and the plain driver runs) for chains that
     are not float32, a turn statistic other than "generalized", a per-chain
-    metric, or a K and max_depth whose CTA does not fit the card (more than
-    1024 threads or 227 KB of shared memory; see :func:`kernel_fits`, which
-    does not depend on n_obs). Otherwise it draws
+    metric, or a K and max_depth that no variant takes (:func:`kernel_variant`:
+    the CTA variant needs at most 1024 threads and 227 KB of shared memory,
+    whatever n_obs). Otherwise it draws
     the momenta, direction bits, Gumbel rows and Exponential rows with the
     caller's generator on the chains' device and runs
     :func:`tree_transition`.
@@ -333,7 +412,7 @@ def make_tree_transition(leaf: Leaf, dim: int):
             return None  # per-chain metric
         C, K = Q.q.shape
         md = algorithm.max_depth
-        if K != dim or not kernel_fits(K, md, leaf.kind == LOGREG):
+        if K != dim or kernel_variant(leaf.kind, K, md, diag) is None:
             return None
         device = Q.q.device
         p0 = rand_p_b(generator, metric, (C, K), f32)

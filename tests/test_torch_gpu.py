@@ -123,6 +123,9 @@ def _check_transition(args, C, dcap, min_match):
     out = tree_kernel.tree_transition(*args)
     torch.cuda.synchronize()
     assert tree_kernel.launches == 1
+    K, md, leaf, minv = args[0].shape[1], args[12], args[9], args[8]
+    warp = tree_kernel.kernel_variant(leaf.kind, K, md, minv.ndim == 1) == "warp"
+    assert tree_kernel.warp_launches == int(warp)
     ref = tree_kernel.tree_transition_plain(*args)
     ref64 = tree_kernel.tree_transition_plain(*(
         a.double() if torch.is_tensor(a) and a.is_floating_point() else a
@@ -155,6 +158,76 @@ def test_cuda_kernel_matches_plain(kind, dcap, K):
     model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
     _check_transition(_kernel_args(model, C, md, kind, dcap, (0.2, 0.6)),
                       C, dcap, 0.99)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md,dcap", [(4, 4), (10, 10), (4, 2)])
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("K", [1, 5, 31, 32, 33, 100, 128])
+def test_cuda_warp_kernel_matches_plain(K, kind, md, dcap):
+    """The Gaussian leaf's warp variant (one warp per chain, R = 1-4
+    coordinates a lane) against the plain version, by the rule of
+    _check_transition, on 256 chains of correlated_gaussian(K)."""
+    dev = _device()
+    assert tree_kernel.kernel_variant(tree_kernel.GAUSSIAN, K, md,
+                                      kind == "diag") == "warp"
+    model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
+    _check_transition(_kernel_args(model, 256, md, kind, dcap, (0.2, 0.6)),
+                      256, dcap, 0.99)
+    assert tree_kernel.warp_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md,K_last", [(4, 128), (14, 127)])
+def test_cuda_warp_kernel_dispatch_boundary(md, K_last):
+    """The largest K the warp plan takes (dense metric) runs the warp
+    variant, and the next K the CTA variant: past K = 128 (R = 5) at
+    max_depth 4; at max_depth 14 the matrices leave one warp's merge stack
+    room up to K = 127 only. Both against the plain version."""
+    dev = _device()
+    for K, warp in ((K_last, True), (K_last + 1, False)):
+        assert (tree_kernel.gaussian_warp_plan(K, md, False)[0] > 0) == warp
+        model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
+        _check_transition(_kernel_args(model, 64, md, "dense", 4, (0.2, 0.6)),
+                          64, 4, 0.99)
+        assert tree_kernel.launches == 1
+        assert tree_kernel.warp_launches == int(warp), K
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+def test_cuda_warp_kernel_is_deterministic(kind):
+    """Two launches at the main path's shape (4096 x 100, max_depth 4) give
+    bitwise the same outputs: a chain's result does not depend on which
+    warp took it from the queue."""
+    dev = _device()
+    model = correlated_gaussian(100, dtype=F32, device=dev, tree_kernel=True)
+    args = _kernel_args(model, 4096, 4, kind, 4, (0.2, 0.6))
+    tree_kernel.reset_launches()
+    a = tree_kernel.tree_transition(*args)
+    b = tree_kernel.tree_transition(*args)
+    torch.cuda.synchronize()
+    assert tree_kernel.warp_launches == 2
+    for name, x in a.items():
+        assert torch.equal(x, b[name]), name
+
+
+@pytest.mark.gpu
+def test_cuda_warp_plan_matches_the_source():
+    """The CUDA source's warp plan (warps per CTA, shared memory) is
+    gaussian_warp_plan's over a table of shapes, and where it takes warps
+    the runtime fits at least one CTA per SM."""
+    dev = _device()
+    for K in (1, 5, 31, 32, 33, 64, 96, 97, 100, 127, 128, 129, 200):
+        for md in (1, 4, 7, 10, 13, 14):
+            for diag in (False, True):
+                info = tree_kernel.warp_kernel_info(dev, K, md, diag)
+                plan = tree_kernel.gaussian_warp_plan(K, md, diag)
+                assert (info.warps, info.smem) == plan, (K, md, diag)
+                if plan[0]:
+                    assert info.ctas_per_sm >= 1 and info.registers > 0
+                else:
+                    assert info.ctas_per_sm == info.registers == 0
 
 
 @pytest.mark.gpu

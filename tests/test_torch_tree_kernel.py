@@ -338,3 +338,84 @@ def _logreg_data(n_obs, K):
     x = rng.randn(n_obs, K)
     y = (rng.uniform(size=n_obs) < 0.5).astype(np.float64)
     return x, y
+
+
+# --- the Gaussian leaf's warp variant: plan and dispatch --------------------
+
+@pytest.mark.parametrize("K,md,diag,warps,smem", [
+    # the main path: dense, K = 100, max_depth 4: 120,000 bytes of prec^T,
+    # L and M^-1, and 10 warps of 10,752 bytes (21 x 128 floats)
+    (100, 4, False, 10, 120000 + 10 * 10752),
+    # diagonal: 80,000 bytes of matrices; the registers cap R = 4 at 12
+    (100, 4, True, 12, 80000 + 12 * 10752),
+    (100, 10, False, 4, 120000 + 4 * 26112),
+    # K = 128: the matrices take 196,608 of the 232,448 bytes
+    (128, 4, False, 3, 196608 + 3 * 10752),
+    (128, 10, False, 1, 196608 + 26112),
+    (128, 13, False, 1, 196608 + 33792),
+    (128, 14, False, 0, 0),
+    (127, 14, False, 1, 3 * 4 * 16132 + 36352),
+    (128, 14, True, 2, 131072 + 2 * 36352),
+    # R = 5: past the warp variant
+    (129, 4, False, 0, 0), (129, 4, True, 0, 0),
+    # small K: 16 warps (R < 4), K^2 rounded up to 4 floats per matrix
+    (1, 4, True, 16, 2 * 16 + 16 * 2688),
+    (5, 4, False, 16, 3 * 4 * 28 + 16 * 2688),
+    (33, 7, True, 16, 2 * 4 * 1092 + 16 * 4 * 36 * 64),
+    (96, 4, False, 15, 3 * 4 * 9216 + 15 * 8064),
+    (97, 4, False, 11, 3 * 4 * 9412 + 11 * 10752),
+])
+def test_gaussian_warp_plan(K, md, diag, warps, smem):
+    """Warps per CTA and shared memory of the warp variant: the staged
+    matrices (K^2 floats each, rounded up to 4: prec^T, L and, dense, M^-1)
+    and one region per warp of (5 max_depth + 1) x 32 R floats, as many as
+    227 KB holds, at most 16 warps (12 at R = 4)."""
+    assert tree_kernel.gaussian_warp_plan(K, md, diag) == (warps, smem)
+    assert smem <= tree_kernel.MAX_SMEM_BYTES
+    if warps:
+        r = -(-K // 32)
+        per_warp = 4 * (5 * md + 1) * 32 * r
+        # one more warp would not fit, or the register cap is reached
+        assert (smem + per_warp > tree_kernel.MAX_SMEM_BYTES
+                or warps == tree_kernel.warp_max_warps(r))
+
+
+@pytest.mark.parametrize("kind,K,md,diag,variant", [
+    (tree_kernel.GAUSSIAN, 100, 4, False, "warp"),
+    (tree_kernel.GAUSSIAN, 100, 4, True, "warp"),
+    (tree_kernel.GAUSSIAN, 1, 1, True, "warp"),
+    (tree_kernel.GAUSSIAN, 128, 13, False, "warp"),
+    (tree_kernel.GAUSSIAN, 128, 14, False, "cta"),
+    (tree_kernel.GAUSSIAN, 129, 4, False, "cta"),
+    (tree_kernel.GAUSSIAN, 1024, 10, True, "cta"),
+    (tree_kernel.GAUSSIAN, 1025, 4, True, None),
+    (tree_kernel.GAUSSIAN, 1024, 30, False, None),
+    # the funnel and logreg leaves keep one CTA per chain at every K
+    (tree_kernel.FUNNEL, 25, 7, True, "cta"),
+    (tree_kernel.FUNNEL, 5, 4, False, "cta"),
+    (tree_kernel.LOGREG, 128, 4, True, "cta"),
+    (tree_kernel.LOGREG, 1024, 12, True, None),
+])
+def test_kernel_variant_by_shape(kind, K, md, diag, variant):
+    assert tree_kernel.kernel_variant(kind, K, md, diag) == variant
+
+
+@pytest.mark.parametrize("K,md,diag", [(100, 4, False), (129, 4, True)])
+def test_hook_takes_a_variant_and_the_cpu_wrapper_launches_none(K, md, diag):
+    """A Gaussian hook runs wherever a variant takes the shape; on CPU
+    tensors it takes the plain version and counts no launch of either
+    variant."""
+    model = tm.correlated_gaussian(K, dtype=F32, tree_kernel=True,
+                                   device="cpu")
+    q = torch.as_tensor(np.random.default_rng(0).normal(size=(3, K)),
+                        dtype=F32)
+    v, g = model.logdensity_and_gradient(q)
+    cov = model.cov_fn().to(F32)
+    metric = (diagonal_metric(torch.diagonal(cov).contiguous()) if diag
+              else dense_metric(cov))
+    tree_kernel.reset_launches()
+    out = model.tree_transition_fn(
+        torch.Generator().manual_seed(0), NUTS(max_depth=md), metric,
+        EvaluatedPoint(q=q, logdensity=v, grad=g), 0.1, depth_limit=2)
+    assert out is not None and bool(torch.isfinite(out[0].q).all())
+    assert tree_kernel.launches == tree_kernel.warp_launches == 0
