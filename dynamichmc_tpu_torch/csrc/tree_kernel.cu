@@ -10,6 +10,12 @@
 // delta < min_delta, InvalidTree termination positions, the biased doubling
 // combine with Exponential noise, and the runtime depth cap dcap.
 //
+// Two variants, chosen by shape alone (tree_transition_f32): the Gaussian
+// leaf runs tree_transition_warp_kernel, one warp per chain (below, before
+// warp_plan), wherever warp_plan gives it a warp (K <= 128, the staged
+// matrices leaving room for one warp's merge stack); every other launch
+// runs the CTA variant described here.
+//
 // Design. One CTA per chain, one thread per coordinate (blockDim =
 // round_up(K, 32)). Thread j keeps coordinate j of every per-chain vector
 // (edges, walking point, proposal, best leaf, turn statistics) in registers;
@@ -67,11 +73,26 @@
 //
 // What bounds it on the H100:
 // - Gaussian, dense: four K x K matvecs per leaf (M^-1 p_mid, L^T d and
-//   prec d in one pass, M^-1 p_new) whose matrices (3 x 40 KB at K = 100)
-//   are read from L1/L2 by every chain: about 160 KB per leaf, plus two
-//   block reductions per leaf and six per merge. Thread j reads column j of
-//   each matrix, so consecutive threads read consecutive addresses: minv is
-//   symmetric, and the wrapper passes prec^T and L for that.
+//   prec d in one pass, M^-1 p_new), 8 K^2 FMA operations: 160 KB of
+//   matrix reads per chain-leaf at K = 100 (three 40 KB matrices, M^-1
+//   twice). The CTA variant read them from L1/L2 in every chain's CTA and
+//   crossed about a dozen CTA barriers per leaf. The warp variant reads
+//   them from shared memory, staged once per CTA (120,000 bytes dense,
+//   80,000 diagonal at K = 100): lane l reads A[i][l + 32 s], 32
+//   consecutive words per warp-wide load, with x_i a broadcast float4 of
+//   the warp's staging vector, so each matvec row costs R shared-memory
+//   wavefronts for R FMAs a lane. Shared memory serves 128 bytes a clock
+//   per SM (about 29 TB/s over 132 SMs at 1.7 GHz): about 0.26 ms for the
+//   ~7.4 GB a 4096-chain md-4 transition reads, the variant's floor,
+//   against 0.0575 ms for the fp32 operations. Its dot products are xor
+//   butterflies over the warp, with no barrier; its warps per CTA, W =
+//   min(warp_max_warps(R), what the shared memory left by the matrices
+//   holds), are 10 at the main shape (227,520 bytes, one CTA per SM). Each
+//   warp takes its next chain from a queue counter, so a short tree frees
+//   its warp for the next chain at once. Thread j of the CTA variant reads
+//   column j of each matrix, so consecutive threads read consecutive
+//   addresses: minv is symmetric, and the wrapper passes prec^T and L for
+//   that.
 // - Funnel: elementwise, one warp per chain at K = 25; bound by the block
 //   reductions, the merge stack's shared-memory traffic and the serial
 //   leaf loop (up to 127 leaves at max_depth 7).
@@ -96,9 +117,9 @@
 //   every chain streams its own copy of X. Several chains per CTA sharing
 //   each tile (lockstep), cluster multicast of the tiles and tensor cores
 //   with an fp32-exact split are later work.
-// Tensor cores (wgmma), TMA staging of the Gaussian's matrices and several
-// chains per CTA are left to later work. Products are plain fp32 FMAs; no
-// TF32 anywhere.
+// Tensor cores (wgmma) and reuse of one matrix load across several chains
+// (lockstep) are left to later work. Products are plain fp32 FMAs; no TF32
+// anywhere.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -194,15 +215,27 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
   }
 }
 
-// Publish x_j into the staging vector, then return sum_i A[i, j] x_i.
+// s += a x as a compensated sum with compensation c (the term formed by one
+// FMA): the dense matvecs of the Gaussian leaf, whose plain float32 running
+// sums over K ~ 128 terms of an ill-conditioned prec put the transition
+// further from float64 than cuBLAS's products by more than twice.
+__device__ __forceinline__ void kahan_fma(float& s, float& c, float a, float x) {
+  const float u = fmaf(a, x, -c);
+  const float t = s + u;
+  c = (t - s) - u;
+  s = t;
+}
+
+// Publish x_j into the staging vector, then return sum_i A[i, j] x_i
+// (compensated, i in order).
 __device__ __forceinline__ float stage_matvec(float x, const float* __restrict__ A,
                                               float* xbuf, int K, int j) {
   __syncthreads();  // earlier readers of xbuf are done
   xbuf[j] = x;
   __syncthreads();
-  float s = 0.f;
+  float s = 0.f, c = 0.f;
   if (j < K) {
-    for (int i = 0; i < K; ++i) s = fmaf(__ldg(A + (size_t)i * K + j), xbuf[i], s);
+    for (int i = 0; i < K; ++i) kahan_fma(s, c, __ldg(A + (size_t)i * K + j), xbuf[i]);
   }
   return s;
 }
@@ -475,12 +508,12 @@ __device__ __forceinline__ void tree_transition(
         __syncthreads();
         xbuf[j] = dq;
         __syncthreads();
-        float w = 0.f, pd = 0.f;
+        float w = 0.f, pd = 0.f, w_c = 0.f, pd_c = 0.f;
         if (own) {
           for (int i = 0; i < K; ++i) {
             const float di = xbuf[i];
-            w = fmaf(__ldg(model.m1 + (size_t)i * K + j), di, w);
-            pd = fmaf(__ldg(model.m0 + (size_t)i * K + j), di, pd);
+            kahan_fma(w, w_c, __ldg(model.m1 + (size_t)i * K + j), di);
+            kahan_fma(pd, pd_c, __ldg(model.m0 + (size_t)i * K + j), di);
           }
         }
         g_new = -pd;
@@ -674,8 +707,11 @@ __global__ void __launch_bounds__(1024, 1) tree_transition_kernel_wide(
 
 constexpr int kWarpMaxR = 4;  // K <= 128
 
-// Warps per CTA at most, by R: what the registers allow at one CTA per SM.
-__host__ __device__ constexpr int warp_max_warps(int R) { return R < 4 ? 16 : 12; }
+// Warps per CTA at most, by R: what the registers allow at one CTA per SM
+// without a spill. The register file is split over the SM's 4 schedulers,
+// so W warps leave 16,384 / (32 ceil(W / 4)) registers a thread: 128 for
+// 13-16 warps (R <= 2), 168 for 9-12 (R = 3), 255 for 8 (R = 4).
+__host__ __device__ constexpr int warp_max_warps(int R) { return R <= 2 ? 16 : R == 3 ? 12 : 8; }
 
 template <int R>
 struct TauW {
@@ -731,6 +767,40 @@ __device__ __forceinline__ bool combine_dir_warp(const TauW<R>& first, const Tau
 #pragma unroll
   for (int k = 0; k < 6; ++k) turn |= warp_sum<R>(v[k]) < 0.f;
   return turn;
+}
+
+// y[m][s] = sum_i A[m][i][lane + 32 s] x_i over the staged x (xbuf, K
+// floats, 16-byte aligned) for NM matrices in one pass, i in order and
+// compensated (kahan_fma). Lane l reads A[m][i][l + 32 s], 32 consecutive
+// words (no bank conflict), and x_i as a broadcast float4.
+template <int R, int NM>
+__device__ __forceinline__ void staged_matvec(const float* const (&A)[NM], const float* xbuf,
+                                              int K, int lane, bool own_last,
+                                              float (&y)[NM][R]) {
+  float c[NM][R];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int s = 0; s < R; ++s) y[m][s] = c[m][s] = 0.f;
+  auto row = [&](int i, float xi) {
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      const float* a = A[m] + i * K + lane;
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        if (s < R - 1 || own_last) kahan_fma(y[m][s], c[m][s], a[32 * s], xi);
+      }
+    }
+  };
+  int i = 0;
+  for (; i + 4 <= K; i += 4) {
+    const float4 x4 = *reinterpret_cast<const float4*>(xbuf + i);
+    row(i, x4.x);
+    row(i + 1, x4.y);
+    row(i + 2, x4.z);
+    row(i + 3, x4.w);
+  }
+  for (; i < K; ++i) row(i, xbuf[i]);
 }
 
 // Copy n floats of a matrix into shared memory with every thread of the
@@ -795,35 +865,18 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
     for (int s = 0; s < R; ++s) xbuf[lane + 32 * s] = x[s];
     __syncwarp();
   };
-  // y = A^T x for the staged x: y_j = sum_i A[i][j] x_i, i in order; lane
-  // l reads A[i][l + 32 s], 32 consecutive words (no bank conflict), and x_i
-  // as a broadcast
-  auto matvec = [&](const float* A, float (&y)[R]) {
-#pragma unroll
-    for (int s = 0; s < R; ++s) y[s] = 0.f;
-    auto row = [&](int i, float xi) {
-      const float* a = A + i * K + lane;
-#pragma unroll
-      for (int s = 0; s < R; ++s)
-        if (own(s)) y[s] = fmaf(a[32 * s], xi, y[s]);
-    };
-    int i = 0;
-    for (; i + 4 <= K; i += 4) {
-      const float4 x4 = *reinterpret_cast<const float4*>(xbuf + i);
-      row(i, x4.x);
-      row(i + 1, x4.y);
-      row(i + 2, x4.z);
-      row(i + 3, x4.w);
-    }
-    for (; i < K; ++i) row(i, xbuf[i]);
-  };
+  const float* const minv_mat[1] = {s_minv};
+  const float* const leaf_mats[2] = {s_chol, s_prec};
   auto psharp = [&](const float (&p)[R], float (&sp)[R]) {
     if constexpr (DIAG) {
 #pragma unroll
       for (int s = 0; s < R; ++s) sp[s] = p[s] * mdiag[s];
     } else {
       stage(p);
-      matvec(s_minv, sp);
+      float y[1][R];
+      staged_matvec<R, 1>(minv_mat, xbuf, K, lane, own_last, y);
+#pragma unroll
+      for (int s = 0; s < R; ++s) sp[s] = y[0][s];
     }
   };
   // joint log density pi = ld - K(p), as in tree_transition
@@ -911,37 +964,14 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
           dq[s] = own(s) ? q_new[s] - mu[s] : 0.f;
         }
         stage(dq);
-        float w[R], pd[R];
-#pragma unroll
-        for (int s = 0; s < R; ++s) w[s] = pd[s] = 0.f;
-        {  // L^T d and prec d in one pass over the staged d
-          auto row = [&](int i, float di) {
-            const float* l = s_chol + i * K + lane;
-            const float* pr = s_prec + i * K + lane;
-#pragma unroll
-            for (int s = 0; s < R; ++s) {
-              if (own(s)) {
-                w[s] = fmaf(l[32 * s], di, w[s]);
-                pd[s] = fmaf(pr[32 * s], di, pd[s]);
-              }
-            }
-          };
-          int i = 0;
-          for (; i + 4 <= K; i += 4) {
-            const float4 d4 = *reinterpret_cast<const float4*>(xbuf + i);
-            row(i, d4.x);
-            row(i + 1, d4.y);
-            row(i + 2, d4.z);
-            row(i + 3, d4.w);
-          }
-          for (; i < K; ++i) row(i, xbuf[i]);
-        }
+        float wpd[2][R];  // L^T d and prec d in one pass over the staged d
+        staged_matvec<R, 2>(leaf_mats, xbuf, K, lane, own_last, wpd);
         float g_new[R], ww[R];
         bool bad = false;
 #pragma unroll
         for (int s = 0; s < R; ++s) {
-          g_new[s] = -pd[s];
-          ww[s] = w[s] * w[s];
+          g_new[s] = -wpd[1][s];
+          ww[s] = wpd[0][s] * wpd[0][s];
           bad |= !isfinite(g_new[s]);
         }
         float ld_new = -0.5f * warp_sum<R>(ww);

@@ -113,8 +113,9 @@ WARP_MAX_R = 4  # the warp variant keeps R = ceil(K / 32) <= 4 coordinates a lan
 
 def warp_max_warps(r: int) -> int:
     """Warps per CTA of the warp variant at most, by R: what the registers
-    allow at one CTA per SM (warp_max_warps in the CUDA source)."""
-    return 16 if r < 4 else 12
+    allow at one CTA per SM without a spill (warp_max_warps in the CUDA
+    source)."""
+    return 16 if r <= 2 else 12 if r == 3 else 8
 
 
 def gaussian_warp_plan(K: int, max_depth: int, diag: bool) -> tuple:

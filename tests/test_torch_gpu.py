@@ -178,20 +178,22 @@ def test_cuda_warp_kernel_matches_plain(K, kind, md, dcap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("md,K_last", [(4, 128), (14, 127)])
-def test_cuda_warp_kernel_dispatch_boundary(md, K_last):
+@pytest.mark.parametrize("md,K,warp", [
+    (4, 128, True), (4, 129, False), (14, 127, True), (14, 128, False),
+])
+def test_cuda_warp_kernel_dispatch_boundary(md, K, warp):
     """The largest K the warp plan takes (dense metric) runs the warp
     variant, and the next K the CTA variant: past K = 128 (R = 5) at
     max_depth 4; at max_depth 14 the matrices leave one warp's merge stack
-    room up to K = 127 only. Both against the plain version."""
+    room up to K = 127 only. Each against the plain version."""
     dev = _device()
-    for K, warp in ((K_last, True), (K_last + 1, False)):
-        assert (tree_kernel.gaussian_warp_plan(K, md, False)[0] > 0) == warp
-        model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
-        _check_transition(_kernel_args(model, 64, md, "dense", 4, (0.2, 0.6)),
-                          64, 4, 0.99)
-        assert tree_kernel.launches == 1
-        assert tree_kernel.warp_launches == int(warp), K
+    assert (tree_kernel.gaussian_warp_plan(K, md, False)[0] > 0) == warp
+    assert (tree_kernel.gaussian_warp_plan(K - 1, md, False)[0] > 0)
+    model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
+    _check_transition(_kernel_args(model, 64, md, "dense", 4, (0.2, 0.6)),
+                      64, 4, 0.99)
+    assert tree_kernel.launches == 1
+    assert tree_kernel.warp_launches == int(warp)
 
 
 @pytest.mark.gpu

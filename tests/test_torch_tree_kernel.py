@@ -344,10 +344,11 @@ def _logreg_data(n_obs, K):
 
 @pytest.mark.parametrize("K,md,diag,warps,smem", [
     # the main path: dense, K = 100, max_depth 4: 120,000 bytes of prec^T,
-    # L and M^-1, and 10 warps of 10,752 bytes (21 x 128 floats)
-    (100, 4, False, 10, 120000 + 10 * 10752),
-    # diagonal: 80,000 bytes of matrices; the registers cap R = 4 at 12
-    (100, 4, True, 12, 80000 + 12 * 10752),
+    # L and M^-1, and 8 warps of 10,752 bytes (21 x 128 floats): the
+    # registers cap R = 4 at 8 warps (10 would fit in shared memory)
+    (100, 4, False, 8, 120000 + 8 * 10752),
+    # diagonal: 80,000 bytes of matrices
+    (100, 4, True, 8, 80000 + 8 * 10752),
     (100, 10, False, 4, 120000 + 4 * 26112),
     # K = 128: the matrices take 196,608 of the 232,448 bytes
     (128, 4, False, 3, 196608 + 3 * 10752),
@@ -358,18 +359,21 @@ def _logreg_data(n_obs, K):
     (128, 14, True, 2, 131072 + 2 * 36352),
     # R = 5: past the warp variant
     (129, 4, False, 0, 0), (129, 4, True, 0, 0),
-    # small K: 16 warps (R < 4), K^2 rounded up to 4 floats per matrix
+    # small K: 16 warps (R <= 2), K^2 rounded up to 4 floats per matrix
     (1, 4, True, 16, 2 * 16 + 16 * 2688),
     (5, 4, False, 16, 3 * 4 * 28 + 16 * 2688),
     (33, 7, True, 16, 2 * 4 * 1092 + 16 * 4 * 36 * 64),
-    (96, 4, False, 15, 3 * 4 * 9216 + 15 * 8064),
-    (97, 4, False, 11, 3 * 4 * 9412 + 11 * 10752),
+    # R = 3 at 12 warps: 15 would fit in shared memory
+    (96, 4, False, 12, 3 * 4 * 9216 + 12 * 8064),
+    (97, 4, False, 8, 3 * 4 * 9412 + 8 * 10752),
+    (97, 7, False, 6, 3 * 4 * 9412 + 6 * 18432),
 ])
 def test_gaussian_warp_plan(K, md, diag, warps, smem):
     """Warps per CTA and shared memory of the warp variant: the staged
     matrices (K^2 floats each, rounded up to 4: prec^T, L and, dense, M^-1)
     and one region per warp of (5 max_depth + 1) x 32 R floats, as many as
-    227 KB holds, at most 16 warps (12 at R = 4)."""
+    227 KB holds, at most 16 warps (12 at R = 3, 8 at R = 4: what the
+    registers allow without a spill)."""
     assert tree_kernel.gaussian_warp_plan(K, md, diag) == (warps, smem)
     assert smem <= tree_kernel.MAX_SMEM_BYTES
     if warps:
