@@ -81,15 +81,19 @@
 //   80,000 diagonal at K = 100): lane l reads A[i][l + 32 s], 32
 //   consecutive words per warp-wide load, with x_i a broadcast float4 of
 //   the warp's staging vector, so each matvec row costs R shared-memory
-//   wavefronts for R FMAs a lane. Shared memory serves 128 bytes a clock
-//   per SM (about 29 TB/s over 132 SMs at 1.7 GHz): about 0.26 ms for the
-//   ~7.4 GB a 4096-chain md-4 transition reads, the variant's floor,
-//   against 0.0575 ms for the fp32 operations. Its dot products are xor
-//   butterflies over the warp, with no barrier; its warps per CTA, W =
-//   min(warp_max_warps(R), what the shared memory left by the matrices
-//   holds), are 10 at the main shape (227,520 bytes, one CTA per SM). Each
-//   warp takes its next chain from a queue counter, so a short tree frees
-//   its warp for the next chain at once. Thread j of the CTA variant reads
+//   wavefronts for R compensated FMAs a lane (kahan_fma: four fp32
+//   instructions a term, so the issue rate, 4 warp instructions a clock
+//   per SM, and the shared-memory rate bound it about equally). Shared
+//   memory serves 128 bytes a clock per SM (about 29 TB/s over 132 SMs at
+//   1.7 GHz): about 0.26 ms for the ~7.4 GB a 4096-chain md-4 transition
+//   reads, the variant's floor, against 0.0575 ms for the fp32 operations.
+//   Its dot products are xor butterflies over the warp, with no barrier;
+//   its warps per CTA, W = min(warp_max_warps(R), what the shared memory
+//   left by the matrices holds), are 8 at the main shape (the registers'
+//   limit; 206,016 bytes, one CTA per SM). Each warp takes its next chain
+//   from a queue counter, so a short tree frees its warp for the next
+//   chain at once. Both variants compensate the Gaussian leaf's matvec
+//   sums (kahan_fma). Thread j of the CTA variant reads
 //   column j of each matrix, so consecutive threads read consecutive
 //   addresses: minv is symmetric, and the wrapper passes prec^T and L for
 //   that.
@@ -216,14 +220,32 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
 }
 
 // s += a x as a compensated sum with compensation c (the term formed by one
-// FMA): the dense matvecs of the Gaussian leaf, whose plain float32 running
-// sums over K ~ 128 terms of an ill-conditioned prec put the transition
-// further from float64 than cuBLAS's products by more than twice.
+// FMA), for the matvecs: M^-1 p of the dense metric, and the Gaussian
+// leaf's L^T d and prec d. Plain float32 running sums over K = 128-129
+// terms of correlated_gaussian's prec (condition number ~7e3) put the
+// transition more than twice as far from float64 as the plain version's
+// cuBLAS products (measured on the H100).
 __device__ __forceinline__ void kahan_fma(float& s, float& c, float a, float x) {
   const float u = fmaf(a, x, -c);
   const float t = s + u;
   c = (t - s) - u;
   s = t;
+}
+
+// s += x as a compensated (Kahan) sum with compensation c: the error stays
+// at a few ulp of s however many terms are added.
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = x - c;
+  const float t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+// a0 x.x + a1 x.y + a2 x.z + a3 x.w by FMAs, in order: one block of four
+// terms of a compensated matvec sum (two fp32 instructions a term with
+// kahan_add, against four with kahan_fma).
+__device__ __forceinline__ float block4(float a0, float a1, float a2, float a3, float4 x) {
+  return fmaf(a3, x.w, fmaf(a2, x.z, fmaf(a1, x.y, a0 * x.x)));
 }
 
 // Publish x_j into the staging vector, then return sum_i A[i, j] x_i
@@ -262,15 +284,6 @@ __device__ __forceinline__ bool combine_dir(const Tau& first, const Tau& second,
   out.spp = y.spp;
   return (v[0] < 0.f) | (v[1] < 0.f) | (v[2] < 0.f) | (v[3] < 0.f) | (v[4] < 0.f) |
          (v[5] < 0.f);
-}
-
-// s += x as a compensated (Kahan) sum with compensation c: the error stays
-// at a few ulp of s however many terms are added.
-__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
-  const float y = x - c;
-  const float t = s + y;
-  c = (t - s) - y;
-  s = t;
 }
 
 // One tile of the logreg leaf: rows rows of X at xs (KX floats apart) and
@@ -770,9 +783,11 @@ __device__ __forceinline__ bool combine_dir_warp(const TauW<R>& first, const Tau
 }
 
 // y[m][s] = sum_i A[m][i][lane + 32 s] x_i over the staged x (xbuf, K
-// floats, 16-byte aligned) for NM matrices in one pass, i in order and
-// compensated (kahan_fma). Lane l reads A[m][i][l + 32 s], 32 consecutive
-// words (no bank conflict), and x_i as a broadcast float4.
+// floats, 16-byte aligned) for NM matrices in one pass, i in order: the
+// four terms of each float4 of x summed by FMAs (block4), the blocks added
+// compensated (kahan_add), the last K mod 4 terms by kahan_fma. Lane l
+// reads A[m][i][l + 32 s], 32 consecutive words (no bank conflict), and x
+// as broadcast float4s.
 template <int R, int NM>
 __device__ __forceinline__ void staged_matvec(const float* const (&A)[NM], const float* xbuf,
                                               int K, int lane, bool own_last,
@@ -782,25 +797,31 @@ __device__ __forceinline__ void staged_matvec(const float* const (&A)[NM], const
   for (int m = 0; m < NM; ++m)
 #pragma unroll
     for (int s = 0; s < R; ++s) y[m][s] = c[m][s] = 0.f;
-  auto row = [&](int i, float xi) {
+  int i = 0;
+  for (; i + 4 <= K; i += 4) {
+    const float4 x4 = *reinterpret_cast<const float4*>(xbuf + i);
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
       const float* a = A[m] + i * K + lane;
 #pragma unroll
       for (int s = 0; s < R; ++s) {
-        if (s < R - 1 || own_last) kahan_fma(y[m][s], c[m][s], a[32 * s], xi);
+        if (s < R - 1 || own_last) {
+          const float* as = a + 32 * s;
+          kahan_add(y[m][s], c[m][s], block4(as[0], as[K], as[2 * K], as[3 * K], x4));
+        }
       }
     }
-  };
-  int i = 0;
-  for (; i + 4 <= K; i += 4) {
-    const float4 x4 = *reinterpret_cast<const float4*>(xbuf + i);
-    row(i, x4.x);
-    row(i + 1, x4.y);
-    row(i + 2, x4.z);
-    row(i + 3, x4.w);
   }
-  for (; i < K; ++i) row(i, xbuf[i]);
+  for (; i < K; ++i) {
+    const float xi = xbuf[i];
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      const float* a = A[m] + i * K + lane;
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        if (s < R - 1 || own_last) kahan_fma(y[m][s], c[m][s], a[32 * s], xi);
+    }
+  }
 }
 
 // Copy n floats of a matrix into shared memory with every thread of the
