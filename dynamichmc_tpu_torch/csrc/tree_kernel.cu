@@ -232,22 +232,6 @@ __device__ __forceinline__ void kahan_fma(float& s, float& c, float a, float x) 
   s = t;
 }
 
-// s += x as a compensated (Kahan) sum with compensation c: the error stays
-// at a few ulp of s however many terms are added.
-__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
-  const float y = x - c;
-  const float t = s + y;
-  c = (t - s) - y;
-  s = t;
-}
-
-// a0 x.x + a1 x.y + a2 x.z + a3 x.w by FMAs, in order: one block of four
-// terms of a compensated matvec sum (two fp32 instructions a term with
-// kahan_add, against four with kahan_fma).
-__device__ __forceinline__ float block4(float a0, float a1, float a2, float a3, float4 x) {
-  return fmaf(a3, x.w, fmaf(a2, x.z, fmaf(a1, x.y, a0 * x.x)));
-}
-
 // Publish x_j into the staging vector, then return sum_i A[i, j] x_i
 // (compensated, i in order).
 __device__ __forceinline__ float stage_matvec(float x, const float* __restrict__ A,
@@ -284,6 +268,15 @@ __device__ __forceinline__ bool combine_dir(const Tau& first, const Tau& second,
   out.spp = y.spp;
   return (v[0] < 0.f) | (v[1] < 0.f) | (v[2] < 0.f) | (v[3] < 0.f) | (v[4] < 0.f) |
          (v[5] < 0.f);
+}
+
+// s += x as a compensated (Kahan) sum with compensation c: the error stays
+// at a few ulp of s however many terms are added.
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = x - c;
+  const float t = s + y;
+  c = (t - s) - y;
+  s = t;
 }
 
 // One tile of the logreg leaf: rows rows of X at xs (KX floats apart) and
@@ -783,11 +776,9 @@ __device__ __forceinline__ bool combine_dir_warp(const TauW<R>& first, const Tau
 }
 
 // y[m][s] = sum_i A[m][i][lane + 32 s] x_i over the staged x (xbuf, K
-// floats, 16-byte aligned) for NM matrices in one pass, i in order: the
-// four terms of each float4 of x summed by FMAs (block4), the blocks added
-// compensated (kahan_add), the last K mod 4 terms by kahan_fma. Lane l
-// reads A[m][i][l + 32 s], 32 consecutive words (no bank conflict), and x
-// as broadcast float4s.
+// floats, 16-byte aligned) for NM matrices in one pass, i in order and
+// compensated (kahan_fma). Lane l reads A[m][i][l + 32 s], 32 consecutive
+// words (no bank conflict), and x_i as a broadcast float4.
 template <int R, int NM>
 __device__ __forceinline__ void staged_matvec(const float* const (&A)[NM], const float* xbuf,
                                               int K, int lane, bool own_last,
@@ -797,31 +788,25 @@ __device__ __forceinline__ void staged_matvec(const float* const (&A)[NM], const
   for (int m = 0; m < NM; ++m)
 #pragma unroll
     for (int s = 0; s < R; ++s) y[m][s] = c[m][s] = 0.f;
-  int i = 0;
-  for (; i + 4 <= K; i += 4) {
-    const float4 x4 = *reinterpret_cast<const float4*>(xbuf + i);
+  auto row = [&](int i, float xi) {
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
       const float* a = A[m] + i * K + lane;
 #pragma unroll
       for (int s = 0; s < R; ++s) {
-        if (s < R - 1 || own_last) {
-          const float* as = a + 32 * s;
-          kahan_add(y[m][s], c[m][s], block4(as[0], as[K], as[2 * K], as[3 * K], x4));
-        }
+        if (s < R - 1 || own_last) kahan_fma(y[m][s], c[m][s], a[32 * s], xi);
       }
     }
+  };
+  int i = 0;
+  for (; i + 4 <= K; i += 4) {
+    const float4 x4 = *reinterpret_cast<const float4*>(xbuf + i);
+    row(i, x4.x);
+    row(i + 1, x4.y);
+    row(i + 2, x4.z);
+    row(i + 3, x4.w);
   }
-  for (; i < K; ++i) {
-    const float xi = xbuf[i];
-#pragma unroll
-    for (int m = 0; m < NM; ++m) {
-      const float* a = A[m] + i * K + lane;
-#pragma unroll
-      for (int s = 0; s < R; ++s)
-        if (s < R - 1 || own_last) kahan_fma(y[m][s], c[m][s], a[32 * s], xi);
-    }
-  }
+  for (; i < K; ++i) row(i, xbuf[i]);
 }
 
 // Copy n floats of a matrix into shared memory with every thread of the
