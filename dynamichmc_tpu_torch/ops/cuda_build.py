@@ -52,7 +52,7 @@ class CudaLibrary:
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.signatures = signatures
-        self.build_log = ""  # compiler output of the build (ptxas usage)
+        self.build_log = ""  # compiler output of the last build (ptxas usage)
         self._lib = None
         self._lock = threading.Lock()
 
