@@ -75,18 +75,20 @@
 // - Gaussian, dense: four K x K matvecs per leaf (M^-1 p_mid, L^T d and
 //   prec d in one pass, M^-1 p_new), 8 K^2 FMA operations: 160 KB of
 //   matrix reads per chain-leaf at K = 100 (three 40 KB matrices, M^-1
-//   twice). The CTA variant read them from L1/L2 in every chain's CTA and
-//   crossed about a dozen CTA barriers per leaf. The warp variant reads
+//   twice). The CTA variant reads them from L1/L2 in every chain's CTA and
+//   crosses about a dozen CTA barriers per leaf. The warp variant reads
 //   them from shared memory, staged once per CTA (120,000 bytes dense,
 //   80,000 diagonal at K = 100): lane l reads A[i][l + 32 s], 32
 //   consecutive words per warp-wide load, with x_i a broadcast float4 of
 //   the warp's staging vector, so each matvec row costs R shared-memory
-//   wavefronts for R compensated FMAs a lane (kahan_fma: four fp32
-//   instructions a term, so the issue rate, 4 warp instructions a clock
-//   per SM, and the shared-memory rate bound it about equally). Shared
-//   memory serves 128 bytes a clock per SM (about 29 TB/s over 132 SMs at
-//   1.7 GHz): about 0.26 ms for the ~7.4 GB a 4096-chain md-4 transition
-//   reads, the variant's floor, against 0.0575 ms for the fp32 operations.
+//   wavefronts for R compensated FMAs a lane (kahan_fma, four fp32
+//   instructions a term). Shared memory serves 128 bytes a clock per SM
+//   (about 29 TB/s over 132 SMs at 1.7 GHz): about 0.26 ms for the ~7.4
+//   GB a 4096-chain md-4 transition reads, the variant's floor, against
+//   0.0575 ms for the fp32 operations. On the H100 (700 W) the variant
+//   takes about 0.70 ms there, and 0.47 ms with plain running sums
+//   (scripts/torch_tree_warp_variants.py): why the compensation costs
+//   that much is not measured.
 //   Its dot products are xor butterflies over the warp, with no barrier;
 //   its warps per CTA, W = min(warp_max_warps(R), what the shared memory
 //   left by the matrices holds), are 8 at the main shape (the registers'
