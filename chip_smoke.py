@@ -14,7 +14,9 @@ Phases (each one that fails ends the script with a non-zero exit code):
        chains, K = 100, max_depth 4, per-chain eps in [0.2, 0.6], start at
        draws of the target): dense metric = the target covariance, the
        diagonal metric, then dcap = 2; each launch must take the warp
-       variant (one warp per chain), and no other configuration may;
+       variant (one warp per chain); the same three at K = 129, past the
+       warp variant, where each launch must take the CTA variant (one CTA
+       per chain), as must every other configuration;
      - the tree kernel with the funnel leaf: funnel(25), 4096 chains,
        max_depth 7, diagonal metric, per-chain eps, start at exact draws;
      - the tree kernel with the logreg leaf: 2048 chains, K = 128,
@@ -87,6 +89,7 @@ import numpy as np
 import torch
 
 C_MAIN, K_MAIN, MD_MAIN, N_DRAWS = 4096, 100, 4, 512
+K_CTA = 129  # the Gaussian leaf one past the warp variant, phase 3
 C_FUNNEL, K_FUNNEL, MD_FUNNEL = 4096, 25, 7
 C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
 K_WIDE = 300  # the fused logreg leaf past 256 coordinates, phase 3
@@ -222,16 +225,19 @@ def _as64(args):
 def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
     """Phase 3 for one tree-kernel configuration, on the same injected
     noise:
-    - depth, steps, term_left and term_right match on >= 99.9% of chains
+    - the launch takes the variant kernel_variant names for its shape;
+    - depth, steps, term_left, term_right and the proposal's leaf of the
+      trajectory (ops/proposal_leaf.py) match on >= 99.9% of chains
       (summation orders differ, so a U-turn or Gumbel decision can flip
-      where a dot product sits at 0);
+      where a dot product sits at 0 or scores tie);
     - on those chains ld' agrees with the plain float32 version to
       1e-4 (1 + |x|), and the -inf rows of ld' and pi' are the plain
       version's;
-    - q', grad', ld', log_sum and acceptance are no further from the
-      float64 plain transition than twice the plain float32 version's
-      distance, plus 1e-5. q' and the acceptance carry the target's float32
-      conditioning:
+    - on those of them where the float64 plain transition has the same
+      discrete statistics and leaf, q', grad', ld', log_sum and
+      acceptance are no further from it than twice the plain float32
+      version's distance, plus 1e-5. q' and the acceptance carry the
+      target's float32 conditioning:
       on correlated_gaussian(100) (covariance condition number ~5e3) the
       plain float32 transition itself lies up to ~3e-4 (1 + |q|) from the
       float64 one, and the acceptance inherits the absolute rounding of
@@ -239,6 +245,7 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
       1e-4 between the two float32 versions does not hold for either;
     - a second launch on the same inputs gives bitwise the same outputs."""
     from dynamichmc_tpu_torch.ops import tree_kernel
+    from dynamichmc_tpu_torch.ops.proposal_leaf import proposal_offsets
 
     args = kernel_inputs(model, C, md, kind, dcap, gen)
     warp0 = tree_kernel.warp_launches
@@ -247,23 +254,28 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
     warp_runs = tree_kernel.warp_launches - warp0
     ref = tree_kernel.tree_transition_plain(*args)
     ref64 = tree_kernel.tree_transition_plain(*_as64(args))
+    leaf_k, leaf_32, leaf_64 = proposal_offsets(
+        *args[:5], args[8], args[9].value_and_grad, dcap,
+        [out["prop_q"], ref["prop_q"], ref64["prop_q"]])
     torch.cuda.synchronize()
-    mismatch = {}
-    same = torch.ones(C, dtype=torch.bool, device=out["depth"].device)
+    mismatch = {"leaf": int((leaf_k != leaf_32).sum())}
+    same = leaf_k == leaf_32
     for stat in ("depth", "steps", "term_left", "term_right"):
         eq = out[stat] == ref[stat]
         mismatch[stat] = int((~eq).sum())
         same &= eq
     frac = float(same.float().mean())
-    result = {"config": f"{name} {kind} dcap={dcap}", "chains": C,
+    variant = tree_kernel.kernel_variant(args[9].kind, model.dim, md,
+                                         kind == "diag")
+    result = {"config": f"{name} K={model.dim} {kind} dcap={dcap}", "chains": C,
               "mismatched_chains": mismatch, "matching_fraction": frac,
               "divergent_chains": int((ref["prop_pi"] == -torch.inf).sum()),
-              "warp_variant_launches": warp_runs}
+              "variant": variant, "warp_variant_launches": warp_runs}
     fails = []
     want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
-    gaussian = args[9].kind == tree_kernel.GAUSSIAN
-    want(warp_runs == (2 if gaussian else 0),
-         f"{result['config']}: {warp_runs} of 2 launches took the warp variant")
+    want(warp_runs == (2 if variant == "warp" else 0),
+         f"{result['config']}: {warp_runs} of 2 launches took the warp "
+         f"variant, the shape's is {variant}")
     want(frac >= 0.999, f"{result['config']}: discrete statistics match on "
                         f"only {frac:.4%} of chains")
     result["repeat_bitwise_equal"] = all(
@@ -274,7 +286,7 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
         want(torch.equal(torch.isneginf(out[field])[same],
                          torch.isneginf(ref[field])[same]),
              f"{result['config']}: {field} -inf rows differ")
-    both = same
+    both = same & (leaf_64 == leaf_32)
     for stat in ("depth", "steps", "term_left", "term_right"):
         both = both & (ref64[stat] == ref[stat])
     fields = {
@@ -891,15 +903,21 @@ def run_phases(dev, smi, profile=()):
     gauss100 = correlated_gaussian(K_MAIN, dtype=torch.float32, device=dev,
                                    fused=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    phase3 = {"gaussian": [], "funnel": [], "logreg_tree": [],
-              "logreg_fused": [], "gaussian_leaf": [], "gaussian_leapfrog": []}
+    phase3 = {"gaussian": [], "gaussian_cta": [], "funnel": [],
+              "logreg_tree": [], "logreg_fused": [], "gaussian_leaf": [],
+              "gaussian_leapfrog": []}
 
     def phase3_result(key, r):
         phase3[key].append(r)
 
+    gauss_cta = correlated_gaussian(K_CTA, dtype=torch.float32, device=dev,
+                                    tree_kernel=True)
+    gen_cta = torch.Generator(device=dev).manual_seed(SEED + 1)
     for kind, dcap in (("dense", MD_MAIN), ("diag", MD_MAIN), ("dense", 2)):
         phase3_result("gaussian", compare_kernel_plain(
             "gaussian", gauss, C_MAIN, MD_MAIN, kind, dcap, gen))
+        phase3_result("gaussian_cta", compare_kernel_plain(
+            "gaussian", gauss_cta, C_MAIN, MD_MAIN, kind, dcap, gen_cta))
     phase3_result("funnel", compare_kernel_plain(
         "funnel", fun, C_FUNNEL, MD_FUNNEL, "diag", MD_FUNNEL, gen))
     phase3_result("logreg_tree", compare_kernel_plain(

@@ -86,16 +86,20 @@
 //   (about 29 TB/s over 132 SMs at 1.7 GHz): about 0.26 ms for the ~7.4
 //   GB a 4096-chain md-4 transition reads, the variant's floor, against
 //   0.0575 ms for the fp32 operations. On the H100 (700 W) the variant
-//   takes about 0.70 ms there, and 0.47 ms with plain running sums
-//   (scripts/torch_tree_warp_variants.py): why the compensation costs
-//   that much is not measured.
+//   takes about 0.70 ms there, and an edited copy of it with plain
+//   running sums took 0.47 ms: why the compensation costs that much is
+//   not measured.
 //   Its dot products are xor butterflies over the warp, with no barrier;
 //   its warps per CTA, W = min(warp_max_warps(R), what the shared memory
 //   left by the matrices holds), are 8 at the main shape (the registers'
 //   limit; 206,016 bytes, one CTA per SM). Each warp takes its next chain
 //   from a queue counter, so a short tree frees its warp for the next
-//   chain at once. Both variants compensate the Gaussian leaf's matvec
-//   sums (kahan_fma). Thread j of the CTA variant reads
+//   chain at once; the last warp to finish zeroes the counter, so the
+//   wrapper keeps one per stream. Both variants compensate the Gaussian
+//   leaf's matvec sums (kahan_fma). Past K = 128 the CTA variant runs
+//   the leaf: about 1.96 ms at 4096 x 129, md 4, dense (0.42 diagonal) on
+//   the H100, against 2.26 (0.29) with plain sums. Thread j of the CTA
+//   variant reads
 //   column j of each matrix, so consecutive threads read consecutive
 //   addresses: minv is symmetric, and the wrapper passes prec^T and L for
 //   that.
@@ -130,6 +134,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -904,7 +911,19 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
     int c = 0;
     if (lane == 0) c = atomicAdd(queue, 1);
     c = __shfl_sync(0xffffffffu, c, 0);
-    if (c >= C) return;
+    if (c >= C) {
+      // queue[1] counts the warps done; the last one zeroes the queue for
+      // the next launch on the stream (every other warp has taken its last
+      // index by then)
+      if (lane == 0) {
+        __threadfence();
+        if (atomicAdd(queue + 1, 1) == (int)(gridDim.x * (blockDim.x >> 5)) - 1) {
+          queue[0] = 0;
+          queue[1] = 0;
+        }
+      }
+      return;
+    }
 
     const size_t base = (size_t)c * K + lane;
     float zmq[R], zmp[R], zmg[R], zpq[R], zpp[R], zpg[R], pq[R], pg[R], sp0[R];
@@ -1173,8 +1192,10 @@ WarpKernel warp_kernel(bool diag, int R) {
   }
 }
 
-// The warp kernel of (K, S, diag) with its shared memory allowed, its
-// warps per CTA and its CTAs per SM; nullptr where the plan takes no warp.
+// The warp kernel of (K, S, diag) with its warps per CTA and its CTAs per
+// SM; nullptr where the plan takes no warp. The kernel may take all of
+// kMaxSmem: the attribute belongs to the function, which every (K, S) of
+// one R shares, so it is not set to one plan's bytes.
 WarpKernel prepared_warp_kernel(int K, int S, bool diag, int& warps, size_t& smem,
                                 int& per_sm, cudaError_t& err) {
   per_sm = 0;
@@ -1182,11 +1203,47 @@ WarpKernel prepared_warp_kernel(int K, int S, bool diag, int& warps, size_t& sme
   warps = warp_plan(K, S, diag, smem);
   if (warps < 1) return nullptr;
   WarpKernel kernel = warp_kernel(diag, (K + 31) / 32);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, smem);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   return kernel;
+}
+
+// A warp-kernel launch of (device, K, S, diag): the kernel (nullptr where
+// the plan takes no warp), its plan, CTAs per SM and the device's SMs.
+struct WarpLaunch {
+  int dev, K, S;
+  bool diag;
+  WarpKernel kernel;
+  int warps, per_sm, sms;
+  size_t smem;
+};
+
+// The WarpLaunch of (current device, K, S, diag), prepared on its first
+// launch and kept: the shared-memory attribute, the occupancy query and the
+// SM count are host calls that every launch would otherwise repeat.
+cudaError_t warp_launch_for(int K, int S, bool diag, WarpLaunch& out) {
+  static std::mutex mutex;
+  static std::vector<WarpLaunch> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  for (const WarpLaunch& w : cache) {
+    if (w.dev == dev && w.K == K && w.S == S && w.diag == diag) {
+      out = w;
+      return cudaSuccess;
+    }
+  }
+  WarpLaunch w{dev, K, S, diag, nullptr, 0, 0, 0, 0};
+  w.kernel = prepared_warp_kernel(K, S, diag, w.warps, w.smem, w.per_sm, err);
+  if (err == cudaSuccess && w.kernel != nullptr)
+    err = cudaDeviceGetAttribute(&w.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  cache.push_back(w);
+  out = w;
+  return cudaSuccess;
 }
 
 // Shared-memory bytes per CTA for max_depth S, K coordinates and, for the
@@ -1263,8 +1320,9 @@ int tree_warp_plan(int K, int max_depth, int diag, int* warps, int* smem, int* r
 // Launches one transition for C chains on `stream`. `leaf` selects the
 // model (0 Gaussian, 1 funnel, 2 logreg; see the header for m0..m2, n_obs,
 // s0, s1). The Gaussian leaf takes tree_transition_warp_kernel wherever
-// warp_plan gives it a warp, with `queue` a zeroed int32 the caller
-// allocates; every other launch takes the CTA kernel, with queue null.
+// warp_plan gives it a warp, with `queue` two zeroed int32s the caller
+// keeps for the stream (the kernel leaves them zeroed again); every other
+// launch takes the CTA kernel, with queue null.
 // Returns the cudaGetLastError() of the launch (0 on success), or
 // cudaErrorInvalidValue for a CTA that does not fit, a queue given or
 // missing against the plan, or a logreg leaf with no observation or an X
@@ -1284,27 +1342,20 @@ int tree_transition_f32(const float* q0, const float* p0, const float* g0, const
     return (int)cudaErrorInvalidValue;
   const Model model{m0, m1, m2, n_obs, tile, s0, s1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int warps = 0, per_sm = 0;
-  size_t warp_smem = 0;
-  cudaError_t err = cudaSuccess;
-  WarpKernel warp_kern = leaf == kGaussian ? prepared_warp_kernel(K, max_depth, diag != 0, warps,
-                                                                  warp_smem, per_sm, err)
-                                           : nullptr;
-  if (err != cudaSuccess) return (int)err;
-  if ((warp_kern != nullptr) != (queue != nullptr)) return (int)cudaErrorInvalidValue;
-  if (warp_kern != nullptr) {
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  WarpLaunch w{};
+  if (leaf == kGaussian) {
+    const cudaError_t err = warp_launch_for(K, max_depth, diag != 0, w);
     if (err != cudaSuccess) return (int)err;
+  }
+  if ((w.kernel != nullptr) != (queue != nullptr)) return (int)cudaErrorInvalidValue;
+  if (w.kernel != nullptr) {
     // persistent CTAs: as many as the card holds at once, no more than the
     // chains need
-    const long long need = ((long long)C + warps - 1) / warps;
-    const int grid = (int)(need < (long long)sms * per_sm ? need : (long long)sms * per_sm);
-    warp_kern<<<grid, 32 * warps, warp_smem, s>>>(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
-                                                 model, qn, gn, ldn, pin, depth, term_left,
-                                                 term_right, log_sum, steps, work, queue, C, K,
-                                                 max_depth, dcap, min_delta);
+    const long long need = ((long long)C + w.warps - 1) / w.warps;
+    const long long fit = (long long)w.sms * w.per_sm;
+    w.kernel<<<(int)(need < fit ? need : fit), 32 * w.warps, w.smem, s>>>(
+        q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth, term_left,
+        term_right, log_sum, steps, work, queue, C, K, max_depth, dcap, min_delta);
     return (int)cudaGetLastError();
   }
 #define TREE_LAUNCH(D, L)                                                                  \

@@ -297,6 +297,19 @@ def _operand_shapes(leaf: Leaf, K: int) -> tuple:
     raise ValueError(f"tree kernel: unknown leaf kind {leaf.kind}")
 
 
+_queues: dict = {}  # (device, stream) -> the warp variant's chain queue
+
+
+def _queue(device, stream: int) -> torch.Tensor:
+    """The warp variant's chain queue for launches on ``stream``: the next
+    chain a warp takes and the warps done, two int32s that each launch
+    leaves zeroed for the next one on the stream."""
+    key = (device, stream)
+    if key not in _queues:
+        _queues[key] = torch.zeros((2,), dtype=torch.int32, device=device)
+    return _queues[key]
+
+
 def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
                     leaf: Leaf, dcap: int, min_delta: float,
                     max_depth: int) -> dict:
@@ -359,10 +372,8 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
     ints = {n: torch.empty((C,), dtype=i32, device=q0.device)
             for n in ("depth", "term_left", "term_right", "steps", "work")}
     ptrs = [t.data_ptr() for t in operands] + [None] * (3 - len(operands))
-    # the warp variant's chain queue: the next chain a warp takes
-    queue = (torch.zeros((1,), dtype=i32, device=q0.device)
-             if variant == "warp" else None)
     stream = torch.cuda.current_stream(q0.device).cuda_stream
+    queue = _queue(q0.device, stream) if variant == "warp" else None
     err = lib.tree_transition_f32(
         q0.data_ptr(), p0.data_ptr(), g0.data_ptr(), ld0.data_ptr(),
         eps.data_ptr(), dirs.data_ptr(), gum.data_ptr(), expo.data_ptr(),

@@ -29,6 +29,7 @@ from dynamichmc_tpu_torch.ops import (
     logreg_leaf,
     tree_kernel,
 )
+from dynamichmc_tpu_torch.ops.proposal_leaf import proposal_offsets
 from dynamichmc_tpu_torch.tree_batched import (
     exponential_like,
     gumbel_like,
@@ -110,15 +111,18 @@ def _rel(x, y, mask):
 def _check_transition(args, C, dcap, min_match):
     """The CUDA kernel against its plain version on the same injected noise.
 
-    Discrete statistics must agree on a share >= min_match of chains (a dot
-    product that sits at 0 can flip a U-turn or Gumbel decision under
-    another summation order). On those chains ld' agrees to 1e-4 (1 + |x|).
+    Discrete statistics (depth, steps, termination, and the proposal's leaf
+    of the trajectory, ops/proposal_leaf.py) must agree on a share >=
+    min_match of chains (a dot product that sits at 0 can flip a U-turn or
+    Gumbel decision under another summation order). On those chains ld'
+    agrees to 1e-4 (1 + |x|).
     q', grad' and log_sum carry the target's float32 conditioning (the
     plain float32 transition itself lies up to ~3e-4 (1 + |q|) from the
     float64 one at K = 100, and log_sum inherits the absolute rounding of
     pi ~ 1e2), so they must be as close to the float64 plain transition as
     the float32 plain version is: within twice its error, plus 1e-5
-    (float32 rounding of values ~10 over a 15-step trajectory)."""
+    (float32 rounding of values ~10 over a 15-step trajectory), on the
+    chains where the float64 version chose the same leaf."""
     tree_kernel.reset_launches()
     out = tree_kernel.tree_transition(*args)
     torch.cuda.synchronize()
@@ -131,7 +135,10 @@ def _check_transition(args, C, dcap, min_match):
         a.double() if torch.is_tensor(a) and a.is_floating_point() else a
         for a in args
     ))
-    same = torch.ones(C, dtype=torch.bool, device=out["depth"].device)
+    leaf_k, leaf_32, leaf_64 = proposal_offsets(
+        *args[:5], minv, leaf.value_and_grad, args[10],
+        [out["prop_q"], ref["prop_q"], ref64["prop_q"]])
+    same = leaf_k == leaf_32
     for name in ("depth", "steps", "term_left", "term_right"):
         same &= (out[name] == ref[name]) & (ref64[name] == ref[name])
     assert same.float().mean() >= min_match
@@ -139,9 +146,10 @@ def _check_transition(args, C, dcap, min_match):
         assert torch.equal(torch.isneginf(out[name])[same],
                            torch.isneginf(ref[name])[same]), name
     assert float(_rel(out["prop_ld"], ref["prop_ld"], same).max()) <= 1e-4
+    both = same & (leaf_64 == leaf_32)
     for name in ("prop_q", "prop_grad", "log_sum"):
-        err_kernel = float(_rel(out[name], ref64[name], same).max())
-        err_plain = float(_rel(ref[name], ref64[name], same).max())
+        err_kernel = float(_rel(out[name], ref64[name], both).max())
+        err_plain = float(_rel(ref[name], ref64[name], both).max())
         assert err_kernel <= 2 * err_plain + 1e-5, (name, err_kernel, err_plain)
     assert int(out["depth"].max()) <= dcap
     assert torch.equal(out["work"], out["steps"])  # the chain's own leaves
@@ -194,6 +202,44 @@ def test_cuda_warp_kernel_dispatch_boundary(md, K, warp):
                       64, 4, 0.99)
     assert tree_kernel.launches == 1
     assert tree_kernel.warp_launches == int(warp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,large_md", [("dense", 4), ("diag", 5)])
+def test_cuda_warp_kernel_after_a_smaller_plan_of_its_r(kind, large_md):
+    """The launch plan of each (K, max_depth, diag) is prepared once and
+    kept, while every (K, max_depth) of one R shares the kernel function:
+    at K = 120, a plan with more shared memory, then one with less
+    (max_depth 10), then the first again must each launch and match the
+    plain version."""
+    dev = _device()
+    K = 120
+    large, small = (tree_kernel.gaussian_warp_plan(K, md, kind == "diag")
+                    for md in (large_md, 10))
+    assert 0 < small[1] < large[1]
+    model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
+    for md in (large_md, 10, large_md):
+        _check_transition(_kernel_args(model, 64, md, kind, 3, (0.2, 0.6),
+                                       seed=md), 64, 3, 0.99)
+        assert tree_kernel.warp_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md,dcap", [(4, 4), (10, 10), (4, 2)])
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("K", [129, 256])
+def test_cuda_cta_gaussian_kernel_matches_plain(K, kind, md, dcap):
+    """Past K = 128 the Gaussian leaf runs the CTA variant (one CTA per
+    chain, compensated matvec sums): against the plain version, by the
+    rule of _check_transition, on 256 chains of correlated_gaussian(K),
+    with a dense and a diagonal metric, and with dcap below max_depth."""
+    dev = _device()
+    assert tree_kernel.kernel_variant(tree_kernel.GAUSSIAN, K, md,
+                                      kind == "diag") == "cta"
+    model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
+    _check_transition(_kernel_args(model, 256, md, kind, dcap, (0.2, 0.6)),
+                      256, dcap, 0.99)
+    assert tree_kernel.warp_launches == 0
 
 
 @pytest.mark.gpu
