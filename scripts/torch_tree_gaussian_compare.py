@@ -2,7 +2,7 @@
 """Time the port's Gaussian tree kernel and run phase 3's rule over seeds,
 for the package of any checkout.
 
-    python3 scripts/torch_tree_gaussian_compare.py [--root DIR] [--seeds N]
+    python3 scripts/torch_tree_gaussian_compare.py [--root DIR]
 
 ``--root`` names the checkout whose ``dynamichmc_tpu_torch`` is imported
 (default: this one), so that one call can hold this tree's kernel beside
@@ -16,7 +16,7 @@ line per measurement.
    chains of correlated_gaussian(K), max_depth 4, for K = 100 and 129
    (either side of the warp variant's limit) with a dense and a diagonal
    metric, beside the fp32 bound of the leaves the chains executed.
-2. ``seed``: for seeds 1..N, at K = 100 with a dense metric, a diagonal
+2. ``seed``: for seeds 1..8, at K = 100 with a dense metric, a diagonal
    one and dcap 2, the kernel against the plain float32 and float64
    versions: the chains whose depth, steps or termination differ, the
    chains whose proposal lies on another leaf of the trajectory, and
@@ -44,7 +44,7 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-C, MD, N_TIME = 4096, 4, 50
+C, MD, N_TIME, SEEDS = 4096, 4, 50, 8
 chip = None  # this checkout's chip_smoke.py, loaded by main()
 
 
@@ -122,7 +122,6 @@ def flip_witness(args, c, leaves, delta, depth):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=HERE)
-    parser.add_argument("--seeds", type=int, default=8)
     opts = parser.parse_args()
     root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
@@ -150,7 +149,7 @@ def main():
                               **tag}), flush=True)
 
     totals = {"checks": 0, "fail_without_leaf": 0, "fail_with_leaf": 0}
-    for seed in range(1, opts.seeds + 1):
+    for seed in range(1, SEEDS + 1):
         gen = torch.Generator(device=dev).manual_seed(seed)
         for kind, dcap in (("dense", MD), ("diag", MD), ("dense", 2)):
             args = chip.kernel_inputs(models[100], C, MD, kind, dcap, gen)
