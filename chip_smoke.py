@@ -8,7 +8,10 @@ Phases (each one that fails ends the script with a non-zero exit code):
   2. Build: compile the three CUDA sources (csrc/tree_kernel.cu,
      csrc/logreg_leaf.cu, csrc/gaussian_leaf.cu) with nvcc, one process
      each, started together; print ptxas's registers and spills, and fail
-     if an instantiation of the tree kernel's warp variant spills.
+     if any of the 16 instantiations of the tree kernel's warp variant
+     (Gaussian and funnel leaves, diagonal and dense, R = 1-4) spills;
+     print the funnel's registers in both variants and each variant's
+     residency at the funnel path's shape.
   3. Kernel against plain, on the same injected noise / inputs:
      - the tree kernel with the Gaussian leaf at the main-path shape (4096
        chains, K = 100, max_depth 4, per-chain eps in [0.2, 0.6], start at
@@ -18,7 +21,10 @@ Phases (each one that fails ends the script with a non-zero exit code):
        warp variant, where each launch must take the CTA variant (one CTA
        per chain), as must every other configuration;
      - the tree kernel with the funnel leaf: funnel(25), 4096 chains,
-       max_depth 7, diagonal metric, per-chain eps, start at exact draws;
+       max_depth 7, per-chain eps, start at exact draws: diagonal metric,
+       dense metric, then dcap = 2, each through the warp variant; the
+       same three at K = 129, each through the CTA variant and held to
+       float64's discrete statistics (compare_kernel_plain's ``ties``);
      - the tree kernel with the logreg leaf: 2048 chains, K = 128,
        n_obs = 4000, max_depth 4, diagonal metric = the Laplace posterior
        variances, start at draws of the Laplace approximation;
@@ -51,9 +57,9 @@ Phases (each one that fails ends the script with a non-zero exit code):
        the four calls timed together.
      Each checks that its kernel launched on every transition (for the
      fused leaves: on every leaf the driver executed; for the leapfrog: on
-     every hamiltonian.leapfrog call; on the main path every transition
-     through the tree kernel's warp variant, on no other path any), that
-     the draws are finite, and the
+     every hamiltonian.leapfrog call; on the main and funnel paths every
+     transition through the tree kernel's warp variant, on no other path
+     any), that the draws are finite, and the
      path's gate: the Gaussian's moments, the funnel's v-marginal (|mean
      v| <= 0.4, sd(v) in [2.7, 3.3]), the two logreg runs' agreement
      (every posterior mean within 5 combined MCSE), N(0, I)'s moments and,
@@ -66,9 +72,10 @@ Phases (each one that fails ends the script with a non-zero exit code):
      bound: the larger of its operations over the fp32 peak and its bytes
      over the memory rate, counted from this run's inputs. The fused
      logreg leaf's line also gives its launch plan: the observation
-     slices S, registers, shared memory and CTAs per SM; the Gaussian tree
-     kernel's its variant and plan: warps per CTA, registers, shared
-     memory and CTAs per SM.
+     slices S, registers, shared memory and CTAs per SM; the Gaussian and
+     funnel tree kernels' their variant and plan: warps per CTA,
+     registers, shared memory, CTAs per SM and resident warps per SM (the
+     funnel's beside the CTA variant's plan at the same shape).
 With --profile, each path's timed run is repeated under torch.profiler
 after phase 5 and the device split is printed; --profile=main,funnel
 profiles the paths named only.
@@ -80,6 +87,7 @@ line is {"ok": true, "device": {...}}. Needs CUDA; never runs on the CPU.
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,7 +97,7 @@ import numpy as np
 import torch
 
 C_MAIN, K_MAIN, MD_MAIN, N_DRAWS = 4096, 100, 4, 512
-K_CTA = 129  # the Gaussian leaf one past the warp variant, phase 3
+K_CTA = 129  # the Gaussian and funnel leaves one past the warp variant, phase 3
 C_FUNNEL, K_FUNNEL, MD_FUNNEL = 4096, 25, 7
 C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
 K_WIDE = 300  # the fused logreg leaf past 256 coordinates, phase 3
@@ -217,15 +225,24 @@ def _rel_err(x, y):
     return torch.where(x == y, 0.0, (x - y).abs() / (1 + y.abs()))
 
 
+def _worst(err, q99=False):
+    """The largest per-chain error (the largest over a chain's coordinates),
+    or with ``q99`` their 99th percentile."""
+    per_chain = err.reshape(err.shape[0], -1).amax(-1).double()
+    return float(torch.quantile(per_chain, 0.99) if q99 else per_chain.max())
+
+
 def _as64(args):
     return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
                  else a for a in args)
 
 
-def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
+def compare_kernel_plain(name, model, C, md, kind, dcap, gen, expect,
+                         ties=False):
     """Phase 3 for one tree-kernel configuration, on the same injected
     noise:
-    - the launch takes the variant kernel_variant names for its shape;
+    - kernel_variant names ``expect`` ("warp" or "cta") for the shape, and
+      the launch takes it;
     - depth, steps, term_left, term_right and the proposal's leaf of the
       trajectory (ops/proposal_leaf.py) match on >= 99.9% of chains
       (summation orders differ, so a U-turn or Gumbel decision can flip
@@ -243,7 +260,20 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
       float64 one, and the acceptance inherits the absolute rounding of
       delta = pi - pi0 with |pi| ~ 1e2 (measured on the H100), so a fixed
       1e-4 between the two float32 versions does not hold for either;
-    - a second launch on the same inputs gives bitwise the same outputs."""
+    - a second launch on the same inputs gives bitwise the same outputs.
+    ``ties`` is for a shape whose float32 transition is chaotic, so that
+    another summation order alone moves a few chains in a thousand by far
+    more than rounding: the funnel past K = 128 at max_depth 7, where the
+    plain float32 version leaves the float64 one's discrete statistics on
+    5-11 of 4096 chains (measured on the H100), and the plain transition
+    with only sum q^2 reordered leaves the plain one's ld' by up to 8e-3
+    (1 + |x|) and fails the rule against float64 on half the
+    configurations by its maximum, never by its 99th percentile
+    (scripts/torch_funnel_order_sensitivity.py, CPU). There the kernel may
+    leave the float64 version's discrete statistics on no more chains than
+    twice the plain float32 version does, plus 0.1% (in place of the 99.9%
+    match), and each continuous rule holds the 99th percentile of the
+    per-chain errors in place of their maximum."""
     from dynamichmc_tpu_torch.ops import tree_kernel
     from dynamichmc_tpu_torch.ops.proposal_leaf import proposal_offsets
 
@@ -265,19 +295,35 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
         mismatch[stat] = int((~eq).sum())
         same &= eq
     frac = float(same.float().mean())
+    off64 = {}  # chains whose discrete statistics differ from float64's
+    for who, out_x, leaf_x in (("kernel", out, leaf_k), ("plain_f32", ref, leaf_32)):
+        differ = leaf_x != leaf_64
+        for stat in ("depth", "steps", "term_left", "term_right"):
+            differ |= out_x[stat] != ref64[stat]
+        off64[who] = int(differ.sum())
     variant = tree_kernel.kernel_variant(args[9].kind, model.dim, md,
                                          kind == "diag")
     result = {"config": f"{name} K={model.dim} {kind} dcap={dcap}", "chains": C,
               "mismatched_chains": mismatch, "matching_fraction": frac,
+              "chains_off_float64": off64,
               "divergent_chains": int((ref["prop_pi"] == -torch.inf).sum()),
               "variant": variant, "warp_variant_launches": warp_runs}
     fails = []
     want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
+    want(variant == expect, f"{result['config']}: the shape's variant is "
+                            f"{variant}, expected {expect}")
     want(warp_runs == (2 if variant == "warp" else 0),
          f"{result['config']}: {warp_runs} of 2 launches took the warp "
          f"variant, the shape's is {variant}")
-    want(frac >= 0.999, f"{result['config']}: discrete statistics match on "
-                        f"only {frac:.4%} of chains")
+    if ties:
+        allowed = 2 * off64["plain_f32"] + int(0.001 * C)
+        want(off64["kernel"] <= allowed,
+             f"{result['config']}: the kernel leaves float64's discrete "
+             f"statistics on {off64['kernel']} chains, the plain float32 "
+             f"version on {off64['plain_f32']}")
+    else:
+        want(frac >= 0.999, f"{result['config']}: discrete statistics match "
+                            f"on only {frac:.4%} of chains")
     result["repeat_bitwise_equal"] = all(
         torch.equal(x, again[k]) for k, x in out.items())
     want(result["repeat_bitwise_equal"],
@@ -298,15 +344,16 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen):
     for field, (x, y, z) in fields.items():
         xs, ys = x[same], y[same]
         worst_abs[field] = float(torch.where(xs == ys, 0.0, (xs - ys).abs()).max())
-        worst_rel[field] = float(_rel_err(xs, ys).max())
-        err_kernel = float(_rel_err(x[both], z[both]).max())
-        err_plain = float(_rel_err(y[both], z[both]).max())
+        worst_rel[field] = _worst(_rel_err(xs, ys), ties)
+        err_kernel = _worst(_rel_err(x[both], z[both]), ties)
+        err_plain = _worst(_rel_err(y[both], z[both]), ties)
         vs_f64[field] = {"kernel": err_kernel, "plain_f32": err_plain}
         want(err_kernel <= 2 * err_plain + 1e-5,
               f"{result['config']}: kernel {field} is {err_kernel:.3g} from "
               f"float64, the plain float32 version {err_plain:.3g}")
-    result.update({"max_abs_diff": worst_abs, "max_rel_diff": worst_rel,
-                   "max_rel_err_vs_f64": vs_f64})
+    stat = "q99" if ties else "max"
+    result.update({"max_abs_diff": worst_abs, f"{stat}_rel_diff": worst_rel,
+                   f"{stat}_rel_err_vs_f64": vs_f64})
     want(worst_rel["ld"] <= 1e-4,
          f"{result['config']}: ld' differs by {worst_rel['ld']:.3g} (1 + |x|)")
     want(int(out["depth"].max()) <= dcap, "depth above dcap")
@@ -804,7 +851,7 @@ def logreg_leaf_bound(args):
     return bound(ops, nbytes(metric.m_inv, *args[1:7]) + outs)
 
 
-def build_all():
+def build_all(dev):
     """Phase 2: every CUDA library, one nvcc each, in parallel."""
     from dynamichmc_tpu_torch.ops import gaussian_leaf, logreg_leaf, tree_kernel
 
@@ -820,26 +867,65 @@ def build_all():
                     "registers" in line or "Compiling" in line):
                 log(f"[2 build] {line.strip()}")
         lib.load()
-    spills = warp_variant_spills(tree_kernel.library.build_log)
-    check(len(spills) == 8, f"ptxas reported {len(spills)} warp-variant "
-                            "instantiations, expected 8")
-    spilled = {f: line for f, line in spills.items()
-               if "0 bytes spill stores, 0 bytes spill loads" not in line}
+    usage = tree_kernel_usage(tree_kernel.library.build_log)
+    warp = {k: u for k, u in usage.items() if k[0] == "warp"}
+    check(len(warp) == 16, f"ptxas reported {len(warp)} warp-variant "
+                           "instantiations, expected 16")
+    spilled = {f"{k}": u["spill"] for k, u in warp.items()
+               if "0 bytes spill stores, 0 bytes spill loads" not in u["spill"]}
     check(not spilled, f"the warp variant spills: {spilled}")
+    funnel_regs = {
+        "cta": {("diag" if k[1] else "dense"): u["registers"]
+                for k, u in usage.items()
+                if k[0] == "cta" and k[2] == tree_kernel.FUNNEL},
+        "warp": {f"{'diag' if k[1] else 'dense'} R={k[3]}": u["registers"]
+                 for k, u in warp.items() if k[2] == tree_kernel.FUNNEL}}
+    log(f"[2 build] funnel leaf registers (ptxas): {json.dumps(funnel_regs)}")
+    shape = (tree_kernel.FUNNEL, K_FUNNEL, MD_FUNNEL, True)
+    log(f"[2 build] funnel path K={K_FUNNEL} md {MD_FUNNEL} diag residency: "
+        f"{json.dumps(variant_plans(dev, *shape))}")
 
 
-def warp_variant_spills(build_log):
-    """ptxas's spill line of each instantiation of the tree kernel's warp
-    variant, by mangled name (the line after "Function properties for")."""
-    spills, current = {}, None
+def plan_dict(info):
+    return {"warps_per_cta": info.warps, "registers": info.registers,
+            "smem_bytes": info.smem, "ctas_per_sm": info.ctas_per_sm,
+            "resident_warps_per_sm": info.resident_warps,
+            "sms": info.sm_count}
+
+
+def variant_plans(dev, kind, K, md, diag):
+    """Both variants' launch plans for one shape (the warp variant's where
+    its plan takes warps), from the built library."""
+    from dynamichmc_tpu_torch.ops import tree_kernel
+
+    plans = {"cta": plan_dict(tree_kernel.cta_kernel_info(dev, kind, K, md, diag))}
+    if tree_kernel.warp_plan(kind, K, md, diag)[0]:
+        plans["warp"] = plan_dict(
+            tree_kernel.warp_kernel_info(dev, kind, K, md, diag))
+    return plans
+
+
+def tree_kernel_usage(build_log):
+    """ptxas's spill line and registers of each instantiation of the tree
+    kernel, keyed ("warp", diag, leaf, R) for the warp variant and ("cta",
+    diag, leaf) for tree_transition_kernel (the wide one is not read), from
+    the mangled names (the spill line follows "Function properties for",
+    the registers the spill line)."""
+    warp_re = re.compile(r"tree_transition_warp_kernelILb([01])ELi(\d+)ELi(\d+)EE")
+    cta_re = re.compile(r"tree_transition_kernelILb([01])ELi(\d+)EE")
+    usage, current = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line:
-            current = line.split("Function properties for", 1)[1].strip()
+            name = line.split("Function properties for", 1)[1].strip()
+            m, c = warp_re.search(name), cta_re.search(name)
+            current = (("warp", m[1] == "1", int(m[2]), int(m[3])) if m else
+                       ("cta", c[1] == "1", int(c[2])) if c else None)
         elif current and "spill stores" in line:
-            if "tree_transition_warp_kernel" in current:
-                spills[current] = line.strip()
+            usage[current] = {"spill": line.strip()}
+        elif current and current in usage and "Used" in line and "registers" in line:
+            usage[current]["registers"] = int(line.split("Used", 1)[1].split()[0])
             current = None
-    return spills
+    return usage
 
 
 def main():
@@ -853,7 +939,7 @@ def main():
     smi = nvidia_smi_line()
     log(f"[1 device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32}")
-    build_all()
+    build_all(dev)
     run_phases(dev, smi, profile=profiled_paths(sys.argv[1:]))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -904,8 +990,8 @@ def run_phases(dev, smi, profile=()):
                                    fused=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     phase3 = {"gaussian": [], "gaussian_cta": [], "funnel": [],
-              "logreg_tree": [], "logreg_fused": [], "gaussian_leaf": [],
-              "gaussian_leapfrog": []}
+              "funnel_cta": [], "logreg_tree": [], "logreg_fused": [],
+              "gaussian_leaf": [], "gaussian_leapfrog": []}
 
     def phase3_result(key, r):
         phase3[key].append(r)
@@ -915,13 +1001,22 @@ def run_phases(dev, smi, profile=()):
     gen_cta = torch.Generator(device=dev).manual_seed(SEED + 1)
     for kind, dcap in (("dense", MD_MAIN), ("diag", MD_MAIN), ("dense", 2)):
         phase3_result("gaussian", compare_kernel_plain(
-            "gaussian", gauss, C_MAIN, MD_MAIN, kind, dcap, gen))
+            "gaussian", gauss, C_MAIN, MD_MAIN, kind, dcap, gen, "warp"))
         phase3_result("gaussian_cta", compare_kernel_plain(
-            "gaussian", gauss_cta, C_MAIN, MD_MAIN, kind, dcap, gen_cta))
-    phase3_result("funnel", compare_kernel_plain(
-        "funnel", fun, C_FUNNEL, MD_FUNNEL, "diag", MD_FUNNEL, gen))
+            "gaussian", gauss_cta, C_MAIN, MD_MAIN, kind, dcap, gen_cta, "cta"))
+    fun_cta = funnel(K_CTA, dtype=torch.float32, device=dev, tree_kernel=True)
+    for i, (kind, dcap) in enumerate((("diag", MD_FUNNEL), ("dense", MD_FUNNEL),
+                                      ("diag", 2))):
+        # the path's own configuration draws from gen, the others from
+        # gen_cta, so that no later configuration's inputs depend on them
+        phase3_result("funnel", compare_kernel_plain(
+            "funnel", fun, C_FUNNEL, MD_FUNNEL, kind, dcap,
+            gen if i == 0 else gen_cta, "warp"))
+        phase3_result("funnel_cta", compare_kernel_plain(
+            "funnel", fun_cta, C_FUNNEL, MD_FUNNEL, kind, dcap, gen_cta, "cta",
+            ties=True))
     phase3_result("logreg_tree", compare_kernel_plain(
-        "logreg", lr_tree, C_LOGREG, MD_LOGREG, "diag", MD_LOGREG, gen))
+        "logreg", lr_tree, C_LOGREG, MD_LOGREG, "diag", MD_LOGREG, gen, "cta"))
     for model in (lr_fused, lr_wide):
         for kind in ("shared_diag", "chain_diag", "shared_dense"):
             phase3_result("logreg_fused",
@@ -983,8 +1078,9 @@ def run_phases(dev, smi, profile=()):
             check(counts["logreg_fused_leaf"] == counts["gaussian_fused_leaf"] == 0,
                   f"{name}: a fused leaf launched")
             launches[name] = counts["tree_transition"]
-        # the warp variant carries the Gaussian leaf, and nothing else
-        want_warp = counts["tree_transition"] if name == "main" else 0
+        # the warp variant carries the Gaussian and funnel leaves, and
+        # nothing else
+        want_warp = counts["tree_transition"] if name in ("main", "funnel") else 0
         check(counts["tree_transition_warp"] == want_warp,
               f"{name}: the warp variant launched {counts['tree_transition_warp']} "
               f"times, expected {want_warp}")
@@ -1052,18 +1148,18 @@ def run_phases(dev, smi, profile=()):
     info = logreg_leaf.kernel_info(dev, 0, K_LOGREG)
     plan = logreg_leaf.launch_plan(C_LOGREG, K_LOGREG, N_OBS, info.sm_count,
                                    info.blocks_per_sm)
-    warp = tree_kernel.warp_kernel_info(dev, K_MAIN, MD_MAIN, False)
     plans = {"logreg_fused": {
         "slices": plan.slices, "tiles_per_slice": plan.tiles_per_slice,
         "tile_rows": plan.tile, "chunks": plan.chunks,
         "registers": info.registers, "smem_bytes": info.smem,
-        "ctas_per_sm": info.blocks_per_sm, "sms": info.sm_count},
-        "gaussian": {
-        "variant": tree_kernel.kernel_variant(
-            tree_kernel.GAUSSIAN, K_MAIN, MD_MAIN, False),
-        "warps_per_cta": warp.warps, "registers": warp.registers,
-        "smem_bytes": warp.smem, "ctas_per_sm": warp.ctas_per_sm,
-        "sms": warp.sm_count}}
+        "ctas_per_sm": info.blocks_per_sm, "sms": info.sm_count}}
+    for name, shape in (("gaussian", (tree_kernel.GAUSSIAN, K_MAIN, MD_MAIN, False)),
+                        ("funnel", (tree_kernel.FUNNEL, K_FUNNEL, MD_FUNNEL, True))):
+        variant = tree_kernel.kernel_variant(*shape)
+        both = variant_plans(dev, *shape)
+        plans[name] = {"variant": variant, **both[variant]}
+        if name == "funnel":
+            plans[name]["cta_variant_plan"] = both["cta"]
     shapes = {"gaussian": [C_MAIN, K_MAIN, MD_MAIN, "dense"],
               "funnel": [C_FUNNEL, K_FUNNEL, MD_FUNNEL, "diag"],
               "logreg_tree": [C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG, "diag"],

@@ -11,10 +11,10 @@
 // combine with Exponential noise, and the runtime depth cap dcap.
 //
 // Two variants, chosen by shape alone (tree_transition_f32): the Gaussian
-// leaf runs tree_transition_warp_kernel, one warp per chain (below, before
-// warp_plan), wherever warp_plan gives it a warp (K <= 128, the staged
-// matrices leaving room for one warp's merge stack); every other launch
-// runs the CTA variant described here.
+// and funnel leaves run tree_transition_warp_kernel, one warp per chain
+// (below, before warp_plan), wherever warp_plan gives them a warp (K <= 128,
+// the staged matrices leaving room for one warp's merge stack); every other
+// launch runs the CTA variant described here.
 //
 // Design. One CTA per chain, one thread per coordinate (blockDim =
 // round_up(K, 32)). Thread j keeps coordinate j of every per-chain vector
@@ -90,7 +90,7 @@
 //   running sums took 0.47 ms: why the compensation costs that much is
 //   not measured.
 //   Its dot products are xor butterflies over the warp, with no barrier;
-//   its warps per CTA, W = min(warp_max_warps(R), what the shared memory
+//   its warps per CTA, W = min(warp_max_warps(leaf, R), what the shared memory
 //   left by the matrices holds), are 8 at the main shape (the registers'
 //   limit; 206,016 bytes, one CTA per SM). Each warp takes its next chain
 //   from a queue counter, so a short tree frees its warp for the next
@@ -103,9 +103,20 @@
 //   column j of each matrix, so consecutive threads read consecutive
 //   addresses: minv is symmetric, and the wrapper passes prec^T and L for
 //   that.
-// - Funnel: elementwise, one warp per chain at K = 25; bound by the block
-//   reductions, the merge stack's shared-memory traffic and the serial
-//   leaf loop (up to 127 leaves at max_depth 7).
+// - Funnel: elementwise, 30 K operations a leaf, so no bound of the card
+//   comes near: the time is the serial leaf loop of the longest chains (up
+//   to 127 leaves at max_depth 7) and the instructions of every leaf. The
+//   CTA variant, one 32-thread CTA per chain at K = 25, pays a block
+//   reduction (two CTA barriers and a shared-memory round trip) for every
+//   dot product, and its one-warp CTAs of 72 registers (diagonal) hold 28
+//   warps an SM. The warp variant runs the leaf with no CTA barrier:
+//   every reduction is a butterfly, v is a shuffle from lane 0, there is
+//   no matrix to stage with a diagonal metric (the dense M^-1 only
+//   otherwise), and at R = 1 its launch bounds take two 10-warp CTAs an
+//   SM at 93-95 registers (kFunnelWarps): 2,640 warps on 132 SMs for the
+//   funnel path's 4096 chains, the queue sharing out the rest. About 0.18
+//   ms a call at 4096 x 25, md 7 (diagonal) against the CTA variant's
+//   0.31 on the H100 (700 W).
 // - Logreg: 2 n_obs K FMAs per chain per leaf (1.0 M at n_obs 4000, K 128;
 //   4.2 GFLOP per fleet leaf at 2048 chains), and each CTA reads X once
 //   from L2 on every leaf: 2 MB per chain-leaf at n_obs 4000, K 128 (the
@@ -705,28 +716,62 @@ __global__ void __launch_bounds__(1024, 1) tree_transition_kernel_wide(
                               dcap, min_delta);
 }
 
-// --- The Gaussian leaf, one warp per chain ----------------------------------
+// --- The Gaussian and funnel leaves, one warp per chain ---------------------
 //
-// tree_transition_warp_kernel<DIAG, R> runs the transition of
-// tree_transition<DIAG, kGaussian> for K <= 32 R coordinates with one warp
-// per chain: lane l keeps coordinates l + 32 s, s < R, of every per-chain
-// vector in registers. Every dot product is the lane's R partials added in
-// order, then an xor butterfly over the warp, which leaves the bitwise same
-// value in every lane, so the warp's control flow stays uniform. The CTA
-// copies prec^T, L and the dense M^-1 into shared memory once and crosses
-// one barrier; after it each warp takes chains from the queue counter until
-// none is left, with no CTA barrier inside a transition. Each warp keeps its
-// merge stack (5 x S x 32 R floats) and one staging vector (32 R floats) in
-// shared memory; a lane reads and writes only its own coordinates of the
-// stack, and __syncwarp fences the staging vector.
+// tree_transition_warp_kernel<DIAG, LEAF, R> runs the transition of
+// tree_transition<DIAG, LEAF> (LEAF kGaussian or kFunnel) for K <= 32 R
+// coordinates with one warp per chain: lane l keeps coordinates l + 32 s,
+// s < R, of every per-chain vector in registers. Every dot product is the
+// lane's R partials added in order, then an xor butterfly over the warp,
+// which leaves the bitwise same value in every lane, so the warp's control
+// flow stays uniform. The CTA copies the leaf's matrices into shared memory
+// once and crosses one barrier: prec^T, L and the dense M^-1 for the
+// Gaussian, the dense M^-1 alone for the funnel, and nothing (no barrier)
+// for the funnel with a diagonal metric. After it each warp takes chains
+// from the queue counter until none is left, with no CTA barrier inside a
+// transition. Each warp keeps its merge stack (5 x S x 32 R floats) and one
+// staging vector (32 R floats) in shared memory; a lane reads and writes
+// only its own coordinates of the stack, and __syncwarp fences the staging
+// vector. The funnel leaf: Sigma q^2 by warp_sum, v = q[0] by a shuffle
+// from lane 0 (exact), then the CTA variant's formula; lane 0's s = 0 slot
+// takes d/dv. Each doubling loads its Exponential as it starts and each
+// leaf the Gumbel of the next one, so that no noise load waits on the
+// leaf's serial path. At K <= 32 every sum runs in the CTA variant's order,
+// so the funnel's two variants give bitwise the same transition there.
 
 constexpr int kWarpMaxR = 4;  // K <= 128
 
-// Warps per CTA at most, by R: what the registers allow at one CTA per SM
-// without a spill. The register file is split over the SM's 4 schedulers,
-// so W warps leave 16,384 / (32 ceil(W / 4)) registers a thread: 128 for
-// 13-16 warps (R <= 2), 168 for 9-12 (R = 3), 255 for 8 (R = 4).
-__host__ __device__ constexpr int warp_max_warps(int R) { return R <= 2 ? 16 : R == 3 ? 12 : 8; }
+// The funnel leaf at R = 1 (K <= 32, the funnel path's K = 25): warps per
+// CTA, and CTAs per SM that its launch bounds ask of ptxas. Two 10-warp
+// CTAs leave it 102 registers a thread: ptxas takes 93-95 and spills
+// nothing, and an SM holds 20 of its warps. Of the launch bounds tried
+// (scripts/torch_tree_funnel_sweep.sh), the tighter ones that hold 24-32
+// warps an SM (64-80 registers) spill (at 80, 6 bytes of the diagonal
+// instantiation) and run slower on the H100.
+constexpr int kFunnelWarps = 10, kFunnelCtas = 2;
+
+// Warps per CTA at most, by leaf and R. The Gaussian: what the registers
+// allow at one CTA per SM without a spill. The register file is split over
+// the SM's 4 schedulers, so W warps leave 16,384 / (32 ceil(W / 4))
+// registers a thread: 128 for 13-16 warps (R <= 2), 168 for 9-12 (R = 3),
+// 255 for 8 (R = 4). The funnel at R = 1: kFunnelWarps.
+__host__ __device__ constexpr int warp_max_warps(int leaf, int R) {
+  return leaf == kFunnel && R == 1 ? kFunnelWarps : R <= 2 ? 16 : R == 3 ? 12 : 8;
+}
+
+// CTAs per SM the launch bounds ask of ptxas. The Gaussian stages its
+// matrices once per CTA and takes the SM's shared memory with one CTA. The
+// funnel stages at most M^-1, so its residency at R = 1 is set by its
+// registers (kFunnelCtas); a cap written on the Gaussian's instantiations
+// would change their code.
+__host__ __device__ constexpr int warp_min_ctas(int leaf, int R) {
+  return leaf == kFunnel && R == 1 ? kFunnelCtas : 1;
+}
+
+// Matrices of K x K floats that the CTA stages for the leaf.
+__host__ __device__ constexpr int warp_matrices(int leaf, bool diag) {
+  return leaf == kGaussian ? (diag ? 2 : 3) : (diag ? 0 : 1);
+}
 
 template <int R>
 struct TauW {
@@ -835,8 +880,9 @@ __device__ __forceinline__ void stage_matrix(float* dst, const float* __restrict
 // starts 16 bytes aligned.
 __host__ __device__ __forceinline__ int padded_kk(int K) { return (K * K + 3) & ~3; }
 
-template <bool DIAG, int R>
-__global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_warp_kernel(
+template <bool DIAG, int LEAF, int R>
+__global__ void __launch_bounds__(32 * warp_max_warps(LEAF, R), warp_min_ctas(LEAF, R))
+    tree_transition_warp_kernel(
     const float* __restrict__ q0_, const float* __restrict__ p0_,
     const float* __restrict__ g0_, const float* __restrict__ ld0_,
     const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
@@ -851,16 +897,21 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int kk = padded_kk(K);
-  float* s_prec = smem;          // prec^T
-  float* s_chol = smem + kk;     // L
-  float* s_minv = s_chol + kk;   // dense M^-1
-  float* stack = smem + (DIAG ? 2 : 3) * kk + warp * (kNumStats * S + 1) * 32 * R;
+  constexpr bool kGauss = LEAF == kGaussian;
+  float* s_prec = smem;                        // Gaussian: prec^T
+  float* s_chol = smem + kk;                   // Gaussian: L
+  float* s_minv = smem + (kGauss ? 2 * kk : 0);  // dense M^-1
+  float* stack = smem + warp_matrices(LEAF, DIAG) * kk + warp * (kNumStats * S + 1) * 32 * R;
   float* xbuf = stack + kNumStats * S * 32 * R;  // [32 R], 16-byte aligned
 
-  stage_matrix(s_prec, model.m0, K * K);
-  stage_matrix(s_chol, model.m1, K * K);
-  if (!DIAG) stage_matrix(s_minv, minv, K * K);
-  __syncthreads();  // the CTA's only barrier
+  if constexpr (kGauss) {
+    stage_matrix(s_prec, model.m0, K * K);
+    stage_matrix(s_chol, model.m1, K * K);
+  }
+  if constexpr (warp_matrices(LEAF, DIAG) > 0) {
+    if (!DIAG) stage_matrix(s_minv, minv, K * K);
+    __syncthreads();  // the CTA's only barrier
+  }
 
   // lane owns coordinate lane + 32 s for every s < R - 1, and for s = R - 1
   // when own_last
@@ -869,7 +920,7 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
   float mu[R], mdiag[R];
 #pragma unroll
   for (int s = 0; s < R; ++s) {
-    mu[s] = own(s) ? model.m2[lane + 32 * s] : 0.f;
+    mu[s] = (kGauss && own(s)) ? model.m2[lane + 32 * s] : 0.f;
     mdiag[s] = (DIAG && own(s)) ? minv[lane + 32 * s] : 0.f;
   }
 
@@ -881,7 +932,6 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
     __syncwarp();
   };
   const float* const minv_mat[1] = {s_minv};
-  const float* const leaf_mats[2] = {s_chol, s_prec};
   auto psharp = [&](const float (&p)[R], float (&sp)[R]) {
     if constexpr (DIAG) {
 #pragma unroll
@@ -969,6 +1019,10 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
       const float half = 0.5f * eps_s;
       const int row0 = (1 << d) - 1;  // gum row of this doubling's leaf 0
       const int n_leaves = 1 << d;
+      // the doubling's noise, loaded ahead of its use: its Exponential now,
+      // each leaf's Gumbel while the leaf before it is computed
+      const float expo_d = expo[(size_t)d * C + c];
+      float gum_next = gum[(size_t)row0 * C + c];
 
       // --- the depth-d adjacent tree ----------------------------------
       bool building = true;
@@ -980,28 +1034,51 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
       for (int s = 0; s < R; ++s) bq[s] = bg[s] = 0.f;
       int n = 0;
       while (n < n_leaves && building) {
-        // leapfrog leaf: d = q - mu, ld = -1/2 ||L^T d||^2, grad = -prec d
-        float p_mid[R], sp[R], q_new[R], dq[R];
+        const float gum_n = gum_next;
+        if (n + 1 < n_leaves) gum_next = gum[(size_t)(row0 + n + 1) * C + c];
+        // leapfrog leaf with the model's value and gradient
+        float p_mid[R], sp[R], q_new[R], g_new[R];
 #pragma unroll
         for (int s = 0; s < R; ++s) p_mid[s] = wp[s] + half * wg[s];
         psharp(p_mid, sp);
 #pragma unroll
-        for (int s = 0; s < R; ++s) {
-          q_new[s] = wq[s] + eps_s * sp[s];
-          dq[s] = own(s) ? q_new[s] - mu[s] : 0.f;
-        }
-        stage(dq);
-        float wpd[2][R];  // L^T d and prec d in one pass over the staged d
-        staged_matvec<R, 2>(leaf_mats, xbuf, K, lane, own_last, wpd);
-        float g_new[R], ww[R];
+        for (int s = 0; s < R; ++s) q_new[s] = wq[s] + eps_s * sp[s];
+        float ld_new;
         bool bad = false;
+        if constexpr (kGauss) {
+          // d = q - mu, ld = -1/2 ||L^T d||^2, grad = -prec d
+          float dq[R];
 #pragma unroll
-        for (int s = 0; s < R; ++s) {
-          g_new[s] = -wpd[1][s];
-          ww[s] = wpd[0][s] * wpd[0][s];
-          bad |= !isfinite(g_new[s]);
+          for (int s = 0; s < R; ++s) dq[s] = own(s) ? q_new[s] - mu[s] : 0.f;
+          stage(dq);
+          const float* const leaf_mats[2] = {s_chol, s_prec};
+          float wpd[2][R];  // L^T d and prec d in one pass over the staged d
+          staged_matvec<R, 2>(leaf_mats, xbuf, K, lane, own_last, wpd);
+          float ww[R];
+#pragma unroll
+          for (int s = 0; s < R; ++s) {
+            g_new[s] = -wpd[1][s];
+            ww[s] = wpd[0][s] * wpd[0][s];
+            bad |= !isfinite(g_new[s]);
+          }
+          ld_new = -0.5f * warp_sum<R>(ww);
+        } else {
+          // v = q[0], ld = -1/2 v^2 / s0 - s1 v - 1/2 e^-v sum_{i>0} q_i^2
+          float sq[R];
+#pragma unroll
+          for (int s = 0; s < R; ++s) sq[s] = q_new[s] * q_new[s];
+          const float total = warp_sum<R>(sq);
+          const float v = __shfl_sync(0xffffffffu, q_new[0], 0);
+          const float x2 = total - v * v;
+          const float emv = expf(-v);
+          ld_new = -0.5f * (v * v) / model.s0 - model.s1 * v - 0.5f * emv * x2;
+          const float gv = -v / model.s0 - model.s1 + 0.5f * emv * x2;
+#pragma unroll
+          for (int s = 0; s < R; ++s) {
+            g_new[s] = own(s) ? ((s == 0 && lane == 0) ? gv : -emv * q_new[s]) : 0.f;
+            bad |= !isfinite(g_new[s]);
+          }
         }
-        float ld_new = -0.5f * warp_sum<R>(ww);
         const bool grad_ok = !__any_sync(0xffffffffu, bad);
         // -inf poisoning, as the plain driver's evaluate
         if (!((isfinite(ld_new) && grad_ok) || ld_new == neg_inf())) ld_new = neg_inf();
@@ -1022,7 +1099,7 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
         const bool divergent = delta < min_delta;
         a_logsum = logaddexp(a_logsum, fminf(delta, 0.f));
         a_steps += 1;
-        const float score = divergent ? neg_inf() : delta + gum[(size_t)(row0 + n) * C + c];
+        const float score = divergent ? neg_inf() : delta + gum_n;
         if (score > best_score) {
           best_score = score;
 #pragma unroll
@@ -1126,7 +1203,7 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
       }
       // biased progressive combine: accept with probability min(1, e^lp2)
       const float lp2 = a_omega - omega_old;
-      const bool accept = (lp2 >= 0.f) | (expo[(size_t)d * C + c] > -lp2);
+      const bool accept = (lp2 >= 0.f) | (expo_d > -lp2);
       if (accept) {
 #pragma unroll
         for (int s = 0; s < R; ++s) {
@@ -1158,72 +1235,89 @@ __global__ void __launch_bounds__(32 * warp_max_warps(R), 1) tree_transition_war
   }
 }
 
-// Warps per CTA of tree_transition_warp_kernel for K coordinates and
-// max_depth S (0 when it does not take the shape) and its dynamic shared
-// memory: the staged matrices (prec^T and L, and the dense M^-1 unless
-// diag) and W per-warp regions of merge stack and staging vector, W as
-// many as fit in kMaxSmem, at most warp_max_warps(R).
-int warp_plan(int K, int S, bool diag, size_t& smem) {
+// Warps per CTA of tree_transition_warp_kernel for the leaf, K coordinates
+// and max_depth S (0 when it does not take the shape) and its dynamic shared
+// memory: the leaf's staged matrices (warp_matrices) and W per-warp regions
+// of merge stack and staging vector, W as many as fit in kMaxSmem, at most
+// warp_max_warps(leaf, R). Only the Gaussian and funnel leaves have a warp
+// variant.
+int warp_plan(int leaf, int K, int S, bool diag, size_t& smem) {
   smem = 0;
   const int R = (K + 31) / 32;
-  if (K < 1 || R > kWarpMaxR || S < 1) return 0;
-  const size_t mats = sizeof(float) * (diag ? 2 : 3) * (size_t)padded_kk(K);
+  if ((leaf != kGaussian && leaf != kFunnel) || K < 1 || R > kWarpMaxR || S < 1) return 0;
+  const size_t mats = sizeof(float) * warp_matrices(leaf, diag) * (size_t)padded_kk(K);
   const size_t per_warp = sizeof(float) * (size_t)(kNumStats * S + 1) * 32 * R;
   if (mats >= kMaxSmem) return 0;
   size_t w = (kMaxSmem - mats) / per_warp;
-  if (w > (size_t)warp_max_warps(R)) w = warp_max_warps(R);
+  if (w > (size_t)warp_max_warps(leaf, R)) w = warp_max_warps(leaf, R);
   if (w >= 1) smem = mats + w * per_warp;
   return (int)w;
 }
 
-using WarpKernel = decltype(&tree_transition_warp_kernel<true, 1>);
+using WarpKernel = decltype(&tree_transition_warp_kernel<true, kGaussian, 1>);
 
-WarpKernel warp_kernel(bool diag, int R) {
+template <int LEAF>
+WarpKernel warp_kernel_of(bool diag, int R) {
   switch (R) {
     case 1:
-      return diag ? &tree_transition_warp_kernel<true, 1> : &tree_transition_warp_kernel<false, 1>;
+      return diag ? &tree_transition_warp_kernel<true, LEAF, 1>
+                  : &tree_transition_warp_kernel<false, LEAF, 1>;
     case 2:
-      return diag ? &tree_transition_warp_kernel<true, 2> : &tree_transition_warp_kernel<false, 2>;
+      return diag ? &tree_transition_warp_kernel<true, LEAF, 2>
+                  : &tree_transition_warp_kernel<false, LEAF, 2>;
     case 3:
-      return diag ? &tree_transition_warp_kernel<true, 3> : &tree_transition_warp_kernel<false, 3>;
+      return diag ? &tree_transition_warp_kernel<true, LEAF, 3>
+                  : &tree_transition_warp_kernel<false, LEAF, 3>;
     case 4:
-      return diag ? &tree_transition_warp_kernel<true, 4> : &tree_transition_warp_kernel<false, 4>;
+      return diag ? &tree_transition_warp_kernel<true, LEAF, 4>
+                  : &tree_transition_warp_kernel<false, LEAF, 4>;
     default: return nullptr;
   }
 }
 
-// The warp kernel of (K, S, diag) with its warps per CTA and its CTAs per
-// SM; nullptr where the plan takes no warp. The kernel may take all of
+WarpKernel warp_kernel(int leaf, bool diag, int R) {
+  if (leaf == kGaussian) return warp_kernel_of<kGaussian>(diag, R);
+  if (leaf == kFunnel) return warp_kernel_of<kFunnel>(diag, R);
+  return nullptr;
+}
+
+// The warp kernel of (leaf, K, S, diag) with its warps per CTA and its CTAs
+// per SM; nullptr where the plan takes no warp. The kernel may take all of
 // kMaxSmem: the attribute belongs to the function, which every (K, S) of
-// one R shares, so it is not set to one plan's bytes.
-WarpKernel prepared_warp_kernel(int K, int S, bool diag, int& warps, size_t& smem,
+// one R shares, so it is not set to one plan's bytes. The carveout asks for
+// the most shared memory, so that the occupancy query and the launch see
+// the same SM.
+WarpKernel prepared_warp_kernel(int leaf, int K, int S, bool diag, int& warps, size_t& smem,
                                 int& per_sm, cudaError_t& err) {
   per_sm = 0;
   err = cudaSuccess;
-  warps = warp_plan(K, S, diag, smem);
+  warps = warp_plan(leaf, K, S, diag, smem);
   if (warps < 1) return nullptr;
-  WarpKernel kernel = warp_kernel(diag, (K + 31) / 32);
+  WarpKernel kernel = warp_kernel(leaf, diag, (K + 31) / 32);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, smem);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   return kernel;
 }
 
-// A warp-kernel launch of (device, K, S, diag): the kernel (nullptr where
-// the plan takes no warp), its plan, CTAs per SM and the device's SMs.
+// A warp-kernel launch of (device, leaf, K, S, diag): the kernel (nullptr
+// where the plan takes no warp), its plan, CTAs per SM and the device's SMs.
 struct WarpLaunch {
-  int dev, K, S;
+  int dev, leaf, K, S;
   bool diag;
   WarpKernel kernel;
   int warps, per_sm, sms;
   size_t smem;
 };
 
-// The WarpLaunch of (current device, K, S, diag), prepared on its first
-// launch and kept: the shared-memory attribute, the occupancy query and the
-// SM count are host calls that every launch would otherwise repeat.
-cudaError_t warp_launch_for(int K, int S, bool diag, WarpLaunch& out) {
+// The WarpLaunch of (current device, leaf, K, S, diag), prepared on its
+// first launch and kept: the function attributes, the occupancy query and
+// the SM count are host calls that every launch would otherwise repeat.
+cudaError_t warp_launch_for(int leaf, int K, int S, bool diag, WarpLaunch& out) {
   static std::mutex mutex;
   static std::vector<WarpLaunch> cache;
   int dev = 0;
@@ -1231,13 +1325,13 @@ cudaError_t warp_launch_for(int K, int S, bool diag, WarpLaunch& out) {
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mutex);
   for (const WarpLaunch& w : cache) {
-    if (w.dev == dev && w.K == K && w.S == S && w.diag == diag) {
+    if (w.dev == dev && w.leaf == leaf && w.K == K && w.S == S && w.diag == diag) {
       out = w;
       return cudaSuccess;
     }
   }
-  WarpLaunch w{dev, K, S, diag, nullptr, 0, 0, 0, 0};
-  w.kernel = prepared_warp_kernel(K, S, diag, w.warps, w.smem, w.per_sm, err);
+  WarpLaunch w{dev, leaf, K, S, diag, nullptr, 0, 0, 0, 0};
+  w.kernel = prepared_warp_kernel(leaf, K, S, diag, w.warps, w.smem, w.per_sm, err);
   if (err == cudaSuccess && w.kernel != nullptr)
     err = cudaDeviceGetAttribute(&w.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -1271,42 +1365,66 @@ bool logreg_tiles(int K, int S, int& tile, bool& ring) {
   return tile >= 1;
 }
 
+using CtaKernel = decltype(&tree_transition_kernel<true, kGaussian>);
+
+// tree_transition_kernel<DIAG, LEAF> for K coordinates, or its wide form
+// past the threads a CTA of it may have, allowed smem bytes of dynamic
+// shared memory.
 template <bool DIAG, int LEAF>
-int launch(const float* q0, const float* p0, const float* g0, const float* ld0,
-           const float* eps, const uint32_t* dirs, const float* gum, const float* expo,
-           const float* minv, const Model& model, float* qn, float* gn, float* ldn, float* pin,
-           int* depth, int* term_left, int* term_right, float* log_sum, int* steps, int* work,
-           int C, int K, int max_depth, int dcap, float min_delta, cudaStream_t s) {
-  const int Kp = (K + 31) / 32 * 32;
-  const size_t smem = smem_bytes(K, max_depth, model.tile, LEAF == kLogreg);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = tree_transition_kernel<DIAG, LEAF>;
+CtaKernel cta_kernel_of(int K, size_t smem, cudaError_t& err) {
+  CtaKernel kernel = tree_transition_kernel<DIAG, LEAF>;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  if (Kp > attr.maxThreadsPerBlock) kernel = tree_transition_kernel_wide<DIAG, LEAF>;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return nullptr;
+  if ((K + 31) / 32 * 32 > attr.maxThreadsPerBlock)
+    kernel = tree_transition_kernel_wide<DIAG, LEAF>;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kernel<<<C, Kp, smem, s>>>(
-      q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth,
-      term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap, min_delta);
-  return (int)cudaGetLastError();
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return err == cudaSuccess ? kernel : nullptr;
+}
+
+// The CTA kernel of (leaf, diag) for K coordinates (the logreg leaf with
+// its tiles through the ring, or read in place), and its dynamic shared
+// memory for max_depth S and the logreg leaf's tile rows; nullptr where no
+// CTA fits, err saying why.
+CtaKernel cta_kernel(int leaf, bool diag, int K, int S, int tile, bool ring, size_t& smem,
+                     cudaError_t& err) {
+  smem = smem_bytes(K, S, tile, leaf == kLogreg && ring);
+  err = cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return nullptr;
+  switch (leaf) {
+    case kGaussian:
+      return diag ? cta_kernel_of<true, kGaussian>(K, smem, err)
+                  : cta_kernel_of<false, kGaussian>(K, smem, err);
+    case kFunnel:
+      return diag ? cta_kernel_of<true, kFunnel>(K, smem, err)
+                  : cta_kernel_of<false, kFunnel>(K, smem, err);
+    case kLogreg:
+      if (!ring)
+        return diag ? cta_kernel_of<true, kLogregInPlace>(K, smem, err)
+                    : cta_kernel_of<false, kLogregInPlace>(K, smem, err);
+      return diag ? cta_kernel_of<true, kLogreg>(K, smem, err)
+                  : cta_kernel_of<false, kLogreg>(K, smem, err);
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The warp kernel's plan for (K, max_depth, diag): warps per CTA (0 where
-// the launch takes the CTA kernel), dynamic shared memory per CTA (bytes),
-// registers per thread and CTAs per SM (0 and 0 without warps). Returns a
-// CUDA error code (0 on success).
-int tree_warp_plan(int K, int max_depth, int diag, int* warps, int* smem, int* regs,
+// The warp kernel's plan for (leaf, K, max_depth, diag): warps per CTA (0
+// where the launch takes the CTA kernel), dynamic shared memory per CTA
+// (bytes), registers per thread and CTAs per SM (0 and 0 without warps).
+// Returns a CUDA error code (0 on success).
+int tree_warp_plan(int leaf, int K, int max_depth, int diag, int* warps, int* smem, int* regs,
                    int* ctas_per_sm) {
   size_t bytes = 0;
   int per_sm = 0;
   cudaError_t err;
-  WarpKernel kernel = prepared_warp_kernel(K, max_depth, diag != 0, *warps, bytes, per_sm, err);
+  WarpKernel kernel =
+      prepared_warp_kernel(leaf, K, max_depth, diag != 0, *warps, bytes, per_sm, err);
   *smem = (int)bytes;
   *regs = 0;
   *ctas_per_sm = per_sm;
@@ -1317,12 +1435,36 @@ int tree_warp_plan(int K, int max_depth, int diag, int* warps, int* smem, int* r
   return (int)err;
 }
 
+// The CTA kernel's plan for (leaf, K, max_depth, diag): threads per CTA,
+// dynamic shared memory per CTA (bytes), registers per thread and CTAs per
+// SM. Returns a CUDA error code (0 on success; cudaErrorInvalidValue where
+// no CTA fits).
+int tree_cta_plan(int leaf, int K, int max_depth, int diag, int* threads, int* smem, int* regs,
+                  int* ctas_per_sm) {
+  int tile = 0;
+  bool ring = false;
+  *threads = (K + 31) / 32 * 32;
+  *smem = *regs = *ctas_per_sm = 0;
+  if (leaf == kLogreg && !logreg_tiles(K, max_depth, tile, ring))
+    return (int)cudaErrorInvalidValue;
+  size_t bytes = 0;
+  cudaError_t err;
+  CtaKernel kernel = cta_kernel(leaf, diag != 0, K, max_depth, tile, ring, bytes, err);
+  *smem = (int)bytes;
+  if (kernel == nullptr) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, *threads, bytes);
+}
+
 // Launches one transition for C chains on `stream`. `leaf` selects the
 // model (0 Gaussian, 1 funnel, 2 logreg; see the header for m0..m2, n_obs,
-// s0, s1). The Gaussian leaf takes tree_transition_warp_kernel wherever
-// warp_plan gives it a warp, with `queue` two zeroed int32s the caller
-// keeps for the stream (the kernel leaves them zeroed again); every other
-// launch takes the CTA kernel, with queue null.
+// s0, s1). The Gaussian and funnel leaves take tree_transition_warp_kernel
+// wherever warp_plan gives them a warp, with `queue` two zeroed int32s the
+// caller keeps for the stream (the kernel leaves them zeroed again); every
+// other launch takes the CTA kernel, with queue null.
 // Returns the cudaGetLastError() of the launch (0 on success), or
 // cudaErrorInvalidValue for a CTA that does not fit, a queue given or
 // missing against the plan, or a logreg leaf with no observation or an X
@@ -1343,8 +1485,8 @@ int tree_transition_f32(const float* q0, const float* p0, const float* g0, const
   const Model model{m0, m1, m2, n_obs, tile, s0, s1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WarpLaunch w{};
-  if (leaf == kGaussian) {
-    const cudaError_t err = warp_launch_for(K, max_depth, diag != 0, w);
+  if (leaf == kGaussian || leaf == kFunnel) {
+    const cudaError_t err = warp_launch_for(leaf, K, max_depth, diag != 0, w);
     if (err != cudaSuccess) return (int)err;
   }
   if ((w.kernel != nullptr) != (queue != nullptr)) return (int)cudaErrorInvalidValue;
@@ -1358,23 +1500,14 @@ int tree_transition_f32(const float* q0, const float* p0, const float* g0, const
         term_right, log_sum, steps, work, queue, C, K, max_depth, dcap, min_delta);
     return (int)cudaGetLastError();
   }
-#define TREE_LAUNCH(D, L)                                                                  \
-  launch<D, L>(q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth, \
-               term_left, term_right, log_sum, steps, work, C, K, max_depth, dcap,          \
-               min_delta, s)
-  switch (leaf) {
-    case kGaussian:
-      return diag ? TREE_LAUNCH(true, kGaussian) : TREE_LAUNCH(false, kGaussian);
-    case kFunnel:
-      return diag ? TREE_LAUNCH(true, kFunnel) : TREE_LAUNCH(false, kFunnel);
-    case kLogreg:
-      if (!ring)
-        return diag ? TREE_LAUNCH(true, kLogregInPlace) : TREE_LAUNCH(false, kLogregInPlace);
-      return diag ? TREE_LAUNCH(true, kLogreg) : TREE_LAUNCH(false, kLogreg);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef TREE_LAUNCH
+  size_t smem = 0;
+  cudaError_t err;
+  CtaKernel kernel = cta_kernel(leaf, diag != 0, K, max_depth, tile, ring, smem, err);
+  if (kernel == nullptr) return (int)err;
+  kernel<<<C, (K + 31) / 32 * 32, smem, s>>>(
+      q0, p0, g0, ld0, eps, dirs, gum, expo, minv, model, qn, gn, ldn, pin, depth, term_left,
+      term_right, log_sum, steps, work, C, K, max_depth, dcap, min_delta);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

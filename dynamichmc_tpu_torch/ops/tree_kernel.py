@@ -5,9 +5,9 @@ The kernel (csrc/tree_kernel.cu, CUDA C++ for sm_90a) replaces the Pallas
 kernel ``dynamichmc_tpu/ops/pallas_tree.py::_build_kernel`` with each of its
 leaves (``_gaussian_leaf``, ``funnel_leaf``, ``logreg_leaf``): one complete
 NUTS transition per chain. It comes in two variants, chosen by shape alone
-(:func:`kernel_variant`): the Gaussian leaf runs one warp per chain, with
-the model's matrices staged once per CTA in shared memory, wherever
-:func:`gaussian_warp_plan` gives it a warp (K <= 128); every other launch
+(:func:`kernel_variant`): the Gaussian and funnel leaves run one warp per
+chain, with the leaf's matrices staged once per CTA in shared memory,
+wherever :func:`warp_plan` gives them a warp (K <= 128); every other launch
 runs one CTA per chain. A :class:`Leaf` names the model: its id in the CUDA
 source, its float32 arrays and scalars, and the same value and gradient in
 torch for the plain version. The library is built with ``nvcc`` at first
@@ -64,7 +64,8 @@ library = CudaLibrary("tree_kernel", {
         + [_ci] * 4 + [_cf, _vp],
         _ci,
     ),
-    "tree_warp_plan": ([_ci] * 3 + [_vp] * 4, _ci),
+    "tree_warp_plan": ([_ci] * 4 + [_vp] * 4, _ci),
+    "tree_cta_plan": ([_ci] * 4 + [_vp] * 4, _ci),
 })
 
 launches = 0  # kernel launches made by tree_transition
@@ -111,45 +112,63 @@ def logreg_tiles(K: int, max_depth: int) -> tuple:
 WARP_MAX_R = 4  # the warp variant keeps R = ceil(K / 32) <= 4 coordinates a lane
 
 
-def warp_max_warps(r: int) -> int:
-    """Warps per CTA of the warp variant at most, by R: what the registers
-    allow at one CTA per SM without a spill (warp_max_warps in the CUDA
-    source)."""
+FUNNEL_WARPS = 10  # warps per CTA of the funnel leaf at R = 1 (kFunnelWarps)
+
+
+def warp_max_warps(kind: int, r: int) -> int:
+    """Warps per CTA of the warp variant at most, by leaf and R
+    (warp_max_warps in the CUDA source): for the Gaussian, what the
+    registers allow at one CTA per SM without a spill; for the funnel at
+    R = 1, FUNNEL_WARPS, with several CTAs per SM."""
+    if kind == FUNNEL and r == 1:
+        return FUNNEL_WARPS
     return 16 if r <= 2 else 12 if r == 3 else 8
 
 
-def gaussian_warp_plan(K: int, max_depth: int, diag: bool) -> tuple:
-    """``(warps_per_cta, smem_bytes)`` of the Gaussian leaf's warp variant
-    (warp_plan in the CUDA source): the staged matrices (prec^T and L, and
-    the dense M^-1 unless ``diag``, each K^2 floats rounded up to 4) and one
-    region per warp of merge stack and staging vector, (5 max_depth + 1) x
-    32 R floats, with as many warps as MAX_SMEM_BYTES holds, at most
-    :func:`warp_max_warps`. ``(0, 0)`` where it takes no warp: past
-    K = 128, or where the matrices leave no room for one warp's region."""
+def _warp_matrices(kind: int, diag: bool) -> int:
+    """K x K matrices the warp variant stages per CTA for the leaf
+    (warp_matrices in the CUDA source): prec^T and L, and the dense M^-1
+    unless ``diag``, for the Gaussian; the dense M^-1 alone for the
+    funnel."""
+    if kind == GAUSSIAN:
+        return 2 if diag else 3
+    return 0 if diag else 1
+
+
+def warp_plan(kind: int, K: int, max_depth: int, diag: bool) -> tuple:
+    """``(warps_per_cta, smem_bytes)`` of the warp variant for leaf ``kind``
+    (warp_plan in the CUDA source): the leaf's staged matrices (each K^2
+    floats rounded up to 4) and one region per warp of merge stack and
+    staging vector, (5 max_depth + 1) x 32 R floats, with as many warps as
+    MAX_SMEM_BYTES holds, at most :func:`warp_max_warps`. ``(0, 0)`` where
+    it takes no warp: the logreg leaf, past K = 128, or where the matrices
+    leave no room for one warp's region."""
     r = -(-K // 32)
-    if not (K >= 1 and r <= WARP_MAX_R and max_depth >= 1):
+    if not (kind in (GAUSSIAN, FUNNEL) and K >= 1 and r <= WARP_MAX_R
+            and max_depth >= 1):
         return 0, 0
-    mats = 4 * (2 if diag else 3) * ((K * K + 3) // 4 * 4)
+    mats = 4 * _warp_matrices(kind, diag) * ((K * K + 3) // 4 * 4)
     per_warp = 4 * (5 * max_depth + 1) * 32 * r
-    warps = min(warp_max_warps(r), max(0, MAX_SMEM_BYTES - mats) // per_warp)
+    warps = min(warp_max_warps(kind, r),
+                max(0, MAX_SMEM_BYTES - mats) // per_warp)
     return (warps, mats + warps * per_warp) if warps else (0, 0)
 
 
 def kernel_variant(kind: int, K: int, max_depth: int, diag: bool):
     """The kernel a launch of leaf ``kind`` takes, by shape only: "warp"
-    for the Gaussian leaf wherever :func:`gaussian_warp_plan` gives it a
-    warp, else "cta" where one chain's CTA fits (:func:`kernel_fits`), else
-    None (the launch raises, the hook declines)."""
-    if kind == GAUSSIAN and gaussian_warp_plan(K, max_depth, diag)[0]:
+    wherever :func:`warp_plan` gives the leaf a warp (Gaussian and funnel,
+    K <= 128), else "cta" where one chain's CTA fits (:func:`kernel_fits`),
+    else None (the launch raises, the hook declines)."""
+    if warp_plan(kind, K, max_depth, diag)[0]:
         return "warp"
     return "cta" if kernel_fits(K, max_depth, kind == LOGREG) else None
 
 
 @dataclasses.dataclass(frozen=True)
-class WarpKernelInfo:
-    """What the CUDA source and runtime say of the warp variant of one
-    (K, max_depth, diag): warps per CTA and dynamic shared memory (the
-    source's plan), registers per thread, CTAs per SM
+class KernelInfo:
+    """What the CUDA source and runtime say of one variant's launch for
+    (leaf, K, max_depth, diag): warps per CTA, dynamic shared memory per
+    CTA (the source's plan), registers per thread, CTAs per SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the card's SMs."""
 
     warps: int
@@ -158,20 +177,41 @@ class WarpKernelInfo:
     ctas_per_sm: int
     sm_count: int
 
+    @property
+    def resident_warps(self) -> int:
+        """Warps an SM holds at once."""
+        return self.warps * self.ctas_per_sm
 
-def warp_kernel_info(device, K: int, max_depth: int, diag: bool) -> WarpKernelInfo:
-    """:class:`WarpKernelInfo` of (K, max_depth, diag) on ``device``, from
-    the built library (all zero where the plan takes no warp)."""
+
+def _plan(fn: str, device, kind: int, K: int, max_depth: int, diag: bool):
     lib = library.load()
     out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device):
-        err = lib.tree_warp_plan(K, max_depth, int(diag),
-                                 *(ctypes.byref(x) for x in out))
+        err = getattr(lib, fn)(kind, K, max_depth, int(diag),
+                               *(ctypes.byref(x) for x in out))
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     if err != 0:
-        raise RuntimeError(f"tree kernel: no warp plan for K = {K}, "
-                           f"max_depth {max_depth} (CUDA error {err})")
-    return WarpKernelInfo(*(x.value for x in out), sms)
+        raise RuntimeError(f"tree kernel: {fn} failed for leaf {kind}, "
+                           f"K = {K}, max_depth {max_depth} (CUDA error {err})")
+    return [x.value for x in out], sms
+
+
+def warp_kernel_info(device, kind: int, K: int, max_depth: int,
+                     diag: bool) -> KernelInfo:
+    """:class:`KernelInfo` of the warp variant's launch on ``device``, from
+    the built library (all zero where the plan takes no warp)."""
+    values, sms = _plan("tree_warp_plan", device, kind, K, max_depth, diag)
+    return KernelInfo(*values, sms)
+
+
+def cta_kernel_info(device, kind: int, K: int, max_depth: int,
+                    diag: bool) -> KernelInfo:
+    """:class:`KernelInfo` of the CTA variant's launch on ``device`` (one
+    CTA of round_up(K, 32) threads per chain), from the built library;
+    raises where no CTA fits."""
+    (threads, smem, regs, per_sm), sms = _plan(
+        "tree_cta_plan", device, kind, K, max_depth, diag)
+    return KernelInfo(threads // 32, smem, regs, per_sm, sms)
 
 
 def kernel_fits(K: int, max_depth: int, logreg: bool = False) -> bool:

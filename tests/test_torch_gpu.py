@@ -48,14 +48,17 @@ def _device():
 
 def _start(model, C, gen, scale):
     """A start near the target: exact draws (Gaussian, funnel with v in
-    [-2, 2]) or N(0, scale^2) (logreg); M^-1 = the covariance or I."""
+    [-2, 2]: v clamped, then x | v drawn at the clamped v) or N(0,
+    scale^2) (logreg); M^-1 = the covariance or I."""
     K = model.dim
     if model.sample_fn is None:
         q = scale * torch.randn((C, K), generator=gen, device=gen.device)
         return q, torch.eye(K, device=gen.device)
     q = model.sample(gen, C)
-    if model.cov_fn is None:  # funnel
-        q[:, 0].clamp_(-2.0, 2.0)
+    if model.cov_fn is None:  # funnel: x_i = e^(v / 2) z_i
+        v = q[:, 0].clamp(-2.0, 2.0)
+        q[:, 1:] *= torch.exp(0.5 * (v - q[:, 0]))[:, None]
+        q[:, 0] = v
         return q, torch.diag(torch.tensor([7.5] + [3.0] * (K - 1),
                                           device=gen.device))
     return q, model.cov_fn().to(F32)
@@ -108,7 +111,16 @@ def _rel(x, y, mask):
     return torch.where(x == y, 0.0, (x - y).abs() / (1 + y.abs()))
 
 
-def _check_transition(args, C, dcap, min_match):
+def _worst(err, quantile=None):
+    """The largest per-chain error (the largest over a chain's
+    coordinates), or the given quantile of them."""
+    per_chain = err.reshape(err.shape[0], -1).amax(-1)
+    if quantile is None:
+        return float(per_chain.max())
+    return float(torch.quantile(per_chain, quantile))
+
+
+def _check_transition(args, C, dcap, min_match, quantile=None):
     """The CUDA kernel against its plain version on the same injected noise.
 
     Discrete statistics (depth, steps, termination, and the proposal's leaf
@@ -122,7 +134,9 @@ def _check_transition(args, C, dcap, min_match):
     pi ~ 1e2), so they must be as close to the float64 plain transition as
     the float32 plain version is: within twice its error, plus 1e-5
     (float32 rounding of values ~10 over a 15-step trajectory), on the
-    chains where the float64 version chose the same leaf."""
+    chains where the float64 version chose the same leaf. With
+    ``quantile``, each of these continuous rules holds that quantile of
+    the per-chain errors in place of their maximum (FUNNEL_QUANTILE)."""
     tree_kernel.reset_launches()
     out = tree_kernel.tree_transition(*args)
     torch.cuda.synchronize()
@@ -145,11 +159,11 @@ def _check_transition(args, C, dcap, min_match):
     for name in ("prop_ld", "prop_pi"):  # the -inf rows match exactly
         assert torch.equal(torch.isneginf(out[name])[same],
                            torch.isneginf(ref[name])[same]), name
-    assert float(_rel(out["prop_ld"], ref["prop_ld"], same).max()) <= 1e-4
+    assert _worst(_rel(out["prop_ld"], ref["prop_ld"], same), quantile) <= 1e-4
     both = same & (leaf_64 == leaf_32)
     for name in ("prop_q", "prop_grad", "log_sum"):
-        err_kernel = float(_rel(out[name], ref64[name], both).max())
-        err_plain = float(_rel(ref[name], ref64[name], both).max())
+        err_kernel = _worst(_rel(out[name], ref64[name], both), quantile)
+        err_plain = _worst(_rel(ref[name], ref64[name], both), quantile)
         assert err_kernel <= 2 * err_plain + 1e-5, (name, err_kernel, err_plain)
     assert int(out["depth"].max()) <= dcap
     assert torch.equal(out["work"], out["steps"])  # the chain's own leaves
@@ -195,8 +209,9 @@ def test_cuda_warp_kernel_dispatch_boundary(md, K, warp):
     max_depth 4; at max_depth 14 the matrices leave one warp's merge stack
     room up to K = 127 only. Each against the plain version."""
     dev = _device()
-    assert (tree_kernel.gaussian_warp_plan(K, md, False)[0] > 0) == warp
-    assert (tree_kernel.gaussian_warp_plan(K - 1, md, False)[0] > 0)
+    G = tree_kernel.GAUSSIAN
+    assert (tree_kernel.warp_plan(G, K, md, False)[0] > 0) == warp
+    assert (tree_kernel.warp_plan(G, K - 1, md, False)[0] > 0)
     model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
     _check_transition(_kernel_args(model, 64, md, "dense", 4, (0.2, 0.6)),
                       64, 4, 0.99)
@@ -214,7 +229,8 @@ def test_cuda_warp_kernel_after_a_smaller_plan_of_its_r(kind, large_md):
     plain version."""
     dev = _device()
     K = 120
-    large, small = (tree_kernel.gaussian_warp_plan(K, md, kind == "diag")
+    large, small = (tree_kernel.warp_plan(tree_kernel.GAUSSIAN, K, md,
+                                          kind == "diag")
                     for md in (large_md, 10))
     assert 0 < small[1] < large[1]
     model = correlated_gaussian(K, dtype=F32, device=dev, tree_kernel=True)
@@ -260,22 +276,36 @@ def test_cuda_warp_kernel_is_deterministic(kind):
         assert torch.equal(x, b[name]), name
 
 
-@pytest.mark.gpu
-def test_cuda_warp_plan_matches_the_source():
-    """The CUDA source's warp plan (warps per CTA, shared memory) is
-    gaussian_warp_plan's over a table of shapes, and where it takes warps
+def _check_warp_plan_against_the_source(kind):
+    """The CUDA source's warp plan of leaf ``kind`` (warps per CTA, shared
+    memory) is warp_plan's over a table of shapes, and where it takes warps
     the runtime fits at least one CTA per SM."""
     dev = _device()
-    for K in (1, 5, 31, 32, 33, 64, 96, 97, 100, 127, 128, 129, 200):
+    for K in (1, 2, 5, 25, 31, 32, 33, 64, 96, 97, 100, 127, 128, 129, 200):
         for md in (1, 4, 7, 10, 13, 14):
             for diag in (False, True):
-                info = tree_kernel.warp_kernel_info(dev, K, md, diag)
-                plan = tree_kernel.gaussian_warp_plan(K, md, diag)
+                info = tree_kernel.warp_kernel_info(dev, kind, K, md, diag)
+                plan = tree_kernel.warp_plan(kind, K, md, diag)
                 assert (info.warps, info.smem) == plan, (K, md, diag)
                 if plan[0]:
                     assert info.ctas_per_sm >= 1 and info.registers > 0
                 else:
                     assert info.ctas_per_sm == info.registers == 0
+
+
+@pytest.mark.gpu
+def test_cuda_warp_plan_matches_the_source():
+    _check_warp_plan_against_the_source(tree_kernel.GAUSSIAN)
+
+
+@pytest.mark.gpu
+def test_cuda_funnel_warp_plan_matches_the_source():
+    """The funnel's warp plan from the source against warp_plan; at the
+    funnel path's shape (K = 25, md 7, diagonal) the runtime holds the two
+    CTAs an SM that the launch bounds ask for."""
+    _check_warp_plan_against_the_source(tree_kernel.FUNNEL)
+    info = tree_kernel.warp_kernel_info(_device(), tree_kernel.FUNNEL, 25, 7, True)
+    assert info.warps == tree_kernel.FUNNEL_WARPS and info.ctas_per_sm >= 2
 
 
 @pytest.mark.gpu
@@ -287,6 +317,94 @@ def test_cuda_funnel_kernel_matches_plain(K, C, md, kind, dcap):
     model = funnel(K, dtype=F32, device=dev, tree_kernel=True)
     _check_transition(_kernel_args(model, C, md, kind, dcap, (0.02, 0.12)),
                       C, dcap, 0.99)
+
+
+# Chains of each funnel case below, as in the funnel path's case above: a
+# U-turn at a near tie flips under another summation order on a few chains
+# in a thousand of the funnel's deep trees (the plain float32 version
+# against the float64 one as often), so 1% of 256 chains is no margin.
+FUNNEL_CHAINS = 4096
+# The funnel's float32 transition is chaotic at md >= 7 and K near 100 or
+# more: the plain version with sum q^2 alone reordered leaves the plain
+# one's ld' by up to 8e-3 (1 + |x|) on a few chains in 4096 and fails the
+# rule against float64 by its maximum on half the configurations, never by
+# its 99th percentile (scripts/torch_funnel_order_sensitivity.py). The
+# funnel cases below hold that percentile.
+FUNNEL_QUANTILE = 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md,dcap", [(4, 4), (7, 7), (10, 10), (4, 2)])
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("K", [2, 5, 25, 31, 32, 33, 100, 128])
+def test_cuda_warp_funnel_kernel_matches_plain(K, kind, md, dcap):
+    """The funnel leaf's warp variant (one warp per chain, R = 1-4
+    coordinates a lane, v by a shuffle from lane 0) against the plain
+    version, by the rule of _check_transition, on 4096 chains of
+    funnel(K)."""
+    dev = _device()
+    assert tree_kernel.kernel_variant(tree_kernel.FUNNEL, K, md,
+                                      kind == "diag") == "warp"
+    model = funnel(K, dtype=F32, device=dev, tree_kernel=True)
+    _check_transition(_kernel_args(model, FUNNEL_CHAINS, md, kind, dcap,
+                                   (0.02, 0.12)), FUNNEL_CHAINS, dcap, 0.99,
+                      FUNNEL_QUANTILE)
+    assert tree_kernel.warp_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md,dcap", [(4, 4), (7, 7), (4, 2)])
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("K", [129, 256])
+def test_cuda_cta_funnel_kernel_matches_plain(K, kind, md, dcap):
+    """Past K = 128 the funnel leaf runs the CTA variant (one CTA per
+    chain, block reductions): against the plain version, by the rule of
+    _check_transition, on 4096 chains of funnel(K)."""
+    dev = _device()
+    assert tree_kernel.kernel_variant(tree_kernel.FUNNEL, K, md,
+                                      kind == "diag") == "cta"
+    model = funnel(K, dtype=F32, device=dev, tree_kernel=True)
+    _check_transition(_kernel_args(model, FUNNEL_CHAINS, md, kind, dcap,
+                                   (0.02, 0.12)), FUNNEL_CHAINS, dcap, 0.99,
+                      FUNNEL_QUANTILE)
+    assert tree_kernel.warp_launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md", [4, 7])
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("K,warp", [(128, True), (129, False)])
+def test_cuda_warp_funnel_dispatch_boundary(K, warp, kind, md):
+    """The funnel at K = 128 (R = 4) runs the warp variant and at K = 129
+    the CTA variant, read from both counters; each against the plain
+    version."""
+    dev = _device()
+    diag = kind == "diag"
+    assert (tree_kernel.warp_plan(tree_kernel.FUNNEL, K, md, diag)[0] > 0) == warp
+    model = funnel(K, dtype=F32, device=dev, tree_kernel=True)
+    _check_transition(_kernel_args(model, FUNNEL_CHAINS, md, kind, md,
+                                   (0.02, 0.12)), FUNNEL_CHAINS, md, 0.99,
+                      FUNNEL_QUANTILE)
+    assert tree_kernel.launches == 1
+    assert tree_kernel.warp_launches == int(warp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+def test_cuda_warp_funnel_is_deterministic(kind):
+    """Two launches at the funnel path's shape (4096 x 25, max_depth 7)
+    give bitwise the same outputs: a chain's result does not depend on
+    which warp took it from the queue."""
+    dev = _device()
+    model = funnel(25, dtype=F32, device=dev, tree_kernel=True)
+    args = _kernel_args(model, 4096, 7, kind, 7, (0.02, 0.12))
+    tree_kernel.reset_launches()
+    a = tree_kernel.tree_transition(*args)
+    b = tree_kernel.tree_transition(*args)
+    torch.cuda.synchronize()
+    assert tree_kernel.warp_launches == 2
+    for name, x in a.items():
+        assert torch.equal(x, b[name]), name
 
 
 @pytest.mark.gpu

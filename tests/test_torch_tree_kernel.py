@@ -340,7 +340,7 @@ def _logreg_data(n_obs, K):
     return x, y
 
 
-# --- the Gaussian leaf's warp variant: plan and dispatch --------------------
+# --- the warp variant (Gaussian and funnel leaves): plan and dispatch -------
 
 @pytest.mark.parametrize("K,md,diag,warps,smem", [
     # the main path: dense, K = 100, max_depth 4: 120,000 bytes of prec^T,
@@ -374,14 +374,68 @@ def test_gaussian_warp_plan(K, md, diag, warps, smem):
     and one region per warp of (5 max_depth + 1) x 32 R floats, as many as
     227 KB holds, at most 16 warps (12 at R = 3, 8 at R = 4: what the
     registers allow without a spill)."""
-    assert tree_kernel.gaussian_warp_plan(K, md, diag) == (warps, smem)
+    assert tree_kernel.warp_plan(tree_kernel.GAUSSIAN, K, md, diag) == (warps, smem)
+    _assert_warps_fill_the_plan(tree_kernel.GAUSSIAN, K, md, warps, smem)
+
+
+def _assert_warps_fill_the_plan(kind, K, md, warps, smem):
     assert smem <= tree_kernel.MAX_SMEM_BYTES
     if warps:
         r = -(-K // 32)
         per_warp = 4 * (5 * md + 1) * 32 * r
         # one more warp would not fit, or the register cap is reached
         assert (smem + per_warp > tree_kernel.MAX_SMEM_BYTES
-                or warps == tree_kernel.warp_max_warps(r))
+                or warps == tree_kernel.warp_max_warps(kind, r))
+
+
+@pytest.mark.parametrize("K,md,diag,warps,smem", [
+    # no matrix with a diagonal metric: at R = 1 10 warps (FUNNEL_WARPS) of
+    # (5 md + 1) x 32 floats (2,688 bytes at md 4, 4,608 at md 7, 6,528 at
+    # md 10)
+    (2, 4, True, 10, 10 * 2688),
+    (2, 7, True, 10, 10 * 4608),
+    (2, 10, True, 10, 10 * 6528),
+    # the funnel path: K = 25, md 7, diagonal
+    (25, 7, True, 10, 10 * 4608),
+    (25, 4, True, 10, 10 * 2688),
+    (25, 10, True, 10, 10 * 6528),
+    # dense: M^-1 alone is staged, K^2 floats rounded up to 4 (625 -> 628)
+    (2, 7, False, 10, 4 * 4 + 10 * 4608),
+    (25, 7, False, 10, 4 * 628 + 10 * 4608),
+    (25, 10, False, 10, 4 * 628 + 10 * 6528),
+    # R = 2: 16 warps of (5 md + 1) x 64 floats
+    (33, 4, True, 16, 16 * 5376),
+    (33, 7, True, 16, 16 * 9216),
+    (33, 7, False, 16, 4 * 1092 + 16 * 9216),
+    # md 10 at R = 2: 13,056 bytes a warp, 17 would fit, the registers cap
+    # 16
+    (33, 10, True, 16, 16 * 13056),
+    # R = 4: 8 warps, or as many as the shared memory holds
+    (100, 4, True, 8, 8 * 10752),
+    (100, 7, True, 8, 8 * 18432),
+    (100, 10, True, 8, 8 * 26112),
+    (100, 10, False, 7, 40000 + 7 * 26112),
+    (128, 4, False, 8, 65536 + 8 * 10752),
+    (128, 7, True, 8, 8 * 18432),
+    (128, 10, True, 8, 8 * 26112),
+    (128, 10, False, 6, 65536 + 6 * 26112),
+    # R = 5: past the warp variant
+    (129, 7, True, 0, 0),
+])
+def test_funnel_warp_plan(K, md, diag, warps, smem):
+    """The funnel leaf's warp plan: no staged matrix with a diagonal metric
+    and M^-1 alone with a dense one, then one region per warp of merge
+    stack and staging vector, as many as 227 KB holds, at most
+    warp_max_warps(FUNNEL, R): 10 at R = 1 (two CTAs an SM), the
+    Gaussian's 16 / 12 / 8 at R = 2 / 3 / 4."""
+    assert tree_kernel.warp_plan(tree_kernel.FUNNEL, K, md, diag) == (warps, smem)
+    _assert_warps_fill_the_plan(tree_kernel.FUNNEL, K, md, warps, smem)
+
+
+def test_logreg_leaf_has_no_warp_plan():
+    for K in (1, 25, 128):
+        for diag in (False, True):
+            assert tree_kernel.warp_plan(tree_kernel.LOGREG, K, 4, diag) == (0, 0)
 
 
 @pytest.mark.parametrize("kind,K,md,diag,variant", [
@@ -394,9 +448,13 @@ def test_gaussian_warp_plan(K, md, diag, warps, smem):
     (tree_kernel.GAUSSIAN, 1024, 10, True, "cta"),
     (tree_kernel.GAUSSIAN, 1025, 4, True, None),
     (tree_kernel.GAUSSIAN, 1024, 30, False, None),
-    # the funnel and logreg leaves keep one CTA per chain at every K
-    (tree_kernel.FUNNEL, 25, 7, True, "cta"),
-    (tree_kernel.FUNNEL, 5, 4, False, "cta"),
+    # the funnel leaf takes the warp variant up to K = 128, the logreg leaf
+    # keeps one CTA per chain at every K
+    (tree_kernel.FUNNEL, 25, 7, True, "warp"),
+    (tree_kernel.FUNNEL, 5, 4, False, "warp"),
+    (tree_kernel.FUNNEL, 128, 14, False, "warp"),
+    (tree_kernel.FUNNEL, 129, 7, True, "cta"),
+    (tree_kernel.FUNNEL, 1024, 10, True, "cta"),
     (tree_kernel.LOGREG, 128, 4, True, "cta"),
     (tree_kernel.LOGREG, 1024, 12, True, None),
 ])
