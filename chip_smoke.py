@@ -11,7 +11,12 @@ Phases (each one that fails ends the script with a non-zero exit code):
      if any of the 16 instantiations of the tree kernel's warp variant
      (Gaussian and funnel leaves, diagonal and dense, R = 1-4) spills;
      print the funnel's registers in both variants and each variant's
-     residency at the funnel path's shape.
+     residency at the funnel path's shape; print ptxas's usage and spill
+     line of the fused Gaussian kernel's 16 instantiations (K2 and K4,
+     shared and per-chain M^-1, R = 1 and 8, exact and compensated column
+     sums) and fail if one spills; print
+     its launch plan at each phase-5 shape (chains per CTA, R, warps, CTAs,
+     staging, registers and CTAs per SM).
   3. Kernel against plain, on the same injected noise / inputs:
      - the tree kernel with the Gaussian leaf at the main-path shape (4096
        chains, K = 100, max_depth 4, per-chain eps in [0.2, 0.6], start at
@@ -35,7 +40,10 @@ Phases (each one that fails ends the script with a non-zero exit code):
        and a per-chain diagonal metric, and at 4096 x 100 on
        correlated_gaussian(100) with a per-chain one; the fused Gaussian
        leapfrog (K4) at 4096 x 25 with a per-chain diagonal metric and at
-       1 x 25 with the chain's own; two rows of each poisoned.
+       1 x 25 with the chain's own; K2 at 4096 chains on both sides of its
+       staging limit (the last K whose plan stages prec and L, with a
+       per-chain diagonal, and the next, shared) and both at 4097 x 25 (the
+       last tile holds one chain); two rows of each poisoned.
   4. Paths, through run_chains as a user calls it, each with the pooled
      metric, per-chain dual-averaging eps, warmup depth clamp 2 with a
      25-step tail, 900 warmup transitions and 512 draws:
@@ -71,6 +79,10 @@ Phases (each one that fails ends the script with a non-zero exit code):
      Gaussian kernels' device time (torch.profiler), and each kernel's
      bound: the larger of its operations over the fp32 peak and its bytes
      over the memory rate, counted from this run's inputs. The fused
+     Gaussian kernels also at the hooks as the paths call them (K2's on
+     4096 x 25 with a per-chain diagonal, K4's on one chain's (K,) tensors
+     and a 0-d eps) and K2 at 1 x 1, the binding's own floor, each line
+     with its launch plan. The fused
      logreg leaf's line also gives its launch plan: the observation
      slices S, registers, shared memory and CTAs per SM; the Gaussian and
      funnel tree kernels' their variant and plan: warps per CTA,
@@ -884,6 +896,17 @@ def build_all(dev):
     shape = (tree_kernel.FUNNEL, K_FUNNEL, MD_FUNNEL, True)
     log(f"[2 build] funnel path K={K_FUNNEL} md {MD_FUNNEL} diag residency: "
         f"{json.dumps(variant_plans(dev, *shape))}")
+    gauss = gaussian_usage(gaussian_leaf.library.build_log)
+    for key, u in sorted(gauss.items()):
+        log(f"[2 build] gaussian_leaf_kernel {key}: {u['usage']}; {u['spill']}")
+    check(len(gauss) == 16, f"ptxas reported {len(gauss)} fused Gaussian "
+                            "instantiations, expected 16")
+    spilled = {k: u["spill"] for k, u in gauss.items()
+               if "0 bytes spill stores, 0 bytes spill loads" not in u["spill"]}
+    check(not spilled, f"the fused Gaussian kernel spills: {spilled}")
+    for name, shape in GAUSS_SHAPES.items():
+        log(f"[2 build] {name} plan at {list(shape[1:])}: "
+            f"{json.dumps(gaussian_plan(dev, *shape))}")
 
 
 def plan_dict(info):
@@ -905,27 +928,75 @@ def variant_plans(dev, kind, K, md, diag):
     return plans
 
 
-def tree_kernel_usage(build_log):
-    """ptxas's spill line and registers of each instantiation of the tree
-    kernel, keyed ("warp", diag, leaf, R) for the warp variant and ("cta",
-    diag, leaf) for tree_transition_kernel (the wide one is not read), from
-    the mangled names (the spill line follows "Function properties for",
-    the registers the spill line)."""
-    warp_re = re.compile(r"tree_transition_warp_kernelILb([01])ELi(\d+)ELi(\d+)EE")
-    cta_re = re.compile(r"tree_transition_kernelILb([01])ELi(\d+)EE")
+def ptxas_usage(build_log, key_of):
+    """ptxas's spill line, registers and usage line ("Used N registers,
+    ...") of each kernel whose mangled name ``key_of`` maps to a key (None:
+    not read); the spill line follows "Function properties for", the usage
+    line the spill line."""
     usage, current = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line:
-            name = line.split("Function properties for", 1)[1].strip()
-            m, c = warp_re.search(name), cta_re.search(name)
-            current = (("warp", m[1] == "1", int(m[2]), int(m[3])) if m else
-                       ("cta", c[1] == "1", int(c[2])) if c else None)
+            current = key_of(line.split("Function properties for", 1)[1].strip())
         elif current and "spill stores" in line:
             usage[current] = {"spill": line.strip()}
         elif current and current in usage and "Used" in line and "registers" in line:
             usage[current]["registers"] = int(line.split("Used", 1)[1].split()[0])
+            usage[current]["usage"] = line.split(":", 1)[1].strip()
             current = None
     return usage
+
+
+def tree_kernel_usage(build_log):
+    """ptxas_usage of each instantiation of the tree kernel, keyed ("warp",
+    diag, leaf, R) for the warp variant and ("cta", diag, leaf) for
+    tree_transition_kernel (the wide one is not read)."""
+    warp_re = re.compile(r"tree_transition_warp_kernelILb([01])ELi(\d+)ELi(\d+)EE")
+    cta_re = re.compile(r"tree_transition_kernelILb([01])ELi(\d+)EE")
+
+    def key_of(name):
+        m, c = warp_re.search(name), cta_re.search(name)
+        return (("warp", m[1] == "1", int(m[2]), int(m[3])) if m else
+                ("cta", c[1] == "1", int(c[2])) if c else None)
+
+    return ptxas_usage(build_log, key_of)
+
+
+def gaussian_usage(build_log):
+    """ptxas_usage of each instantiation of the fused Gaussian kernel, keyed
+    "K2" (writes pi') or "K4", then "chain" or "shared" M^-1, R and "exact"
+    or "compensated" (the column sums past K = 256)."""
+    name_re = re.compile(
+        r"gaussian_leaf_kernelILb([01])ELb([01])ELi(\d+)ELb([01])EE")
+
+    def key_of(name):
+        m = name_re.search(name)
+        return (f"{'K2' if m[1] == '1' else 'K4'} "
+                f"{'chain' if m[2] == '1' else 'shared'} R={m[3]} "
+                f"{'compensated' if m[4] == '1' else 'exact'}") if m else None
+
+    return ptxas_usage(build_log, key_of)
+
+
+# The fused Gaussian kernels' phase-5 shapes: name -> (K2?, C, K, metric form)
+GAUSS_SHAPES = {
+    "gaussian_leaf": (True, C_GAUSS, K_GAUSS, "chain_diag"),
+    "gaussian_leaf_k100": (True, C_GAUSS, K_MAIN, "chain_diag"),
+    "gaussian_leapfrog": (False, 1, K_GAUSS, "shared_diag"),
+    "gaussian_leapfrog_4096": (False, C_GAUSS, K_GAUSS, "chain_diag"),
+    "gaussian_leaf_floor": (True, 1, 1, "shared_diag"),
+}
+
+
+def gaussian_plan(dev, write_pi, C, K, kind):
+    """The fused Gaussian kernel's launch plan of (C, K) and what the CUDA
+    runtime says of the kernel it runs."""
+    from dynamichmc_tpu_torch.ops import gaussian_leaf
+
+    plan = gaussian_leaf.launch_plan(C, K, gaussian_leaf.sm_count(dev.index))
+    info = gaussian_leaf.kernel_info(dev, write_pi, kind == "chain_diag", K, plan)
+    return {"chains_per_cta": plan.chains, "R": plan.R, "warps": plan.warps,
+            "ctas": plan.ctas, "staged": plan.staged, "smem_bytes": info.smem,
+            "registers": info.registers, "ctas_per_sm": info.ctas_per_sm}
 
 
 def main():
@@ -968,6 +1039,7 @@ def profiled_paths(argv):
 def run_phases(dev, smi, profile=()):
     """Phases 3-5 on ``dev``; prints the kernels line. ``profile``: the
     paths to repeat under torch.profiler."""
+    from dynamichmc_tpu_torch.hamiltonian import EvaluatedPoint, PhasePoint
     from dynamichmc_tpu_torch.models import (
         correlated_gaussian, funnel, logistic_regression, mvnormal)
     from dynamichmc_tpu_torch.ops import (
@@ -1021,10 +1093,23 @@ def run_phases(dev, smi, profile=()):
         for kind in ("shared_diag", "chain_diag", "shared_dense"):
             phase3_result("logreg_fused",
                           compare_fused_leaf(model, C_LOGREG, kind, gen))
+    # the last K whose plan stages prec and L at 4096 chains, and the next
+    k_st = gaussian_leaf.staging_limit(C_GAUSS, gaussian_leaf.sm_count(dev.index))
+    staged_last, staged_next = (
+        correlated_gaussian(k, dtype=torch.float32, device=dev, fused=True)
+        for k in (k_st, k_st + 1))
+    tile = gaussian_leaf.launch_plan(
+        C_GAUSS, K_GAUSS, gaussian_leaf.sm_count(dev.index)).chains
     leaf_inputs = {  # name -> (model, C, metric form)
         "gaussian_leaf 4096x25 shared_diag": (normal, C_GAUSS, "shared_diag"),
         "gaussian_leaf 4096x25 chain_diag": (normal, C_GAUSS, "chain_diag"),
         "gaussian_leaf 4096x100 chain_diag": (gauss100, C_GAUSS, "chain_diag"),
+        f"gaussian_leaf 4096x{k_st} chain_diag (staged)": (
+            staged_last, C_GAUSS, "chain_diag"),
+        f"gaussian_leaf 4096x{k_st + 1} shared_diag (not staged)": (
+            staged_next, C_GAUSS, "shared_diag"),
+        f"gaussian_leaf {C_GAUSS + 1}x25 chain_diag (last tile of {tile} "
+        "holds one chain)": (normal, C_GAUSS + 1, "chain_diag"),
     }
     for name, (model, C, kind) in leaf_inputs.items():
         phase3_result("gaussian_leaf", compare_gaussian(
@@ -1033,7 +1118,9 @@ def run_phases(dev, smi, profile=()):
     for name, C, kind in (("gaussian_leapfrog 4096x25 chain_diag", C_GAUSS,
                            "chain_diag"),
                           ("gaussian_leapfrog 1x25 shared_diag", 1,
-                           "shared_diag")):
+                           "shared_diag"),
+                          (f"gaussian_leapfrog {C_GAUSS + 1}x25 shared_diag",
+                           C_GAUSS + 1, "shared_diag")):
         phase3_result("gaussian_leapfrog", compare_gaussian(
             name, gaussian_leapfrog.gaussian_leapfrog,
             gaussian_leapfrog.gaussian_leapfrog_plain,
@@ -1165,26 +1252,30 @@ def run_phases(dev, smi, profile=()):
               "logreg_tree": [C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG, "diag"],
               "logreg_fused": [C_LOGREG, K_LOGREG, N_OBS, "shared_diag"]}
     device_times = {}
-    fused = {  # name -> (kernel, plain, CUDA kernel, model, C, metric form)
-        "gaussian_leaf": (gaussian_leaf.gaussian_leaf,
-                          gaussian_leaf.gaussian_leaf_plain, True, normal,
-                          C_GAUSS, "chain_diag"),
-        "gaussian_leaf_k100": (gaussian_leaf.gaussian_leaf,
-                               gaussian_leaf.gaussian_leaf_plain, True,
-                               gauss100, C_GAUSS, "chain_diag"),
-        "gaussian_leapfrog": (gaussian_leapfrog.gaussian_leapfrog,
-                              gaussian_leapfrog.gaussian_leapfrog_plain, False,
-                              normal, 1, "shared_diag"),
-        "gaussian_leapfrog_4096": (gaussian_leapfrog.gaussian_leapfrog,
-                                   gaussian_leapfrog.gaussian_leapfrog_plain,
-                                   False, normal, C_GAUSS, "chain_diag"),
-    }
-    for name, (kernel, plain, write_pi, model, C, kind) in fused.items():
-        args = gaussian_leaf_inputs(model, C, kind, gen)
-        times[name] = (time_call(kernel, args, 200), time_call(plain, args, 200))
-        device_times[name] = device_ms(kernel, args, 50, "gaussian_leaf_kernel")
-        bounds[name] = gaussian_bound(args, write_pi)
-        shapes[name] = [C, model.dim, kind]
+    models = {K_GAUSS: normal, K_MAIN: gauss100,
+              1: mvnormal(np.zeros(1), np.eye(1), dtype=torch.float32,
+                          device=dev, fused=True)}
+    for name, (write_pi, C, K, kind) in GAUSS_SHAPES.items():
+        kernel, plain = (
+            (gaussian_leaf.gaussian_leaf, gaussian_leaf.gaussian_leaf_plain)
+            if write_pi else (gaussian_leapfrog.gaussian_leapfrog,
+                              gaussian_leapfrog.gaussian_leapfrog_plain))
+        args = gaussian_leaf_inputs(models[K], C, kind, gen)
+        calls = {name: (kernel, args)}
+        if name == "gaussian_leaf":  # K2's hook as gauss_fused calls it
+            calls["gaussian_leaf_hook"] = (normal.fused_leaf_batched_fn, args[:5])
+        elif name == "gaussian_leapfrog":  # K4's as per_chain calls it
+            z = PhasePoint(Q=EvaluatedPoint(
+                q=args[1][0], logdensity=torch.zeros((), device=dev),
+                grad=args[3][0]), p=args[2][0])
+            calls["gaussian_leapfrog_hook"] = (normal.fused_leapfrog_fn,
+                                               (args[0], z, args[4][0]))
+        for key, (fn, fn_args) in calls.items():
+            times[key] = (time_call(fn, fn_args, 200), time_call(plain, args, 200))
+            device_times[key] = device_ms(fn, fn_args, 50, "gaussian_leaf_kernel")
+            bounds[key] = gaussian_bound(args, write_pi)
+            shapes[key] = [C, K, kind]
+            plans[key] = gaussian_plan(dev, write_pi, C, K, kind)
     for name, (kernel_ms, plain_ms) in times.items():
         line = {"kernel": name, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

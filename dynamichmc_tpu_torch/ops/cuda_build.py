@@ -93,6 +93,9 @@ class CudaLibrary:
         return so
 
     def load(self) -> ctypes.CDLL:
+        lib = self._lib  # once loaded, no lock: launches call this every time
+        if lib is not None:
+            return lib
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(self.build())

@@ -7,14 +7,17 @@ built by ``ops.gaussian_leaf.library``, which also holds the launch and
 replaces the Pallas kernel
 ``dynamichmc_tpu/ops/pallas_leapfrog.py::_kernel``: one velocity-Verlet step
 of a Gaussian target (both half-kicks, the drift, the gradient and the
-whitened log density; no pi) for a batch of chains, one warp per chain.
+whitened log density; no pi) for a batch of chains, a block of chains per
+CTA (one warp for a single chain).
 
 Dispatch differs from the JAX package in one place. There the per-chain
 drivers are vmapped, and ``custom_vmap`` hands the whole chain batch to the
 kernel while an unbatched call takes the pure ``reference``
 (pallas_leapfrog.py:166-180). The port's per-chain drivers run one chain
-eagerly, so the hook launches the kernel on the chain's own (1, K) batch.
-Both compute the same function.
+eagerly, so the hook launches the kernel on the chain's own (K,) tensors,
+a batch of one, through the model's bound operands: no reshape, and the
+outputs are allocated in the chain's shapes. Both compute the same
+function.
 
 :func:`gaussian_leapfrog` is the wrapper. A tensor on the CPU goes to
 :func:`gaussian_leapfrog_plain`. A CUDA tensor launches the kernel or
@@ -65,13 +68,30 @@ def make_gaussian_fused_leapfrog(prec, mu, prec_chol_t):
 
     ``z`` holds one chain ((K,) tensors, eps a scalar) or a batch ((C, K),
     eps (C,) or a scalar). float32 chains with a diagonal metric ((K,) or
-    (C, K)) take :func:`gaussian_leapfrog` (the kernel on a GPU); a dense
-    metric or another dtype takes the plain step in the chains' dtype with
-    the model's full-precision arrays."""
+    (C, K)) take the kernel on a GPU (through the model's bound operands)
+    and :func:`gaussian_leapfrog` elsewhere; a dense metric or another
+    dtype takes the plain step in the chains' dtype with the model's
+    full-precision arrays."""
     ops = GaussianOperands(prec, mu, prec_chol_t)
+    kernels = ops.kernels
 
     def fused_leapfrog(metric, z: PhasePoint, eps_signed) -> PhasePoint:
+        global launches
         q = z.Q.q
+        if q.is_cuda and q.dim() <= 2 and ops.takes_kernel(metric, q.dtype):
+            lead = q.shape[:-1]
+            eps = eps_signed
+            if not (torch.is_tensor(eps) and eps.dtype == q.dtype
+                    and eps.shape == lead
+                    and eps.get_device() == q.get_device()):
+                eps = torch.as_tensor(eps, dtype=q.dtype, device=q.device)
+                eps = eps.reshape(-1).expand(lead.numel()).reshape(lead)
+            qn, pn, gn, ld = kernels.launch(
+                1, metric.m_inv.contiguous(), q.contiguous(), z.p.contiguous(),
+                z.Q.grad.contiguous(), eps.contiguous())
+            launches += 1
+            return PhasePoint(Q=EvaluatedPoint(q=qn, logdensity=ld, grad=gn),
+                              p=pn)
         shape, K = q.shape, q.shape[-1]
         q2, p2, g2 = (t.reshape(-1, K) for t in (q, z.p, z.Q.grad))
         eps = torch.as_tensor(eps_signed, dtype=q.dtype, device=q.device)

@@ -301,3 +301,86 @@ def test_hooks_send_k_past_max_k_to_the_kernel_which_refuses_it(monkeypatch):
     z = PhasePoint(Q=evaluate(tmodel, q), p=p)
     with pytest.raises(RuntimeError, match="kernel wrapper"):
         tmodel.fused_leapfrog_fn(diag, z, eps)
+
+
+@pytest.mark.parametrize("K", [25, 100])
+def test_launch_plan_is_one_wave_at_4096_chains(K):
+    """At 4096 chains on the H100's 132 SMs the grid is one wave: 128 CTAs
+    of 32 chains (four warps of R = 8), one per SM, prec and L staged."""
+    plan = gaussian_leaf.launch_plan(4096, K, 132)
+    assert (plan.R, plan.warps, plan.chains, plan.ctas) == (8, 4, 32, 128)
+    assert plan.ctas <= 132 and plan.ctas * plan.chains >= 4096
+    assert plan.staged
+
+
+@pytest.mark.parametrize("C", [2, 7, 33, 4096, 4097, 100_000])
+def test_launch_plan_takes_every_k(C):
+    """Every K from 1 to MAX_K has a plan at C chains whose CTA fits the
+    227 KB of shared memory (its d, p_mid and, when staged, prec and L);
+    MAX_K + 1 and C = 0 are refused. Staging stops at one K and never
+    resumes."""
+    last_staged = gaussian_leaf.staging_limit(C)
+    for K in range(1, gaussian_leaf.MAX_K + 1):
+        plan = gaussian_leaf.launch_plan(C, K)
+        assert plan.chains == plan.R * plan.warps and plan.R == 8
+        assert 1 <= plan.warps <= gaussian_leaf.MAX_WARPS
+        assert plan.ctas == -(-C // plan.chains)
+        assert plan.smem == gaussian_leaf.smem_bytes(K, plan.chains,
+                                                     plan.staged)
+        assert plan.smem <= 227 * 1024
+        assert plan.staged == (K <= last_staged)
+    with pytest.raises(ValueError, match="outside"):
+        gaussian_leaf.launch_plan(C, gaussian_leaf.MAX_K + 1)
+    with pytest.raises(ValueError, match="outside"):
+        gaussian_leaf.launch_plan(0, 25)
+
+
+def test_launch_plan_of_one_chain_is_one_warp():
+    """A single chain (K4 on the per_chain path) takes one CTA of one warp
+    (R = 1), so that no warp is launched that only returns; prec and L are
+    staged while they fit beside its d and p_mid, and past that only those
+    two vectors take shared memory."""
+    last_staged = gaussian_leaf.staging_limit(1)
+    assert last_staged > 100
+    for K in range(1, gaussian_leaf.MAX_K + 1):
+        plan = gaussian_leaf.launch_plan(1, K)
+        assert (plan.R, plan.warps, plan.chains, plan.ctas) == (1, 1, 1, 1)
+        assert plan.staged == (K <= last_staged)
+        assert plan.smem == gaussian_leaf.smem_bytes(K, 1, plan.staged)
+        assert plan.staged or plan.smem == 8 * K
+
+
+def test_launch_plan_at_the_staging_limit():
+    """At 4096 chains the last staged K fills the shared memory with prec,
+    L and the tile's vectors, and the next K reads prec and L through
+    L1/L2 with the same grid."""
+    K = gaussian_leaf.staging_limit(4096)
+    staged, unstaged = (gaussian_leaf.launch_plan(4096, k) for k in (K, K + 1))
+    assert staged.staged and not unstaged.staged
+    assert staged.smem <= 227 * 1024
+    assert gaussian_leaf.smem_bytes(K + 1, 32, True) > 227 * 1024
+    assert (staged.chains, staged.ctas) == (unstaged.chains, unstaged.ctas)
+
+
+def test_bound_launch_checks_one_chain_operands():
+    """A model's bound operands take one chain's (K,) tensors with a 0-d eps
+    (K4's hook on the per_chain path) and refuse, before they build or load
+    anything, another eps shape, another rank, another K and a wrong
+    m_inv."""
+    _jmodel, tmodel = _pair(5, torch.float32)
+    kernels = tmodel.fused_leapfrog_fn.operands.kernels
+    q, p, g, minv, eps = map(torch.as_tensor,
+                             _inputs(1, 5, "shared_diag", torch.float32))
+    one = (q[0], p[0], g[0])
+    cases = [
+        ("eps_signed has shape", minv, one, eps),
+        ("q has shape", minv, (q[None],) * 3, eps),
+        (r"\(5, 5\) on cpu, expected \(4, 4\)", minv[:4],
+         (q[0, :4], p[0, :4], g[0, :4]), eps[0]),
+        ("m_inv has shape", minv[:3], one, eps[0]),
+    ]
+    for match, m, (qq, pp, gg), e in cases:
+        for entry in (0, 1):
+            with pytest.raises(ValueError, match=match):
+                kernels.launch(entry, m, qq, pp, gg, e)
+    assert not gaussian_leaf.library.loaded

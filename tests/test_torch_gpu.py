@@ -708,6 +708,112 @@ def test_cuda_gaussian_hooks_at_and_past_max_k(extra):
         "leapfrog", (z2.Q.q, z2.p, z2.Q.grad, z2.Q.logdensity), args) == 0
 
 
+def _same_bits(x, y):
+    """Bitwise equal float32 tensors, NaN included."""
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+# The block-of-chains plan's edges: one chain (R = 1, nothing staged); 7
+# chains (one warp's tile of 8 short of full); 31 and 33 chains (tiles of 8:
+# the last CTA holds 7 chains, then 1); 4095, 4096 and 4097 chains (tiles
+# of 32 chains in four warps: the last holds 31, 32, then 1)
+EDGE_CHAINS = (1, 7, 31, 33, 4095, 4096, 4097)
+
+
+def _edge_dim(K):
+    """K of test_cuda_gaussian_kernels_at_the_tile_edges: an int, or the
+    last K whose 4096-chain plan stages prec and L, the next, or MAX_K."""
+    if K == "staged":
+        return gaussian_leaf.staging_limit(4096)
+    if K == "unstaged":
+        return gaussian_leaf.staging_limit(4096) + 1
+    return gaussian_leaf.MAX_K if K == "max" else K
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 25, 31, 32, 33, 100, "staged", "unstaged",
+                               "max"])
+def test_cuda_gaussian_kernels_at_the_tile_edges(K):
+    """K2 and K4 against their plain versions under the rule of
+    test_cuda_gaussian_kernels_match_plain (the -inf rows are the plain
+    version's, both poisoned rows among them; every other output no
+    further from float64 than twice the plain float32 version, plus 1e-5)
+    at every C of EDGE_CHAINS, with a shared and a per-chain M^-1 and eps
+    of both signs, at K across the 32-lane column blocks, on both sides of
+    the 4096-chain plan's staging limit and at MAX_K. Each launch counts
+    once, and two launches on the same inputs give the same bits (NaN
+    rows included)."""
+    K = _edge_dim(K)
+    model = _gaussian_model(K)
+    for which in ("leaf", "leapfrog"):
+        module = gaussian_leaf if which == "leaf" else gaussian_leapfrog
+        kernel = getattr(module, f"gaussian_{which}")
+        for C in EDGE_CHAINS:
+            for minv_kind in ("shared_diag", "chain_diag"):
+                args = _gaussian_inputs(model, C, minv_kind, seed=C + K)
+                for sign in (1.0, -1.0):
+                    signed = args[:4] + (sign * args[4],) + args[5:]
+                    module.reset_launches()
+                    out = kernel(*signed)
+                    again = kernel(*signed)
+                    torch.cuda.synchronize()
+                    assert module.launches == 2
+                    assert all(map(_same_bits, out, again))
+                    bad = _check_gaussian_against_plain(which, out, signed)
+                    assert bad == (2 if C > 2 else 0), (which, C, minv_kind, sign)
+
+
+@pytest.mark.gpu
+def test_cuda_gaussian_plan_matches_the_source():
+    """The CUDA runtime's view of the kernel each plan runs: its shared
+    memory is the plan's (the CUDA source and ops/gaussian_leaf.py agree),
+    one CTA fits on an SM, and at 4096 chains the grid is one wave."""
+    dev = _device()
+    sms = gaussian_leaf.sm_count(dev.index)
+    for C in EDGE_CHAINS:
+        for K in (1, 25, 100, gaussian_leaf.staging_limit(4096),
+                  gaussian_leaf.staging_limit(4096) + 1, gaussian_leaf.MAX_K):
+            plan = gaussian_leaf.launch_plan(C, K, sms)
+            for write_pi in (True, False):
+                for chain_minv in (True, False):
+                    info = gaussian_leaf.kernel_info(dev, write_pi, chain_minv,
+                                                     K, plan)
+                    assert info.smem == plan.smem, (C, K, plan)
+                    assert info.ctas_per_sm >= 1 and info.registers > 0
+            if C == 4096 and K <= 100:
+                assert plan.ctas <= sms * info.ctas_per_sm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("minv_kind", ["shared_diag", "chain_diag"])
+def test_cuda_gaussian_hooks_match_the_wrappers_bitwise(minv_kind):
+    """The hooks launch through the model's bound operands: K2's hook on a
+    (C, K) batch and K4's on one chain's (K,) tensors with a 0-d eps give
+    the wrappers' bits on the same inputs, in the shapes they were given."""
+    from dynamichmc_tpu_torch.hamiltonian import EvaluatedPoint, PhasePoint
+
+    model = _gaussian_model(25)
+    args = _gaussian_inputs(model, 33, minv_kind)
+    metric, q, p, g, eps = args[:5]
+    gaussian_leaf.reset_launches()
+    out = model.fused_leaf_batched_fn(metric, q, p, g, eps)
+    assert gaussian_leaf.launches == 1
+    assert all(map(_same_bits, out, gaussian_leaf.gaussian_leaf(*args)))
+    one = diagonal_metric(metric.m_inv if minv_kind == "shared_diag"
+                          else metric.m_inv[2].contiguous())
+    row = (one, q[2:3], p[2:3], g[2:3], eps[2:3], *args[5:])
+    ref = gaussian_leapfrog.gaussian_leapfrog(*row)
+    z = PhasePoint(Q=EvaluatedPoint(q=q[2], logdensity=ref[3][0], grad=g[2]),
+                   p=p[2])
+    gaussian_leapfrog.reset_launches()
+    for e in (eps[2], float(eps[2])):  # a 0-d tensor, then a Python float
+        z2 = model.fused_leapfrog_fn(one, z, e)
+        assert z2.Q.q.shape == (25,) and z2.Q.logdensity.shape == ()
+        assert all(map(_same_bits, (z2.Q.q, z2.p, z2.Q.grad, z2.Q.logdensity),
+                       (ref[0][0], ref[1][0], ref[2][0], ref[3][0])))
+    assert gaussian_leapfrog.launches == 2
+
+
 @pytest.mark.gpu
 def test_cuda_gaussian_wrappers_refuse_what_the_kernel_does_not_take():
     args = _gaussian_inputs(_gaussian_model(25), 8, "chain_diag", poison=False)
