@@ -73,7 +73,12 @@ Phases (each one that fails ends the script with a non-zero exit code):
      (every posterior mean within 5 combined MCSE), N(0, I)'s moments and,
      per chain, split R-hat and the acceptance rate. Each reports wall
      time, min and mean bulk ESS/s (device ESS, float64), gradient
-     evaluations/s and divergences.
+     evaluations/s and divergences, and the diagnostics of its draws
+     (reported, not gated): EBFMI (min and mean over the chains), the
+     termination and depth counts and, on the five run_chains paths,
+     straggler_waste with what its ``work`` counts there (each chain's
+     own leaves on the tree-kernel paths, the batch's lockstep slots on
+     the plain driver's).
   5. Kernel time: each kernel and its plain version per call at its
      phase-3 shape (CUDA events around the wrapper calls), the fused
      Gaussian kernels' device time (torch.profiler), and each kernel's
@@ -88,6 +93,16 @@ Phases (each one that fails ends the script with a non-zero exit code):
      funnel tree kernels' their variant and plan: warps per CTA,
      registers, shared memory, CTAs per SM and resident warps per SM (the
      funnel's beside the CTA variant's plan at the same shape).
+  6. Protocol: two gates of the reference's statistical protocol
+     (tests/torch_correctness_utils.py: split R-hat, ESS per draw,
+     Anderson-Darling against exact draws, EBFMI, at the JAX gates'
+     thresholds) at float32 through the kernels: the bench configuration
+     at bench dimension (correlated_gaussian(64), 128 chains x 256 draws,
+     pooled dense metric, md 4, clamp 2/25) with K1's warp variant on
+     every transition, and the mildly scaled diagonal N((1, 2, 3),
+     diag(1, 2, 3)) (5 chains x 2000 draws, default warmup) with K2 on
+     every leaf of the plain driver. Each prints R-hat max, tau min, EBFMI
+     min, the smallest AD p and the wall; a failed gate fails the run.
 With --profile, each path's timed run is repeated under torch.profiler
 after phase 5 and the device split is printed; --profile=main,funnel
 profiles the paths named only.
@@ -542,47 +557,21 @@ def expected_transitions(n_draws):
     return sum(s.N for s in stages[1:]) + n_draws
 
 
-def reset_counts():
-    from dynamichmc_tpu_torch import hamiltonian, tree_batched
-    from dynamichmc_tpu_torch.ops import (
-        gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel)
-
-    tree_kernel.reset_launches()
-    logreg_leaf.reset_launches()
-    gaussian_leaf.reset_launches()
-    gaussian_leapfrog.reset_launches()
-    tree_batched.reset_fused_leaf_calls()
-    hamiltonian.reset_leapfrog_calls()
-
-
-def read_counts():
-    from dynamichmc_tpu_torch import hamiltonian, tree_batched
-    from dynamichmc_tpu_torch.ops import (
-        gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel)
-
-    return {"tree_transition": tree_kernel.launches,
-            "tree_transition_warp": tree_kernel.warp_launches,
-            "logreg_fused_leaf": logreg_leaf.launches,
-            "gaussian_fused_leaf": gaussian_leaf.launches,
-            "gaussian_leapfrog": gaussian_leapfrog.launches,
-            "driver_fused_leaves": tree_batched.fused_leaf_calls,
-            "leapfrog_calls": hamiltonian.leapfrog_calls}
-
-
 def run_path(model, C, n_draws, seed, config, dev):
     """Phase 4: one run_chains call through the entry point a user calls;
     returns the result, its wall seconds and the launch counts of the
     run (every count set to 0 just before it)."""
     from dynamichmc_tpu_torch import run_chains
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = run_chains(gen, model, C, n_draws, **config)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return res, seconds, read_counts()
+    return res, seconds, launch_counts()
 
 
 def run_per_chain(model, dev):
@@ -590,15 +579,16 @@ def run_per_chain(model, dev):
     on its own generator; returns the results, the seconds of the four
     calls together and their launch counts (set to 0 just before them)."""
     from dynamichmc_tpu_torch import mcmc_with_warmup
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     results = [mcmc_with_warmup(torch.Generator(device=dev).manual_seed(s),
                                 model, N_PER_CHAIN) for s in PER_CHAIN_SEEDS]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return results, seconds, read_counts()
+    return results, seconds, launch_counts()
 
 
 def check_standard_normal(flat, mean_tol, var_range):
@@ -730,6 +720,67 @@ def check_logreg_agreement(a, b):
     return float(z.max())
 
 
+def path_diagnostics(stats, waste_reads=None):
+    """Phase 4's diagnostics of a path's draws (reported, not gated):
+    EBFMI over the chains, the termination and depth counts, and, where
+    the driver records ``work``, straggler_waste and what it reads."""
+    from dynamichmc_tpu_torch.diagnostics import (
+        EBFMI, count_depths, count_terminations, straggler_waste)
+
+    ebfmi = EBFMI(stats).double()
+    out = {"ebfmi_min": float(ebfmi.min()), "ebfmi_mean": float(ebfmi.mean()),
+           "terminations": count_terminations(stats),
+           "depth_counts": count_depths(stats).tolist()}
+    if waste_reads is not None:
+        out["straggler_waste"] = straggler_waste(stats)
+        out["straggler_waste_reads"] = waste_reads
+    return out
+
+
+def stacked_statistics(results):
+    """The per-chain results' (N,) tree statistics as one (C, N) set."""
+    import dataclasses
+
+    from dynamichmc_tpu_torch.nuts import TreeStatistics
+
+    first = results[0].tree_statistics
+    return TreeStatistics(**{
+        f.name: (None if getattr(first, f.name) is None else torch.stack(
+            [getattr(r.tree_statistics, f.name) for r in results]))
+        for f in dataclasses.fields(TreeStatistics)})
+
+
+def run_protocol(dev, smi):
+    """Phase 6: two gates of the reference's statistical protocol
+    (tests/torch_correctness_utils.py: R-hat, ESS per draw, Anderson-
+    Darling against exact draws, EBFMI, at the JAX gates' thresholds) on
+    the card at float32 through the kernels: the bench configuration at
+    bench dimension through K1's warp variant (correlated_gaussian(64),
+    128 chains x 256 draws, pooled dense metric, md 4, clamp 2/25; every
+    transition a warp-variant launch), and the mildly scaled diagonal
+    N((1, 2, 3), diag(1, 2, 3)) through K2 (5 chains x 2000 draws, default
+    warmup, per-chain diagonal metric; every leaf of the plain driver a
+    K2 launch). A failed gate raises."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    import torch_correctness_utils as protocol
+
+    diagonal = next(w for w in protocol.SPECIFIC_NORMALS
+                    if w[0] == "mildly scaled diagonal")
+    gates = {
+        "bench_dim_k1": lambda: protocol.bench_dim_k1_gate(dev),
+        "mildly_scaled_diagonal_k2": lambda: protocol.specific_normal_gate(
+            *diagonal, dtype=torch.float32, device=dev, fused=True,
+            launch_check=protocol.k2_on_every_leaf),
+    }
+    for name, gate in gates.items():
+        g = gate()
+        line = {"gate": name, "rhat_max": g.rhat_max, "tau_min": g.tau_min,
+                "ebfmi_min": g.ebfmi_min, "ad_p_min": g.ad_p_min,
+                "wall_s": g.seconds, "launch_counts": g.launches, "gpu": smi}
+        log(f"[6 protocol] {json.dumps(line)}")
+
+
 def time_call(fn, args, reps):
     """ms per call with CUDA events, after one warm-up call."""
     fn(*args)
@@ -778,28 +829,34 @@ def profile_run(name, fn):
                            "calls": r[2]} for r in rows if r not in kern][:6]}
 
 
-def device_ms(fn, args, reps, kernel_name):
+def device_ms(fn, args, reps, kernel_name, runs=3):
     """Device time per call of the kernel named ``kernel_name`` over
     ``reps`` calls, from torch.profiler (the wrapper's host time excluded):
-    the mean over the launches the profiler recorded. It may miss one at
-    the start of a session, and no more."""
+    the mean over the launches the profiler recorded. A profiler run may
+    miss one launch at its start, and no more; a run that recorded fewer
+    (the profiler once kept 12 of 50 on a loaded host) is repeated, up to
+    ``runs`` in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel_name in e.key and e.device_type.name == "CUDA":
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-            count += e.count
-    check(reps - 1 <= count <= reps,
-          f"profiler saw {count} {kernel_name} launches of {reps}")
-    return total / count / 1e3
+    for run in range(1, runs + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if kernel_name in e.key and e.device_type.name == "CUDA":
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                count += e.count
+        if reps - 1 <= count <= reps:
+            return total / count / 1e3
+        log(f"[5 kernel time] profiler run {run} of {runs} saw {count} "
+            f"{kernel_name} launches of {reps}")
+    check(False, f"profiler saw {count} {kernel_name} launches of {reps} in "
+                 f"each of {runs} runs")
 
 
 def nbytes(*tensors):
@@ -1184,6 +1241,9 @@ def run_phases(dev, smi, profile=()):
         else:
             metrics, ess = path_metrics(res, seconds)
             summaries[name] = posterior_summary(res, ess)
+        metrics.update(path_diagnostics(
+            res.tree_statistics, "per-chain work (tree kernel)"
+            if counts["tree_transition"] else "lockstep work (plain driver)"))
         metrics.update({"path": name, "launch_counts": counts, "chains": C,
                         "draws": N_DRAWS, "dim": model.dim,
                         "adapted_eps_range": [float(res.eps.min()),
@@ -1207,6 +1267,8 @@ def run_phases(dev, smi, profile=()):
           "per_chain: another kernel launched")
     launches["per_chain"] = counts["gaussian_leapfrog"]
     metrics = check_per_chain(results, seconds)
+    # the per-chain driver records no work: no straggler_waste
+    metrics.update(path_diagnostics(stacked_statistics(results)))
     metrics.update({"path": "per_chain", "launch_counts": counts,
                     "chains": len(results), "draws": N_PER_CHAIN,
                     "dim": K_GAUSS, "gpu": smi})
@@ -1292,6 +1354,10 @@ def run_phases(dev, smi, profile=()):
             log(f"[profile] {json.dumps(profile_run(name, lambda: run_path(model, C, N_DRAWS, SEED, config, dev)))}")
     if "per_chain" in profile:
         log(f"[profile] {json.dumps(profile_run('per_chain', lambda: run_per_chain(normal, dev)))}")
+
+    # --- phase 6: the reference's statistical protocol through K1 and K2 --
+    run_protocol(dev, smi)
+    log_phase_done(6)
 
     entries = [  # name, phase-3/5 key, path, replaces, source
         ("tree_transition", "gaussian", "main", "dynamichmc_tpu/ops/pallas_tree.py:93",

@@ -8,6 +8,8 @@ model builders default to ``device="cuda"`` as the model factories do.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -16,6 +18,7 @@ from .metric import DenseMetric, DiagonalMetric, Metric
 from .models.funnel import funnel
 from .models.gaussian import mvnormal
 from .models.logreg import logistic_regression_from_data
+from .nuts import TreeStatistics
 from .stepsize import DualAveragingState
 from .utils.welford import WelfordState
 from .warmup import WarmupState
@@ -61,6 +64,17 @@ def dual_averaging_state(obj, dtype=None, device=None) -> DualAveragingState:
     return DualAveragingState(**{
         name: tensor(getattr(obj, name), dtype, device)
         for name in ("mu", "m", "h_bar", "log_eps", "log_eps_bar")
+    })
+
+
+def tree_statistics(obj, device=None) -> TreeStatistics:
+    """A JAX ``TreeStatistics`` (fields of shape (N,) or (C, N)), each
+    field at its own dtype; the uint32 direction bits become int32 with the
+    same bit pattern, and a ``work`` of None stays None."""
+    return TreeStatistics(**{
+        f.name: (None if getattr(obj, f.name) is None
+                 else tensor(getattr(obj, f.name), device=device))
+        for f in dataclasses.fields(TreeStatistics)
     })
 
 

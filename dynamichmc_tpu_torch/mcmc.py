@@ -37,6 +37,23 @@ class MCMCResult:
         """The reference's [parameter, draw] orientation (mcmc.jl:16-17)."""
         return self.positions.transpose(-1, -2)
 
+    def summary(self) -> str:
+        """Human-readable diagnostics: the tree-statistics summary plus,
+        for multi-chain results, per-parameter R-hat / ESS extremes."""
+        from .diagnostics import summarize_tree_statistics
+
+        parts = [str(summarize_tree_statistics(self.tree_statistics))]
+        if self.positions.ndim == 3 and self.positions.shape[0] > 1:
+            from .stats import ess_rhat
+
+            st = ess_rhat(self.positions.detach().cpu().numpy())
+            parts.append(
+                f"  R-hat max: {st['rhat'].max():.4f}; bulk ESS min: "
+                f"{st['ess_bulk'].min():.0f}; tail ESS min: "
+                f"{st['ess_tail'].min():.0f}"
+            )
+        return "\n".join(parts)
+
 
 def mcmc_with_warmup(generator: torch.Generator, ld: LogDensity,
                      n_samples: int, initialization: Optional[dict] = None,

@@ -146,3 +146,31 @@ def correlated_gaussian(
     base = (base + base.T) / 2
     return _gaussian_model(np.zeros(dim), base, dtype, device, fused=fused,
                            tree_kernel=tree_kernel)
+
+
+def ill_conditioned_gaussian(
+    dim: int, condition_number: float = 1e6, seed: int = 1,
+    dtype=torch.float64, device="cuda", fused: bool = False,
+    tree_kernel: bool = False,
+) -> TestModel:
+    """Random rotation of a diagonal covariance with geometrically spaced
+    eigenvalues spanning ``condition_number`` (cf. the pinned
+    ill-conditioned workloads, sample-correctness_tests.jl:25-46)."""
+    rng = np.random.RandomState(seed)
+    eigs = np.geomspace(1.0, condition_number, dim)
+    q, _ = np.linalg.qr(rng.randn(dim, dim))
+    cov = (q * eigs) @ q.T
+    cov = (cov + cov.T) / 2
+    return _gaussian_model(np.zeros(dim), cov, dtype, device, fused=fused,
+                           tree_kernel=tree_kernel)
+
+
+def extreme_variance_gaussian(
+    dim: int = 2, log10_range: float = 8.0, dtype=torch.float64,
+    device="cuda", fused: bool = False, tree_kernel: bool = False,
+) -> TestModel:
+    """Diagonal Gaussian with variances 10^±log10_range
+    (sample-correctness_tests.jl:48-87)."""
+    variances = np.geomspace(10.0**-log10_range, 10.0**log10_range, dim)
+    return _gaussian_model(np.zeros(dim), np.diag(variances), dtype, device,
+                           fused=fused, tree_kernel=tree_kernel)

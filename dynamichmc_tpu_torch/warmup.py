@@ -101,6 +101,25 @@ def default_warmup_stages(
     )
 
 
+def fixed_stepsize_warmup_stages(
+    metric_kind: str = "diagonal",
+    middle_steps: int = 25,
+    doubling_stages: int = 5,
+    pooled: bool = False,
+) -> Tuple[WarmupStage, ...]:
+    """Covariance-only tuning at fixed stepsize (mcmc.jl:436-440); the
+    stepsize comes from ``initialization`` (``eps``)."""
+    return tuple(
+        TuningNUTS(
+            N=middle_steps * 2**i,
+            metric_kind=metric_kind,
+            stepsize_adaptation=FixedStepsize(),
+            pooled=pooled,
+        )
+        for i in range(doubling_stages)
+    )
+
+
 def random_position(generator, n_chains: Optional[int], dim: int,
                     dtype=torch.float32, device=None) -> torch.Tensor:
     """Uniform [-2, 2]^K initial positions: one row per chain, or one (K,)

@@ -16,7 +16,8 @@ line per measurement.
    chains of funnel(K), max_depth 7, from chip_smoke's phase-3 inputs, for
    each K of ``--K`` (default 25, the funnel path, and 129, past the warp
    variant) with a diagonal and a dense metric; beside it the fp32 bound
-   of the leaves the chains executed, the variant the shape takes and its
+   of the leaves the chains executed, the plain version's ms per call (3
+   calls after a warm-up call), the variant the shape takes and its
    launch plan where the imported package reports one.
 2. ``seed``: for seeds 1..N, at each K with a diagonal metric, a dense one
    and dcap 2, the chains whose depth, steps, termination or proposal leaf
@@ -35,7 +36,7 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-C, MD, N_TIME = 4096, 7, 20
+C, MD, N_TIME, N_PLAIN = 4096, 7, 20, 3
 
 
 def load(name, path):
@@ -92,8 +93,11 @@ def main():
         for kind in ("diag", "dense"):
             args = chip.kernel_inputs(model, C, MD, kind, MD, gen)
             ms = chip.time_call(tree_kernel.tree_transition, args, N_TIME)
+            plain_ms = chip.time_call(tree_kernel.tree_transition_plain, args,
+                                      N_PLAIN)
             bound_ms, bound_by = chip.tree_kernel_bound(args)
             print(json.dumps({"time": [C, K, MD, kind], "ms": ms,
+                              "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "plan": plan_of(tree_kernel, dev, K, kind == "diag"),
                               **tag}), flush=True)

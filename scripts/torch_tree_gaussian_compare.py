@@ -15,7 +15,8 @@ line per measurement.
    50 calls after a warm-up call, as in chip_smoke's phase 5) on 4096
    chains of correlated_gaussian(K), max_depth 4, for K = 100 and 129
    (either side of the warp variant's limit) with a dense and a diagonal
-   metric, beside the fp32 bound of the leaves the chains executed.
+   metric, beside the fp32 bound of the leaves the chains executed and
+   the plain version's ms per call (3 calls after a warm-up call).
 2. ``seed``: for seeds 1..8, at K = 100 with a dense metric, a diagonal
    one and dcap 2, the kernel against the plain float32 and float64
    versions: the chains whose depth, steps or termination differ, the
@@ -44,7 +45,7 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-C, MD, N_TIME, SEEDS = 4096, 4, 50, 8
+C, MD, N_TIME, N_PLAIN, SEEDS = 4096, 4, 50, 3, 8
 chip = None  # this checkout's chip_smoke.py, loaded by main()
 
 
@@ -143,8 +144,11 @@ def main():
         for kind in ("dense", "diag"):
             args = chip.kernel_inputs(model, C, MD, kind, MD, gen)
             ms = chip.time_call(tree_kernel.tree_transition, args, N_TIME)
+            plain_ms = chip.time_call(tree_kernel.tree_transition_plain, args,
+                                      N_PLAIN)
             bound_ms, bound_by = chip.tree_kernel_bound(args)
             print(json.dumps({"time": [C, K, MD, kind], "ms": ms,
+                              "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               **tag}), flush=True)
 

@@ -44,6 +44,14 @@ def test_import_leaves_jax_out():
         "import dynamichmc_tpu_torch.engine, dynamichmc_tpu_torch.parallel\n"
         "import dynamichmc_tpu_torch.ops.gaussian_leaf\n"
         "import dynamichmc_tpu_torch.ops.gaussian_leapfrog, chip_smoke\n"
+        "import dynamichmc_tpu_torch.diagnostics, dynamichmc_tpu_torch.models\n"
+        "import dynamichmc_tpu_torch.models.hierarchical\n"
+        "import dynamichmc_tpu_torch.models.mixture\n"
+        "import dynamichmc_tpu_torch.models.transforms\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_correctness_utils, torch_dummy_batched\n"
+        "import test_torch_db_batched, test_torch_gpu_correctness\n"
+        "import test_torch_sample_correctness\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dynamichmc_tpu' or m.startswith('dynamichmc_tpu.')]\n"
         "assert not bad, bad\n"
@@ -61,7 +69,11 @@ def test_no_module_of_the_port_imports_jax():
     import re
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|dynamichmc_tpu)\b", re.M)
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tests", n)
+        for n in ("torch_correctness_utils.py", "torch_dummy_batched.py",
+                  "test_torch_db_batched.py", "test_torch_gpu_correctness.py",
+                  "test_torch_sample_correctness.py")]
     for root, _dirs, files in os.walk(PKG):
         paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
     for path in paths:
