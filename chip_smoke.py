@@ -63,6 +63,26 @@ Phases (each one that fails ends the script with a non-zero exit code):
      - per_chain: mcmc_with_warmup, one chain per call, seeds 0-3, 1000
        draws each, every leapfrog through the fused Gaussian leapfrog;
        the four calls timed together.
+     Then the per-chain API, the stage fold and the stepwise API:
+     - keep_warmup: mcmc_keep_warmup on the same model and seeds, with a
+       LogProgressReport(step_interval=250): histories of 8 entries with
+       positions (75, 25) ... (400, 25), draws, eps and M^-1 bitwise
+       per_chain's, K4 on every leapfrog, per_chain's gate;
+     - generic: mcmc_with_warmup, seeds 0-1, 1000 draws, a custom turn
+       statistic (the generalized one reimplemented: the generic driver)
+       and a stage tuple of two metric kinds (the stage fold): K4 on
+       every leapfrog with a diagonal M^-1 (the kernel, like the JAX one,
+       takes no dense M^-1; the dense blocks and draws step in plain
+       torch, counted apart), per chain split R-hat <= 1.05 and mean
+       acceptance in [0.6, 0.95];
+     - stepwise: next_chunk of 64 transitions from keep_warmup's final
+       state, bitwise 64 next_step calls, K4 on every leapfrog; then 64 at
+       4096 x 25 from gauss_fused's last draws, metric and eps, K2 on
+       every driver leaf, N(0, I)'s moments;
+     - stages_tree: run_chains on the main path's target, 4096 chains, md
+       4, no clamp, 512 draws, pooled diagonal blocks 25/50 then pooled
+       dense blocks 100/200/400 (the stage fold on the batch): every
+       transition through K1's warp variant, the main path's gate.
      Each checks that its kernel launched on every transition (for the
      fused leaves: on every leaf the driver executed; for the leapfrog: on
      every hamiltonian.leapfrog call; on the main and funnel paths every
@@ -130,6 +150,8 @@ C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
 K_WIDE = 300  # the fused logreg leaf past 256 coordinates, phase 3
 C_GAUSS, K_GAUSS = 4096, 25  # BASELINE config 1 under the fleet
 N_PER_CHAIN, PER_CHAIN_SEEDS = 1000, (0, 1, 2, 3)
+N_GENERIC, GENERIC_SEEDS = 1000, (0, 1)  # the generic driver's path
+N_STEPWISE = 64  # transitions of each stepwise next_chunk
 SEED = 0
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor
 # cores, and device memory
@@ -589,6 +611,286 @@ def run_per_chain(model, dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return results, seconds, launch_counts()
+
+
+def timed(fn):
+    """Run ``fn()`` with every launch count set to 0 just before it; returns
+    its result, its wall seconds and the counts read just after it."""
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, launch_counts()
+
+
+def check_k4_only(name, counts):
+    """Every hamiltonian.leapfrog call launched K4 once, and no other
+    kernel launched."""
+    check(counts["gaussian_leapfrog"] == counts["leapfrog_calls"] > 0,
+          f"{name}: fused leapfrog launched {counts['gaussian_leapfrog']} "
+          f"times for {counts['leapfrog_calls']} leapfrog calls")
+    check(counts["tree_transition"] == counts["tree_transition_warp"]
+          == counts["gaussian_fused_leaf"] == counts["logreg_fused_leaf"] == 0,
+          f"{name}: another kernel launched")
+
+
+class GeneralizedReimpl:
+    """The generalized U-turn statistic reimplemented as a custom
+    configuration (NUTS.jl:107-139): a custom statistic sends every
+    transition of the per-chain API through the generic driver."""
+
+    def leaf(self, metric, z):
+        from dynamichmc_tpu_torch.hamiltonian import calculate_psharp
+        from dynamichmc_tpu_torch.nuts import GeneralizedTurnStatistic
+
+        s = calculate_psharp(metric, z)
+        return GeneralizedTurnStatistic(p_minus=z.p, psharp_minus=s,
+                                        p_plus=z.p, psharp_plus=s, rho=z.p)
+
+    def combine(self, metric, x, y):
+        from dynamichmc_tpu_torch.nuts import _combine_turn_statistics
+
+        return _combine_turn_statistics(x, y)
+
+
+def generic_stages():
+    """A stage tuple that WarmupSchedule.from_stages rejects (two metric
+    kinds), the default schedule's 900 transitions otherwise."""
+    from dynamichmc_tpu_torch import InitialStepsizeSearch, TuningNUTS
+
+    return (InitialStepsizeSearch(), TuningNUTS(75),
+            TuningNUTS(25, "diagonal"), TuningNUTS(50, "diagonal"),
+            TuningNUTS(100, "dense"), TuningNUTS(200, "dense"),
+            TuningNUTS(400, "dense"), TuningNUTS(50))
+
+
+def stages_tree_config():
+    """stages_tree: the main path's 900 transitions as pooled diagonal
+    blocks 25/50 then pooled dense blocks 100/200/400, NUTS(max_depth=4),
+    per-chain dual-averaging eps, no clamp."""
+    from dynamichmc_tpu_torch import InitialStepsizeSearch, NUTS, TuningNUTS
+
+    stages = (InitialStepsizeSearch(), TuningNUTS(75),
+              TuningNUTS(25, "diagonal", pooled=True),
+              TuningNUTS(50, "diagonal", pooled=True),
+              TuningNUTS(100, "dense", pooled=True),
+              TuningNUTS(200, "dense", pooled=True),
+              TuningNUTS(400, "dense", pooled=True), TuningNUTS(50))
+    return dict(tune="reference", warmup_stages=stages,
+                algorithm=NUTS(max_depth=MD_MAIN), dtype=torch.float32)
+
+
+class LogCollector:
+    """Collects the port's log records (a reporter's lines) while open."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+        self.logger = logging.getLogger("dynamichmc_tpu_torch")
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+class DiagonalCounter:
+    """Counts a model's fused-leapfrog hook calls by the metric's kind:
+    K4, like the JAX kernel, takes a diagonal M^-1 only, and the hook
+    steps a dense one in plain torch."""
+
+    def __init__(self, hook):
+        self.hook, self.diagonal, self.dense = hook, 0, 0
+
+    def __call__(self, metric, z, eps):
+        from dynamichmc_tpu_torch.metric import DiagonalMetric
+
+        if isinstance(metric, DiagonalMetric):
+            self.diagonal += 1
+        else:
+            self.dense += 1
+        return self.hook(metric, z, eps)
+
+
+def run_slice13_paths(normal, gauss, fused_state, per_chain, dev, smi):
+    """Phase 4's paths of the per-chain API, the stage fold and the
+    stepwise API (keep_warmup, generic, stepwise, stages_tree); fails on a
+    gate. ``per_chain``: the per_chain path's results (mcmc_with_warmup,
+    seeds PER_CHAIN_SEEDS), which keep_warmup must equal bit for bit."""
+    import dataclasses
+    from dynamichmc_tpu_torch import (
+        NUTS, LogProgressReport, mcmc_keep_warmup, mcmc_steps,
+        mcmc_steps_from_state, mcmc_with_warmup, run_chains)
+    from dynamichmc_tpu_torch.engine import WarmupSchedule
+    from dynamichmc_tpu_torch.hamiltonian import evaluate
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # keep_warmup: the stage fold with every state kept, and a reporter,
+    # on per_chain's four seeds (its gate is sized for four chains)
+    with LogCollector() as records:
+        outs, seconds, counts = timed(lambda: [mcmc_keep_warmup(
+            gen(s), normal, N_PER_CHAIN,
+            reporter=LogProgressReport(step_interval=250))
+            for s in PER_CHAIN_SEEDS])
+    check_k4_only("keep_warmup", counts)
+    want = [(n, K_GAUSS) for n in (75, 25, 50, 100, 200, 400, 50)]
+    keeps = []
+    for out, ref in zip(outs, per_chain):
+        history = out["warmup"]
+        shapes = [tuple(r["positions"].shape) for _s, r, _st in history[1:]]
+        check(len(history) == 8 and shapes == want,
+              f"keep_warmup: history of {len(history)} entries, {shapes}")
+        final, inference = out["final_warmup_state"], out["inference"]
+        check(torch.equal(inference.positions, ref.positions)
+              and torch.equal(final.eps, ref.eps)
+              and torch.equal(final.metric.m_inv, ref.metric.m_inv),
+              "keep_warmup: draws, eps or metric differ from "
+              "mcmc_with_warmup's")
+        keeps.append(SimpleNamespace(
+            positions=inference.positions,
+            tree_statistics=inference.tree_statistics, eps=final.eps))
+    lines = sum("MCMC progress" in r.getMessage() for r in records)
+    check(lines >= 8 * len(outs), f"keep_warmup: {lines} progress lines")
+    metrics = check_per_chain(keeps, seconds)
+    metrics.update(path_diagnostics(stacked_statistics(keeps)))
+    metrics.update({"path": "keep_warmup", "launch_counts": counts,
+                    "chains": len(keeps), "draws": N_PER_CHAIN,
+                    "dim": K_GAUSS, "bitwise_mcmc_with_warmup": True,
+                    "progress_lines": lines, "gpu": smi})
+    log(f"[4 path] {json.dumps(metrics)}")
+    final = outs[0]["final_warmup_state"]
+
+    # generic: a custom turn statistic (the generic driver) and a schedule
+    # of two metric kinds (the stage fold), two chains
+    stages = generic_stages()
+    check(WarmupSchedule.from_stages(stages) is None,
+          "generic: the schedule must need the stage fold")
+    algorithm = NUTS(turn_statistic_configuration=GeneralizedReimpl())
+    hook = DiagonalCounter(normal.fused_leapfrog_fn)
+    model = dataclasses.replace(normal, fused_leapfrog_fn=hook)
+    results, seconds, counts = timed(lambda: [
+        mcmc_with_warmup(gen(s), model, N_GENERIC, warmup_stages=stages,
+                         algorithm=algorithm) for s in GENERIC_SEEDS])
+    # K4 on every leapfrog with a diagonal metric (the search and the
+    # blocks up to the first dense estimate); the dense rest in plain torch
+    check(counts["gaussian_leapfrog"] == hook.diagonal > 0
+          and hook.diagonal + hook.dense == counts["leapfrog_calls"],
+          f"generic: K4 launched {counts['gaussian_leapfrog']} times for "
+          f"{hook.diagonal} diagonal-metric leapfrogs ({hook.dense} dense, "
+          f"{counts['leapfrog_calls']} in all)")
+    check(counts["tree_transition"] == counts["gaussian_fused_leaf"]
+          == counts["logreg_fused_leaf"] == 0, "generic: another kernel")
+    metrics = check_generic(results, seconds)
+    metrics.update(path_diagnostics(stacked_statistics(results)))
+    metrics.update({"path": "generic", "launch_counts": counts,
+                    "leapfrogs_diagonal_metric": hook.diagonal,
+                    "leapfrogs_dense_metric": hook.dense,
+                    "chains": len(results), "draws": N_GENERIC,
+                    "dim": K_GAUSS, "gpu": smi})
+    log(f"[4 path] {json.dumps(metrics)}")
+
+    # stepwise, one chain: next_chunk against next_step from one seed
+    steps = mcmc_steps_from_state(normal, NUTS(), final)
+    (Q_fin, chunk), seconds, counts = timed(
+        lambda: steps.next_chunk(gen(5), final.Q, N_STEPWISE))
+    check_k4_only("stepwise (one chain)", counts)
+    g, Q = gen(5), final.Q
+    for i in range(N_STEPWISE):
+        Q, _stats = steps.next_step(g, Q)
+        check(torch.equal(Q.q, chunk.positions[i]),
+              f"stepwise: next_chunk differs from next_step at step {i}")
+    check(torch.equal(Q.q, Q_fin.q), "stepwise: final states differ")
+    single = {"wall_s": seconds, "launch_counts": counts,
+              "bitwise_next_step": True,
+              "divergences": int(chunk.tree_statistics.is_divergent.sum())}
+
+    # stepwise, the batch: gauss_fused's per-chain metric and eps, its last
+    # draws as Q
+    metric_b, eps_b, q_b = fused_state
+    steps_b = mcmc_steps(normal, NUTS(), metric_b, eps_b)
+    Q_b = evaluate(normal, q_b)
+    (_Qb, chunk_b), seconds, counts = timed(
+        lambda: steps_b.next_chunk(gen(6), Q_b, N_STEPWISE))
+    check(counts["gaussian_fused_leaf"] == counts["driver_fused_leaves"] > 0,
+          f"stepwise (batch): K2 launched {counts['gaussian_fused_leaf']} "
+          f"times for {counts['driver_fused_leaves']} driver leaves")
+    check(counts["tree_transition"] == counts["gaussian_leapfrog"]
+          == counts["logreg_fused_leaf"] == 0,
+          "stepwise (batch): another kernel launched")
+    draws = chunk_b.positions
+    check(tuple(draws.shape) == (N_STEPWISE, C_GAUSS, K_GAUSS),
+          f"stepwise (batch): positions shape {tuple(draws.shape)}")
+    check(bool(torch.isfinite(draws).all()), "stepwise (batch): non-finite")
+    batch = check_standard_normal(draws.double().reshape(-1, K_GAUSS), 0.05,
+                                  (0.9, 1.1))
+    batch.update({"wall_s": seconds, "launch_counts": counts,
+                  "chains": C_GAUSS,
+                  "divergences": int(chunk_b.tree_statistics.is_divergent.sum())})
+    log(f"[4 path] {json.dumps({'path': 'stepwise', 'steps': N_STEPWISE, 'one_chain': single, 'batch': batch, 'gpu': smi})}")
+
+    # stages_tree: the stage fold on the batch, through K1's warp variant
+    config = stages_tree_config()
+    check(WarmupSchedule.from_stages(config["warmup_stages"]) is None,
+          "stages_tree: the schedule must need the stage fold")
+    res, seconds, counts = timed(lambda: run_chains(
+        gen(SEED), gauss, C_MAIN, N_DRAWS, **config))
+    expected = sum(s.N for s in config["warmup_stages"][1:]) + N_DRAWS
+    check(counts["tree_transition"] == counts["tree_transition_warp"]
+          == expected,
+          f"stages_tree: {counts['tree_transition']} launches "
+          f"({counts['tree_transition_warp']} warp) for {expected} "
+          "transitions")
+    check(counts["gaussian_fused_leaf"] == counts["logreg_fused_leaf"]
+          == counts["gaussian_leapfrog"] == 0,
+          "stages_tree: another kernel launched")
+    check(tuple(res.metric.m_inv.shape) == (K_MAIN, K_MAIN),
+          f"stages_tree: metric shape {tuple(res.metric.m_inv.shape)}")
+    metrics = check_draws(gauss, res, seconds)
+    metrics.update(path_diagnostics(res.tree_statistics,
+                                    "per-chain work (tree kernel)"))
+    metrics.update({"path": "stages_tree", "launch_counts": counts,
+                    "chains": C_MAIN, "draws": N_DRAWS, "dim": K_MAIN,
+                    "adapted_eps_range": [float(res.eps.min()),
+                                          float(res.eps.max())],
+                    "gpu": smi})
+    log(f"[4 path] {json.dumps(metrics)}")
+
+
+def check_generic(results, seconds):
+    """The generic path's gate: finite draws; per chain, split R-hat <=
+    1.05 and mean acceptance in [0.6, 0.95]. Returns the phase-4 metrics."""
+    from dynamichmc_tpu_torch.mcmc import stack_posterior_matrices
+    from dynamichmc_tpu_torch.stats_device import ess_rhat_device
+
+    draws = stack_posterior_matrices(results).transpose(0, 1)  # (C, N, K)
+    metrics, _ess = path_metrics(SimpleNamespace(
+        positions=draws, tree_statistics=SimpleNamespace(
+            steps=torch.stack([r.tree_statistics.steps for r in results]),
+            is_divergent=torch.stack([r.tree_statistics.is_divergent
+                                      for r in results]))), seconds)
+    rhats = [float(ess_rhat_device(d.double())["rhat"].max()) for d in draws]
+    accs = [float(r.tree_statistics.acceptance_rate.mean()) for r in results]
+    check(max(rhats) <= 1.05, f"generic: split R-hat up to {max(rhats):.4f}")
+    check(all(0.6 <= a <= 0.95 for a in accs),
+          f"generic: mean acceptance {accs}")
+    metrics.update({"max_rhat_per_chain": rhats, "mean_acceptance": accs,
+                    "eps": [float(r.eps) for r in results]})
+    return metrics
 
 
 def check_standard_normal(flat, mean_tol, var_range):
@@ -1250,6 +1552,8 @@ def run_phases(dev, smi, profile=()):
                                               float(res.eps.max())],
                         "gpu": smi})
         log(f"[4 path] {json.dumps(metrics)}")
+        if name == "gauss_fused":  # the batched stepwise path starts here
+            fused_state = (res.metric, res.eps, res.positions[:, -1].clone())
         del res
     z = check_logreg_agreement(summaries["logreg_tree"], summaries["logreg_fused"])
     log(f"[4 path] logreg_tree vs logreg_fused: max |dmean| / mcse = {z:.4f}")
@@ -1273,7 +1577,8 @@ def run_phases(dev, smi, profile=()):
                     "chains": len(results), "draws": N_PER_CHAIN,
                     "dim": K_GAUSS, "gpu": smi})
     log(f"[4 path] {json.dumps(metrics)}")
-    del results
+    run_slice13_paths(normal, gauss, fused_state, results, dev, smi)
+    del results, fused_state
     log_phase_done(4)
 
     # --- phase 5: kernel time against plain, and each kernel's bound -----

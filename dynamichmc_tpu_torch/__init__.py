@@ -4,7 +4,8 @@ Imports torch, numpy and scipy only; never JAX or the JAX package. The hot
 loops run in hand-written CUDA kernels (csrc/): one whole NUTS transition
 per chain (tree_kernel.cu), the fused logreg leaf (logreg_leaf.cu) and the
 fused Gaussian leaf and leapfrog (gaussian_leaf.cu). ``run_chains`` runs a
-batch of chains; ``mcmc_with_warmup`` runs one.
+batch of chains; ``mcmc_with_warmup`` and ``mcmc_keep_warmup`` run one, and
+``mcmc_steps`` steps a chain or a batch one transition at a time.
 
 float32 matrix products run in full fp32: TF32 is switched off here for
 every matmul and convolution the port issues.
@@ -24,7 +25,18 @@ from .hamiltonian import (  # noqa: E402
     leapfrog,
 )
 from .logdensity import LogDensity, from_logdensity_fn  # noqa: E402
-from .mcmc import MCMCResult, mcmc_with_warmup  # noqa: E402
+from .mcmc import (  # noqa: E402
+    InferenceResult,
+    MCMCResult,
+    StepwiseChunk,
+    mcmc,
+    mcmc_keep_warmup,
+    mcmc_steps,
+    mcmc_steps_from_state,
+    mcmc_with_warmup,
+    pool_posterior_matrices,
+    stack_posterior_matrices,
+)
 from .metric import (  # noqa: E402
     DenseMetric,
     DiagonalMetric,
@@ -32,14 +44,39 @@ from .metric import (  # noqa: E402
     diagonal_metric,
     identity_metric,
 )
-from .nuts import NUTS, TreeStatistics  # noqa: E402
+from .nuts import NUTS, TreeStatistics, sample_tree  # noqa: E402
 from .parallel import run_chains  # noqa: E402
-from .warmup import TuningNUTS, default_warmup_stages  # noqa: E402
+from .reporting import (  # noqa: E402
+    LogProgressReport,
+    NoProgressReport,
+    TqdmProgressReport,
+    default_reporter,
+)
+from .stepsize import (  # noqa: E402
+    DualAveraging,
+    FixedStepsize,
+    InitialStepsizeSearch,
+    PooledStepsize,
+)
+from .warmup import (  # noqa: E402
+    TuningNUTS,
+    WarmupState,
+    default_warmup_stages,
+    fixed_stepsize_warmup_stages,
+    initialize_warmup_state,
+)
 
 __all__ = [
-    "DenseMetric", "DiagonalMetric", "DynamicHMCError", "EvaluatedPoint",
-    "LogDensity", "MCMCResult", "NUTS", "PhasePoint", "TreeStatistics",
-    "TuningNUTS", "default_warmup_stages", "dense_metric", "diagonal_metric",
-    "evaluate", "evaluate_strict", "from_logdensity_fn", "identity_metric",
-    "leapfrog", "mcmc_with_warmup", "run_chains",
+    "DenseMetric", "DiagonalMetric", "DualAveraging", "DynamicHMCError",
+    "EvaluatedPoint", "FixedStepsize", "InferenceResult",
+    "InitialStepsizeSearch", "LogDensity", "LogProgressReport", "MCMCResult",
+    "NUTS", "NoProgressReport", "PhasePoint", "PooledStepsize",
+    "StepwiseChunk", "TqdmProgressReport", "TreeStatistics", "TuningNUTS",
+    "WarmupState", "default_reporter", "default_warmup_stages",
+    "dense_metric", "diagonal_metric", "evaluate", "evaluate_strict",
+    "fixed_stepsize_warmup_stages", "from_logdensity_fn", "identity_metric",
+    "initialize_warmup_state", "leapfrog", "mcmc", "mcmc_keep_warmup",
+    "mcmc_steps", "mcmc_steps_from_state", "mcmc_with_warmup",
+    "pool_posterior_matrices", "run_chains", "sample_tree",
+    "stack_posterior_matrices",
 ]

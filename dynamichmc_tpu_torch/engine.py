@@ -11,6 +11,13 @@ One loop serves both chain layouts. A :class:`ChainOps` names the
 transition, the stepsize search and the Welford fold: ``batched_ops`` for a
 (C, K) chain batch (run_chains), ``PER_CHAIN`` for one (K,) chain
 (mcmc_with_warmup).
+
+Two optional hooks ride on the loop without changing what it computes or
+draws: per-block collection of each step's position, log density, tree
+statistics and stepsize (``blocks``; keep-warmup and the stage fold of
+warmup.py), and a step reporter whose ``report_step`` is called once per
+transition (reporting.py). With neither set the loop issues the same ops as
+without them.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from .utils.welford import (
     welford_zero,
     welford_zero_shared,
 )
-from .warmup import TuningNUTS, WarmupStage, estimate_metric
+from .warmup import TuningNUTS, WarmupStage, WarmupState, estimate_metric
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,12 +201,58 @@ def promote_metric(metric: Metric, kind: str) -> Metric:
     return dense_metric(torch.diag_embed(metric.m_inv))
 
 
+class _Trace:
+    """Each step's draw of one block: positions (optional), log densities,
+    tree statistics and (optional) stepsizes, with the steps on the axis
+    after the chain axis: (C, N, K) / (C, N) from a batch, (N, K) / (N,)
+    from one chain."""
+
+    def __init__(self, Q: EvaluatedPoint, n: int, positions: bool = True,
+                 epss: bool = False):
+        lead, K = tuple(Q.q.shape[:-1]), Q.q.shape[-1]
+        like = dict(dtype=Q.q.dtype, device=Q.q.device)
+        self.positions = (torch.empty(lead + (n, K), **like) if positions
+                          else None)
+        self.lds = torch.empty(lead + (n,), **like)
+        self.epss = [] if epss else None
+        self.per_draw = []
+        self.lead, self.like = lead, like
+
+    def add(self, j: int, Q: EvaluatedPoint, stats: TreeStatistics, eps=None):
+        if self.positions is not None:
+            self.positions[..., j, :] = Q.q
+        self.lds[..., j] = Q.logdensity
+        self.per_draw.append(stats)
+        if self.epss is not None:
+            self.epss.append(eps)
+
+    def statistics(self) -> TreeStatistics:
+        return stack_statistics(self.per_draw, self.lead, **self.like)
+
+    def results(self) -> dict:
+        """A warmup block's results: logdensities, tree_statistics, epss
+        and, when collected, positions."""
+        out = {"logdensities": self.lds, "tree_statistics": self.statistics(),
+               "epss": torch.stack(self.epss, dim=-1)}
+        if self.positions is not None:
+            out["positions"] = self.positions
+        return out
+
+
 def run_warmup(generator, ld: LogDensity, algorithm: NUTS,
                schedule: WarmupSchedule, Q: EvaluatedPoint, metric, eps,
-               log=None, ops: Optional[ChainOps] = None):
+               log=None, ops: Optional[ChainOps] = None,
+               blocks: Optional[list] = None, collect_positions: bool = False,
+               reporter=None):
     """The whole tuning schedule as one loop over the global step index,
     for the chain layout ``ops`` (default: a batch, pooled as the schedule
-    says). Returns (Q', metric', eps')."""
+    says). Returns (Q', metric', eps').
+
+    ``blocks``: a list that receives one ``(results, WarmupState after the
+    block)`` per block, results holding each step's logdensities,
+    tree_statistics, epss and, with ``collect_positions``, positions.
+    ``reporter``: a step reporter (reporting.py); each block opens a stage
+    reporter and reports every transition with its stepsize."""
     if ops is None:
         ops = batched_ops(schedule.pooled)
     adaptation = schedule.adaptation
@@ -226,15 +279,29 @@ def run_warmup(generator, ld: LogDensity, algorithm: NUTS,
     da = adaptation.init(eps)
     wf = ops.welford_zero(Q.q, dense)
     eps_run = adaptation.current(da)
+    trace = stage_reporter = None
     for i in range(total):
         b = block_of[i]
+        j = i - (cums[b] - schedule.block_sizes[b])  # step within the block
+        if j == 0 and blocks is not None:
+            trace = _Trace(Q, schedule.block_sizes[b], collect_positions,
+                           epss=True)
+        if j == 0 and reporter is not None:
+            tuning = (f"stepsize and {kind} metric"
+                      if schedule.update_metric[b] else "stepsize")
+            stage_reporter = reporter.make_stage_reporter(
+                schedule.block_sizes[b], currently_warmup=True, tuning=tuning)
         dl = None
         if clamp is not None:
             dl = clamp if i < clamp_until else algorithm.max_depth
+        eps_now = adaptation.current(da)
         Q, stats = ops.transition(
-            generator, algorithm, ld, metric, Q, adaptation.current(da),
-            depth_limit=dl,
+            generator, algorithm, ld, metric, Q, eps_now, depth_limit=dl,
         )
+        if trace is not None:
+            trace.add(j, Q, stats, eps_now)
+        if stage_reporter is not None:
+            stage_reporter.report_step(j, eps=eps_now)
         da = adaptation.update(da, stats.acceptance_rate)
         if schedule.update_metric[b]:
             wf = ops.welford_update(wf, Q.q)
@@ -244,15 +311,30 @@ def run_warmup(generator, ld: LogDensity, algorithm: NUTS,
             if schedule.update_metric[b]:
                 metric = estimate_metric(wf, kind, schedule.shrinkages[b])
                 wf = ops.welford_zero(Q.q, dense)
+            if trace is not None:
+                blocks.append((trace.results(),
+                               WarmupState(Q=Q, metric=metric, eps=eps_run)))
             if log is not None:
                 log(f"warmup block {b + 1}/{len(cums)} done ({i + 1} steps)")
     return Q, metric, eps_run
 
 
-def stack_statistics(per_draw) -> TreeStatistics:
+def stack_statistics(per_draw, lead=(), dtype=torch.float32,
+                     device=None) -> TreeStatistics:
     """Per-draw statistics -> one TreeStatistics with the draws on the last
-    axis: (C, N) fields from a batch, (N,) from one chain."""
+    axis: (C, N) fields from a batch, (N,) from one chain. No draws give
+    empty (lead + (0,)) fields of the drivers' dtypes; ``work`` is None for
+    one chain, as the per-chain driver records none."""
     fields = [f.name for f in dataclasses.fields(TreeStatistics)]
+    if not per_draw:
+        shape = tuple(lead) + (0,)
+        floats = ("logdensity", "acceptance_rate")
+        return TreeStatistics(**{
+            name: (None if name == "work" and not lead else torch.empty(
+                shape, dtype=dtype if name in floats else torch.int32,
+                device=device))
+            for name in fields
+        })
     return TreeStatistics(**{
         name: (None if getattr(per_draw[0], name) is None else
                torch.stack([getattr(s, name) for s in per_draw], dim=-1))
@@ -262,31 +344,42 @@ def stack_statistics(per_draw) -> TreeStatistics:
 
 def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                  Q: EvaluatedPoint, metric, eps, n_samples: int,
-                 ops: Optional[ChainOps] = None):
+                 ops: Optional[ChainOps] = None, reporter=None):
     """n_samples transitions at fixed (metric, eps). Returns (Q', positions
-    (C, N, K) or (N, K), logdensities (C, N) or (N,), stats)."""
+    (C, N, K) or (N, K), logdensities (C, N) or (N,), stats). ``reporter``:
+    a step reporter, told of every draw."""
     if ops is None:
         ops = batched_ops(False)
-    K = Q.q.shape[-1]
-    lead = tuple(Q.q.shape[:-1])
-    positions = torch.empty(lead + (n_samples, K), dtype=Q.q.dtype,
-                            device=Q.q.device)
-    lds = torch.empty(lead + (n_samples,), dtype=Q.q.dtype, device=Q.q.device)
-    per_draw = []
+    trace = _Trace(Q, n_samples)
+    stage_reporter = (None if reporter is None else
+                      reporter.make_stage_reporter(n_samples,
+                                                   currently_warmup=False))
     for j in range(n_samples):
         Q, stats = ops.transition(generator, algorithm, ld, metric, Q, eps,
                                   depth_limit=None)
-        positions[..., j, :] = Q.q
-        lds[..., j] = Q.logdensity
-        per_draw.append(stats)
-    return Q, positions, lds, stack_statistics(per_draw)
+        trace.add(j, Q, stats)
+        if stage_reporter is not None:
+            stage_reporter.report_step(j)
+    return Q, trace.positions, trace.lds, trace.statistics()
+
+
+def stepsize_message(eps) -> str:
+    """The log line of a finished stepsize search (reads eps from the
+    device): one chain's eps, or the range over a batch."""
+    eps = torch.as_tensor(eps).detach().cpu()
+    if eps.numel() == 1:
+        return f"found initial stepsize eps={float(eps):.4g}"
+    return (f"found initial stepsizes eps in [{float(eps.min()):.4g}, "
+            f"{float(eps.max()):.4g}]")
 
 
 def execute(generator, ld: LogDensity, algorithm: NUTS,
             schedule: WarmupSchedule, Q: EvaluatedPoint, metric, eps,
-            n_samples: int, log=None, ops: Optional[ChainOps] = None):
+            n_samples: int, log=None, ops: Optional[ChainOps] = None,
+            reporter=None):
     """Search (if scheduled), warmup, then sampling, for the chain layout
-    ``ops`` (default: a batch). Returns (metric, eps, search_results,
+    ``ops`` (default: a batch). ``log``: block-boundary messages;
+    ``reporter``: a step reporter. Returns (metric, eps, search_results,
     (Q, positions, lds, stats))."""
     if ops is None:
         ops = batched_ops(schedule.pooled)
@@ -300,12 +393,15 @@ def execute(generator, ld: LogDensity, algorithm: NUTS,
             generator, Q, metric
         )
         search_results = {"eps": eps, "success": success, "l0": l0}
+        if log is not None:
+            log(stepsize_message(eps))
     elif eps is None:
         raise DynamicHMCError("no stepsize: provide eps or a search stage")
     Q, metric, eps = run_warmup(
-        generator, ld, algorithm, schedule, Q, metric, eps, log=log, ops=ops
+        generator, ld, algorithm, schedule, Q, metric, eps, log=log, ops=ops,
+        reporter=reporter,
     )
     inference = run_sampling(generator, ld, algorithm, Q, metric, eps,
-                             n_samples, ops=ops)
+                             n_samples, ops=ops, reporter=reporter)
     return metric, eps, search_results, inference
 

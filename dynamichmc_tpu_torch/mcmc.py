@@ -1,10 +1,21 @@
-"""The per-chain entry point, sampler results and host-side checks (port
-of parts of ``dynamichmc_tpu.mcmc``).
+"""The per-chain entry points, sampler results, the stepwise API and
+host-side checks (port of ``dynamichmc_tpu.mcmc``).
 
-``mcmc_with_warmup`` is the API DynamicHMC.jl users call: one chain,
-staged warmup, then draws, through the per-chain fast driver (nuts.py,
-tree.py) and the engine's schedule loop. The stepwise API, keep-warmup and
-progress reporters are not ported (ROADMAP).
+``mcmc_with_warmup`` and ``mcmc_keep_warmup`` are the API DynamicHMC.jl
+users call (mcmc.jl:521-584): one chain, staged warmup, then draws, through
+the per-chain drivers (nuts.py, tree.py). A schedule that the engine takes
+whole (an optional search, then TuningNUTS blocks of one metric kind and
+adaptation) runs through the engine's loop; any other stage tuple, and
+every ``mcmc_keep_warmup``, through the stage fold (warmup.run_warmup),
+whose TuningNUTS stages run that same loop one block at a time.
+``mcmc_steps`` is the stepwise API (mcmc.jl:295-351).
+
+Progress: ``reporter=None`` means ``reporting.default_reporter()``
+(a terminal logs each block, anything else is silent); an explicit step
+reporter (``LogProgressReport``, ``TqdmProgressReport``) is told of every
+transition. The port runs every transition eagerly, so that is the
+reference's own cadence; ``inline_reporting`` is accepted for the JAX
+package's signature and changes nothing.
 """
 
 from __future__ import annotations
@@ -15,9 +26,25 @@ from typing import Optional
 import torch
 
 from .errors import DynamicHMCError
-from .logdensity import LogDensity
+from .hamiltonian import EvaluatedPoint
+from .logdensity import LogDensity, check_device
 from .metric import Metric
 from .nuts import NUTS, TreeStatistics
+
+
+@dataclasses.dataclass
+class InferenceResult:
+    """Draws and per-draw diagnostics: positions (N, K), log densities and
+    tree statistics (N,) for one chain; (C, N, K) / (C, N) for a batch."""
+
+    positions: torch.Tensor
+    logdensities: torch.Tensor
+    tree_statistics: TreeStatistics
+
+    @property
+    def posterior_matrix(self) -> torch.Tensor:
+        """The reference's [parameter, draw] orientation (mcmc.jl:16-17)."""
+        return self.positions.transpose(-1, -2)
 
 
 @dataclasses.dataclass
@@ -55,47 +82,197 @@ class MCMCResult:
         return "\n".join(parts)
 
 
+def _reporting(reporter):
+    """(log, step reporter) of a ``reporter`` argument. None means
+    ``default_reporter()``, whose messages are logged but which is not told
+    of each transition (reporting.jl:184-190); an explicit reporter that
+    wants step callbacks is told of every transition."""
+    from .reporting import default_reporter, stage_log
+
+    if reporter is None:
+        return stage_log(default_reporter()), None
+    return (stage_log(reporter),
+            reporter if reporter.wants_step_callbacks else None)
+
+
+def mcmc(generator: torch.Generator, ld: LogDensity, algorithm: NUTS, state,
+         n_samples: int, reporter=None):
+    """Post-warmup sampling (mcmc.jl:366-381): ``n_samples`` transitions
+    from a ``WarmupState`` at its fixed metric and eps, one (K,) chain or a
+    (C, K) batch. A ``reporter`` that wants step callbacks is told of every
+    draw. Returns (Q_final, InferenceResult)."""
+    from .engine import PER_CHAIN, batched_ops, run_sampling
+
+    check_device(ld, generator.device)
+    ops = PER_CHAIN if state.Q.q.ndim == 1 else batched_ops(False)
+    if reporter is not None and not reporter.wants_step_callbacks:
+        reporter = None
+    Q, positions, lds, stats = run_sampling(
+        generator, ld, algorithm, state.Q, state.metric, state.eps,
+        n_samples, ops=ops, reporter=reporter)
+    return Q, InferenceResult(positions=positions, logdensities=lds,
+                              tree_statistics=stats)
+
+
+def _keep_warmup(generator, ld, n_samples, initial_state, stages, algorithm,
+                 collect_positions: bool, collect_stats: bool, reporter):
+    """The stage fold, its search check, then the draws: (history, final
+    state, inference)."""
+    from .warmup import run_warmup
+
+    log, step_reporter = _reporting(reporter)
+    history, state = run_warmup(
+        generator, ld, algorithm, stages, initial_state,
+        collect_positions=collect_positions, collect_stats=collect_stats,
+        log=log, reporter=step_reporter)
+    _check_stepsize_search(history)
+    _q, inference = mcmc(generator, ld, algorithm, state, n_samples,
+                         reporter=step_reporter)
+    return history, state, inference
+
+
+def mcmc_keep_warmup(generator: torch.Generator, ld: LogDensity,
+                     n_samples: int, initialization: Optional[dict] = None,
+                     warmup_stages=None, algorithm: NUTS = NUTS(),
+                     dtype=torch.float32,
+                     collect_warmup_positions: bool = True, reporter=None,
+                     inline_reporting: bool = False) -> dict:
+    """Warmup and sampling for one chain, keeping every warmup state
+    (mcmc.jl:521-532), on the generator's device with every random number
+    from ``generator``.
+
+    Returns a dict: ``initial_warmup_state``; ``warmup``, a list of (stage,
+    results, state after the stage) aligned with the stage tuple (None
+    stages included), results as ``warmup.warmup_stage`` gives them;
+    ``final_warmup_state``; ``inference`` (an :class:`InferenceResult`).
+    From one generator seed the draws, eps and metric are bitwise those of
+    :func:`mcmc_with_warmup`. Raises when the model's tensors lie on
+    another device."""
+    from .warmup import default_warmup_stages, initialize_warmup_state
+
+    stages = (tuple(warmup_stages) if warmup_stages is not None
+              else default_warmup_stages())
+    initial_state = initialize_warmup_state(generator, ld, dtype=dtype,
+                                            **(initialization or {}))
+    history, final_state, inference = _keep_warmup(
+        generator, ld, n_samples, initial_state, stages, algorithm,
+        collect_warmup_positions, True, reporter)
+    return {
+        "initial_warmup_state": initial_state,
+        "warmup": history,
+        "final_warmup_state": final_state,
+        "inference": inference,
+    }
+
+
 def mcmc_with_warmup(generator: torch.Generator, ld: LogDensity,
                      n_samples: int, initialization: Optional[dict] = None,
                      warmup_stages=None, algorithm: NUTS = NUTS(),
-                     dtype=torch.float32, reporter=None) -> MCMCResult:
-    """NUTS with warmup for one chain (mcmc.jl:575-584): the stepsize
-    search, the staged warmup, then ``n_samples`` draws, on the generator's
-    device with every random number from ``generator``.
+                     dtype=torch.float32, reporter=None,
+                     inline_reporting: bool = False) -> MCMCResult:
+    """NUTS with warmup for one chain (mcmc.jl:575-584): the staged warmup,
+    then ``n_samples`` draws, on the generator's device with every random
+    number from ``generator``.
 
     ``initialization`` takes ``q``, ``metric``, ``eps`` and ``strict``
-    (:func:`warmup.initialize_warmup_state`). Returns positions (N, K),
-    log densities (N,), tree statistics (N,), the adapted metric and eps.
-    Raises when the model's tensors lie on another device. Schedules that
-    are not an optional search followed by homogeneous TuningNUTS blocks, a
-    progress ``reporter`` and a custom turn statistic raise
-    NotImplementedError (not ported)."""
+    (:func:`warmup.initialize_warmup_state`). Any stage tuple runs (see
+    the module docstring) and any ``algorithm``, a custom turn statistic
+    through the generic driver. Returns positions (N, K), log densities
+    (N,), tree statistics (N,), the adapted metric and eps. Raises when
+    the model's tensors lie on another device."""
     from .engine import PER_CHAIN, WarmupSchedule, execute
     from .warmup import default_warmup_stages, initialize_warmup_state
 
-    if reporter is not None:
-        raise NotImplementedError("progress reporters are not ported")
-    if algorithm.turn_statistic_configuration != "generalized":
-        raise NotImplementedError(
-            "custom turn statistics need the generic per-chain driver, which "
-            "is not ported (ROADMAP item 14)")
     stages = (tuple(warmup_stages) if warmup_stages is not None
               else default_warmup_stages())
     schedule = WarmupSchedule.from_stages(stages)
-    if schedule is None:
-        raise NotImplementedError(
-            "only homogeneous schedules (an optional stepsize search, then "
-            "TuningNUTS blocks sharing one metric kind and adaptation) are "
-            "ported")
     state = initialize_warmup_state(generator, ld, dtype=dtype,
                                     **(initialization or {}))
+    if schedule is None:
+        _history, final, inference = _keep_warmup(
+            generator, ld, n_samples, state, stages, algorithm, False, False,
+            reporter)
+        return MCMCResult(positions=inference.positions,
+                          logdensities=inference.logdensities,
+                          tree_statistics=inference.tree_statistics,
+                          metric=final.metric, eps=final.eps)
+    log, step_reporter = _reporting(reporter)
     metric, eps, search_results, inference = execute(
         generator, ld, algorithm, schedule, state.Q, state.metric, state.eps,
-        n_samples, ops=PER_CHAIN)
-    _check_stepsize_search(search_results)
+        n_samples, log=log, ops=PER_CHAIN, reporter=step_reporter)
+    _check_stepsize_search([(None, search_results, None)])
     _q, positions, logdensities, stats = inference
     return MCMCResult(positions=positions, logdensities=logdensities,
                       tree_statistics=stats, metric=metric, eps=eps)
+
+
+# --- stepwise API -----------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StepwiseChunk:
+    """What :meth:`MCMCSteps.next_chunk` returns: ``n`` transitions' draws
+    and diagnostics, the steps on the leading axis."""
+
+    positions: torch.Tensor  # (n, K) or (n, C, K)
+    logdensities: torch.Tensor  # (n,) or (n, C)
+    tree_statistics: TreeStatistics  # fields (n,) or (n, C)
+
+
+@dataclasses.dataclass(frozen=True)
+class MCMCSteps:
+    """Stepwise sampling handle (mcmc.jl:295-341): a fixed algorithm,
+    metric and stepsize; each ``next_step(generator, Q)`` is one
+    transition. One chain's (K,) ``Q`` runs ``nuts.sample_tree``; a (C, K)
+    batch runs ``tree_batched.sample_tree_batched``, which hands the
+    transition to the model's tree kernel or its fused leaf as
+    ``run_chains`` does."""
+
+    ld: LogDensity
+    algorithm: NUTS
+    metric: Metric
+    eps: object
+
+    def next_step(self, generator: torch.Generator, Q: EvaluatedPoint):
+        """One transition (mcmc.jl:348-351): (Q', TreeStatistics)."""
+        from .nuts import sample_tree
+        from .tree_batched import sample_tree_batched
+
+        check_device(self.ld, generator.device)
+        transition = sample_tree_batched if Q.q.ndim == 2 else sample_tree
+        return transition(generator, self.algorithm, self.ld, self.metric, Q,
+                          self.eps)
+
+    def next_chunk(self, generator: torch.Generator, Q: EvaluatedPoint,
+                   n_steps: int):
+        """``n_steps`` (>= 1) transitions: draw for draw the same as
+        ``n_steps`` calls of :meth:`next_step` on the same generator.
+        Returns (Q_final, StepwiseChunk)."""
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        qs, lds, per_draw = [], [], []
+        for _ in range(n_steps):
+            Q, stats = self.next_step(generator, Q)
+            qs.append(Q.q)
+            lds.append(Q.logdensity)
+            per_draw.append(stats)
+        return Q, StepwiseChunk(
+            positions=torch.stack(qs), logdensities=torch.stack(lds),
+            tree_statistics=TreeStatistics(**{
+                f.name: (None if getattr(per_draw[0], f.name) is None else
+                         torch.stack([getattr(s, f.name) for s in per_draw]))
+                for f in dataclasses.fields(TreeStatistics)}))
+
+
+def mcmc_steps(ld: LogDensity, algorithm: NUTS, metric: Metric,
+               eps) -> MCMCSteps:
+    return MCMCSteps(ld=ld, algorithm=algorithm, metric=metric, eps=eps)
+
+
+def mcmc_steps_from_state(ld: LogDensity, algorithm: NUTS,
+                          state) -> MCMCSteps:
+    return MCMCSteps(ld=ld, algorithm=algorithm, metric=state.metric,
+                     eps=state.eps)
 
 
 def _positions_3d(results) -> torch.Tensor:
@@ -120,25 +297,28 @@ def pool_posterior_matrices(results) -> torch.Tensor:
     return positions.reshape(c * n, k).T
 
 
-def _check_stepsize_search(results) -> None:
-    """Raise what the reference throws on a failed bracketing search: a
-    non-finite joint density at the starting point, or no crossing within
-    ``maxiter_crossing`` iterations."""
-    if results is None:
-        return
-    l0 = torch.atleast_1d(results["l0"]).cpu()
-    bad = torch.nonzero(~torch.isfinite(l0)).flatten()
-    if bad.numel():
-        raise DynamicHMCError(
-            "Starting point has non-finite density.",
-            chains=bad.tolist(),
-            logdensity=l0[bad].tolist(),
-        )
-    success = torch.atleast_1d(results["success"]).cpu()
-    if not bool(success.all()):
-        raise DynamicHMCError(
-            "Initial stepsize search reached maximum number of iterations "
-            "without crossing.",
-            eps=results["eps"].cpu(),
-            failed_fraction=float(1 - success.double().mean()),
-        )
+def _check_stepsize_search(history) -> None:
+    """Raise what the reference throws on a failed bracketing search
+    (stepsize.jl:56-59, 77-79): a non-finite joint density at the starting
+    point, or no crossing within ``maxiter_crossing`` iterations.
+    ``history``: (stage, results, state) triples; results with ``l0`` and
+    ``success`` are a search's."""
+    for _stage, results, _state in history:
+        if not isinstance(results, dict) or "l0" not in results:
+            continue
+        l0 = torch.atleast_1d(results["l0"]).cpu()
+        bad = torch.nonzero(~torch.isfinite(l0)).flatten()
+        if bad.numel():
+            raise DynamicHMCError(
+                "Starting point has non-finite density.",
+                chains=bad.tolist(),
+                logdensity=l0[bad].tolist(),
+            )
+        success = torch.atleast_1d(results["success"]).cpu()
+        if not bool(success.all()):
+            raise DynamicHMCError(
+                "Initial stepsize search reached maximum number of iterations "
+                "without crossing.",
+                eps=results["eps"].cpu(),
+                failed_fraction=float(1 - success.double().mean()),
+            )

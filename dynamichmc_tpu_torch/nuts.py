@@ -1,11 +1,11 @@
 """NUTS configuration, per-transition statistics and the per-chain
-transition (port of parts of ``dynamichmc_tpu.nuts``).
+transition (port of ``dynamichmc_tpu.nuts``).
 
-``sample_tree`` is one NUTS transition of one chain through the multinomial
-fast driver (tree.py): the generalized U-turn criterion with its three
-sub-checks, divergence at delta < min_delta, biased progressive sampling.
-The generic progressive-merge driver and custom turn statistics are not
-ported (ROADMAP item 14).
+``sample_tree`` is one NUTS transition of one chain: the generalized U-turn
+criterion with its three sub-checks, divergence at delta < min_delta,
+biased progressive sampling. It runs the multinomial fast driver by
+default and the generic progressive-merge driver (tree.py) with
+``fast=False`` or a custom turn statistic (NUTS.jl:120-139).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from .hamiltonian import (
     EvaluatedPoint,
     PhasePoint,
+    calculate_psharp,
     joint_logdensity,
     leapfrog,
 )
@@ -26,10 +27,14 @@ from .metric import DiagonalMetric, Metric, rand_p
 from .tree import (
     MAX_TREE_DEPTH_BOUND,
     FastTrajectoryOps,
+    MergeNoise,
+    TrajectoryOps,
     TreeNoise,
+    biased_progressive_logprob2,
     exponential_like,
     gumbel_like,
     random_directions,
+    sample_trajectory,
     sample_trajectory_fast,
 )
 
@@ -38,8 +43,12 @@ DEFAULT_MAX_TREE_DEPTH = 10
 
 @dataclasses.dataclass(frozen=True)
 class NUTS:
-    """Algorithm configuration: tree depth cap, divergence threshold and the
-    turn statistic (only ``"generalized"`` has batched drivers)."""
+    """Algorithm configuration (NUTS.jl:178-195): tree depth cap,
+    divergence threshold and the turn statistic. ``"generalized"`` selects
+    the built-in generalized U-turn statistic; an object with
+    ``leaf(metric, z) -> tau`` and ``combine(metric, tau_x, tau_y) -> (tau,
+    turning)`` runs the per-chain transition through the generic driver
+    with that statistic (the batched drivers take only the default)."""
 
     max_depth: int = DEFAULT_MAX_TREE_DEPTH
     min_delta: float = -1000.0
@@ -58,6 +67,41 @@ class NUTS:
                 "turn_statistic_configuration must be 'generalized' or an "
                 "object with leaf(metric, z) and combine(metric, x, y)"
             )
+
+
+@dataclasses.dataclass
+class GeneralizedTurnStatistic:
+    """Edge momenta and velocities and the momentum sum rho
+    (NUTS.jl:107-118)."""
+
+    p_minus: torch.Tensor
+    psharp_minus: torch.Tensor
+    p_plus: torch.Tensor
+    psharp_plus: torch.Tensor
+    rho: torch.Tensor
+
+
+def _is_turning(psharp_minus, psharp_plus, rho):
+    """NUTS.jl:130."""
+    return (torch.dot(psharp_minus, rho) < 0) | (torch.dot(psharp_plus, rho) < 0)
+
+
+def _combine_turn_statistics(x: GeneralizedTurnStatistic,
+                             y: GeneralizedTurnStatistic):
+    """The three-way check of NUTS.jl:132-139; x precedes y in trajectory
+    time. Returns (combined statistic, turning flag as a 0-d bool tensor)."""
+    t1 = _is_turning(x.psharp_minus, y.psharp_minus, x.rho + y.p_minus)
+    t2 = _is_turning(x.psharp_plus, y.psharp_plus, x.p_plus + y.rho)
+    rho = x.rho + y.rho
+    t3 = _is_turning(x.psharp_minus, y.psharp_plus, rho)
+    combined = GeneralizedTurnStatistic(
+        p_minus=x.p_minus,
+        psharp_minus=x.psharp_minus,
+        p_plus=y.p_plus,
+        psharp_plus=y.psharp_plus,
+        rho=rho,
+    )
+    return combined, t1 | t2 | t3
 
 
 @dataclasses.dataclass
@@ -136,6 +180,65 @@ def _leaf_acceptance(delta, is_initial: bool, min_delta: float):
             delta < min_delta)
 
 
+def make_trajectory_ops(ld: LogDensity, metric: Metric, pi0, eps,
+                        min_delta: float,
+                        turn_statistic_configuration="generalized"
+                        ) -> TrajectoryOps:
+    """The generic driver's ops bundle for one transition of one chain
+    (TrajectoryNUTS, NUTS.jl:15-53, 148-159). A non-default
+    ``turn_statistic_configuration`` supplies the leaf/combine pair of the
+    turn statistic (NUTS.jl:120-139). The proposal is the phase point."""
+    custom = turn_statistic_configuration != "generalized"
+    neg_eps = -eps
+
+    def move(z: PhasePoint, is_forward: bool) -> PhasePoint:
+        return leapfrog(ld, metric, z, eps if is_forward else neg_eps)
+
+    def leaf(z: PhasePoint, is_initial: bool):
+        delta = (torch.zeros_like(pi0) if is_initial
+                 else joint_logdensity(metric, z) - pi0)
+        v, divergent = _leaf_acceptance(delta, is_initial, min_delta)
+        if custom:
+            tau = turn_statistic_configuration.leaf(metric, z)
+        else:
+            psharp = calculate_psharp(metric, z)
+            tau = GeneralizedTurnStatistic(
+                p_minus=z.p, psharp_minus=psharp, p_plus=z.p,
+                psharp_plus=psharp, rho=z.p,
+            )
+        return z, delta, tau, divergent, v
+
+    def combine_turn(tau_x, tau_y):
+        if custom:
+            return turn_statistic_configuration.combine(metric, tau_x, tau_y)
+        return _combine_turn_statistics(tau_x, tau_y)
+
+    def combine_proposals(draw, z1: PhasePoint, z2: PhasePoint, logprob2,
+                          is_forward: bool) -> PhasePoint:
+        # accept z2 with probability exp(logprob2) through an
+        # Exponential(1) draw, distributionally NUTS.jl:43-45
+        accept = (logprob2 >= 0) | (draw > -logprob2)
+        return PhasePoint(
+            Q=EvaluatedPoint(
+                q=torch.where(accept, z2.Q.q, z1.Q.q),
+                logdensity=torch.where(accept, z2.Q.logdensity,
+                                       z1.Q.logdensity),
+                grad=torch.where(accept, z2.Q.grad, z1.Q.grad),
+            ),
+            p=torch.where(accept, z2.p, z1.p),
+        )
+
+    return TrajectoryOps(
+        move=move,
+        leaf=leaf,
+        combine_turn=combine_turn,
+        calculate_logprob2=biased_progressive_logprob2,
+        combine_proposals=combine_proposals,
+        combine_visited=combine_acceptance_statistics,
+        visited_identity=acceptance_identity,
+    )
+
+
 class CompactTurnStatistic:
     """The fast driver's turn statistic: one (3, K) tensor with rows
     (p_minus, p_plus, rho). psharp is folded into the dot products
@@ -193,39 +296,62 @@ def sample_tree(generator: Optional[torch.Generator], algorithm: NUTS,
     direction bits and tree noise from ``generator`` (in that order), the
     trajectory tree, and (Q', TreeStatistics of 0-d tensors).
 
-    ``p`` (K,), ``directions`` (the uint32 bits, an int or a 0-d tensor) and
-    ``noise`` (per-chain TreeNoise) are injectable, which makes the
-    transition deterministic. Only the fast driver is ported: ``fast=False``
-    and a custom turn statistic raise."""
-    if not fast or algorithm.turn_statistic_configuration != "generalized":
-        raise NotImplementedError(
-            "the generic per-chain tree driver (fast=False, custom turn "
-            "statistics) and its detailed-balance gate are not ported "
-            "(ROADMAP item 14)")
+    ``fast=True`` runs the multinomial fast driver; ``fast=False`` the
+    generic progressive-merge driver (the semantics oracle), which every
+    custom turn statistic takes. The fast driver's tree noise is a
+    ``TreeNoise``, the generic driver's a ``MergeNoise``; both are drawn as
+    (max_depth, 2**(max_depth-1)) and then (max_depth,) Exponential(1)
+    tensors, so from one generator state both drivers take the same
+    momentum and direction bits. ``p`` (K,), ``directions`` (the uint32
+    bits, an int or a 0-d tensor) and, for the fast driver, ``noise`` are
+    injectable, which makes the transition deterministic; ``noise`` with
+    the generic driver raises ``ValueError``."""
+    if algorithm.turn_statistic_configuration != "generalized":
+        fast = False
+    if noise is not None and not fast:
+        raise ValueError("noise injection requires the fast driver")
     dtype, device = Q.q.dtype, Q.q.device
     md = algorithm.max_depth
     if p is None:
         p = rand_p(generator, metric, dtype=dtype)
     if directions is None:
         directions = random_directions(generator, device)
-    if noise is None:
+    if noise is None and fast:
         noise = TreeNoise(
             gumbel=gumbel_like(generator, (md, 1 << (md - 1)), dtype, device),
             expo=exponential_like(generator, (md,), dtype, device))
+    elif noise is None:
+        noise = MergeNoise(
+            merge=exponential_like(generator, (md, 1 << (md - 1)), dtype,
+                                   device),
+            doubling=exponential_like(generator, (md,), dtype, device))
     else:
         noise = TreeNoise(*(torch.as_tensor(x).to(device, dtype) for x in noise))
     directions = int(directions) & 0xFFFFFFFF
     z = PhasePoint(Q=Q, p=torch.as_tensor(p).to(device, dtype))
     pi0 = joint_logdensity(metric, z)
-    ops = make_fast_trajectory_ops(ld, metric, pi0, eps, algorithm.min_delta)
-    result = sample_trajectory_fast(ops, z, md, directions, noise)
-    payload, v = result.zeta, result.v
+    if fast:
+        ops = make_fast_trajectory_ops(ld, metric, pi0, eps,
+                                       algorithm.min_delta)
+        result = sample_trajectory_fast(ops, z, md, directions, noise)
+        payload = result.zeta
+        Q_new = EvaluatedPoint(q=payload["q"],
+                               logdensity=payload["logdensity"],
+                               grad=payload["grad"])
+        pi_new = payload["pi"]
+    else:
+        ops = make_trajectory_ops(ld, metric, pi0, eps, algorithm.min_delta,
+                                  algorithm.turn_statistic_configuration)
+        result = sample_trajectory(ops, z, md, directions, noise)
+        Q_new = result.zeta.Q
+        pi_new = joint_logdensity(metric, result.zeta)
+    v = result.v
     ints = torch.tensor(
         [result.depth, result.term_left, result.term_right, v.steps,
          directions - (1 << 32) if directions >= 1 << 31 else directions],
         dtype=torch.int32, device=device)
     stats = TreeStatistics(
-        logdensity=payload["pi"],
+        logdensity=pi_new,
         depth=ints[0],
         term_left=ints[1],
         term_right=ints[2],
@@ -234,6 +360,4 @@ def sample_tree(generator: Optional[torch.Generator], algorithm: NUTS,
         steps=ints[3],
         directions=ints[4],
     )
-    Q_new = EvaluatedPoint(q=payload["q"], logdensity=payload["logdensity"],
-                           grad=payload["grad"])
     return Q_new, stats

@@ -1,5 +1,11 @@
 """Batched chains on one device (port of the single-device path of
-``dynamichmc_tpu.parallel.chains``)."""
+``dynamichmc_tpu.parallel.chains``).
+
+A schedule that the engine takes whole (an optional search, then
+TuningNUTS blocks of one metric kind, adaptation and pooling) runs through
+the engine's loop; any other stage tuple through the stage fold
+(warmup.run_warmup) on the batch, each stage pooled or not as it says: the
+counterpart of the JAX package's vmapped runner."""
 
 from __future__ import annotations
 
@@ -12,14 +18,16 @@ from ..engine import WarmupSchedule, execute
 from ..errors import DynamicHMCError
 from ..hamiltonian import evaluate
 from ..logdensity import LogDensity, check_device
-from ..mcmc import MCMCResult, _check_stepsize_search
+from ..mcmc import MCMCResult, _check_stepsize_search, mcmc
 from ..metric import Metric, identity_metric, metric_is_batched
 from ..nuts import NUTS
 from ..warmup import (
     WarmupStage,
     WarmupState,
     default_warmup_stages,
+    first_adapting_stage,
     random_position,
+    run_warmup,
 )
 
 
@@ -83,6 +91,7 @@ def run_chains(
     dtype=torch.float32,
     tune: str = "reference",
     log=None,
+    reporter=None,
     warmup_depth_clamp: Optional[int] = None,
     warmup_depth_clamp_tail: int = 0,
 ) -> MCMCResult:
@@ -95,8 +104,16 @@ def run_chains(
     max_depth 10, no clamp. ``warmup_depth_clamp`` caps the tree doublings
     in every warmup block but the last (0 = no clamp);
     ``warmup_depth_clamp_tail`` extends the cap that many steps into the
-    last block. Returns positions of shape (n_chains, n_samples, K).
+    last block; both need a schedule the engine takes whole.
+    ``reporter=None`` means ``reporting.default_reporter()``; a reporter's
+    messages (each warmup block) go to its ``report_message``, and an
+    explicit ``log`` callable takes precedence. Returns positions of shape
+    (n_chains, n_samples, K).
     """
+    if log is None:
+        from ..reporting import default_reporter, stage_log
+
+        log = stage_log(default_reporter() if reporter is None else reporter)
     if tune != "reference":
         raise NotImplementedError(
             f"tune={tune!r}: only tune='reference' is ported"
@@ -109,18 +126,20 @@ def run_chains(
         warmup_stages = default_warmup_stages()
     if algorithm.turn_statistic_configuration != "generalized":
         raise NotImplementedError(
-            "custom turn statistics need the per-chain generic driver, "
-            "which is not ported"
+            "run_chains with a custom turn statistic needs the generic "
+            "driver looped over the chains, which is not ported (ROADMAP "
+            "Queue 1 item 19); mcmc_with_warmup runs one chain with it"
         )
-    schedule = WarmupSchedule.from_stages(tuple(warmup_stages))
-    if schedule is None:
-        raise NotImplementedError(
-            "only homogeneous schedules (an optional stepsize search, then "
-            "TuningNUTS blocks sharing one metric kind and adaptation) are "
-            "ported"
-        )
+    stages = tuple(warmup_stages)
+    schedule = WarmupSchedule.from_stages(stages)
     if warmup_depth_clamp_tail and warmup_depth_clamp is None:
         raise ValueError("warmup_depth_clamp_tail requires warmup_depth_clamp")
+    if warmup_depth_clamp is not None and schedule is None:
+        raise NotImplementedError(
+            "warmup_depth_clamp requires a schedule the engine takes whole "
+            "(an optional stepsize search, then TuningNUTS blocks sharing "
+            "one metric kind, adaptation and pooling)"
+        )
     if warmup_depth_clamp is not None:
         if not 0 < warmup_depth_clamp <= algorithm.max_depth:
             raise ValueError("warmup_depth_clamp must be in 1..max_depth")
@@ -128,29 +147,58 @@ def run_chains(
             schedule, depth_clamp=warmup_depth_clamp,
             depth_clamp_tail=int(warmup_depth_clamp_tail),
         )
+    if schedule is not None:
+        pooled = schedule.pooled
+    else:  # the chains share a metric from the start if its first estimate pools
+        first = first_adapting_stage(stages)
+        pooled = first is not None and first.pooled
     states = init_chain_states(
-        generator, ld, n_chains, dtype=dtype,
-        broadcast_metric=not schedule.pooled, **initialization,
+        generator, ld, n_chains, dtype=dtype, broadcast_metric=not pooled,
+        **initialization,
     )
+    if pooled:
+        states = dataclasses.replace(states, metric=_shared(states.metric))
+    if schedule is None:
+        return _run_chains_fold(stages, ld, algorithm, n_samples, states,
+                                generator, log=log)
     return _run_chains_fast(schedule, ld, algorithm, n_samples, states,
                             generator, log=log)
+
+
+def _shared(metric: Metric) -> Metric:
+    """One metric for all chains: a per-chain initial metric's first
+    chain's."""
+    if not metric_is_batched(metric):
+        return metric
+    return dataclasses.replace(metric, **{
+        f.name: getattr(metric, f.name)[0] for f in dataclasses.fields(metric)
+    })
+
+
+def _run_chains_fold(stages, ld: LogDensity, algorithm: NUTS, n_samples: int,
+                     states: WarmupState, generator: torch.Generator,
+                     log=None) -> MCMCResult:
+    history, state = run_warmup(generator, ld, algorithm, stages, states,
+                                collect_stats=False, log=log)
+    _check_stepsize_search(history)
+    _q, inference = mcmc(generator, ld, algorithm, state, n_samples)
+    return MCMCResult(
+        positions=inference.positions,
+        logdensities=inference.logdensities,
+        tree_statistics=inference.tree_statistics,
+        metric=state.metric,
+        eps=state.eps,
+    )
 
 
 def _run_chains_fast(schedule: WarmupSchedule, ld: LogDensity,
                      algorithm: NUTS, n_samples: int, states: WarmupState,
                      generator: torch.Generator, log=None) -> MCMCResult:
-    metric0 = states.metric
-    if schedule.pooled and metric_is_batched(metric0):
-        # shared-metric mode: one metric for all chains
-        metric0 = dataclasses.replace(metric0, **{
-            f.name: getattr(metric0, f.name)[0]
-            for f in dataclasses.fields(metric0)
-        })
     metric, eps, search_results, inference = execute(
-        generator, ld, algorithm, schedule, states.Q, metric0, states.eps,
-        n_samples, log=log,
+        generator, ld, algorithm, schedule, states.Q, states.metric,
+        states.eps, n_samples, log=log,
     )
-    _check_stepsize_search(search_results)
+    _check_stepsize_search([(None, search_results, None)])
     _q, positions, logdensities, stats = inference
     return MCMCResult(
         positions=positions,

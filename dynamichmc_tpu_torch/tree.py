@@ -1,9 +1,21 @@
-"""Injected tree randomness, termination encodings and the per-chain fast
-trajectory driver (port of parts of ``dynamichmc_tpu.tree``).
+"""Injected tree randomness, termination encodings and the per-chain
+trajectory drivers (port of ``dynamichmc_tpu.tree``).
 
 Termination is an int32 (left, right) pair mirroring ``InvalidTree``:
 (1, 0) = reached max depth; left == right = divergence at that position;
 left < right = turning over positions left..right.
+
+The generic driver (``sample_trajectory``) is the reference's recursion
+(trees.jl:231-319) over the seven-operation ``TrajectoryOps`` interface
+(trees.jl:45-121), run eagerly for one chain: leaves in traversal order,
+pending subtrees merged at the trailing one bits of the leaf counter, the
+proposals combined progressively (unbiased inside an adjacent tree, biased
+at a doubling). It is the semantics oracle, tested on the dummy integer
+trajectory by the detailed-balance enumeration, and it runs custom turn
+statistics. Each leaf computes its pending merges on the device and then
+reads its discrete outcome (divergent, turned at each merge level) once; a
+divergent leaf's merges are discarded, the reference's early return
+(trees.jl:236-237). Each doubling reads its turn check once.
 
 The per-chain fast driver (``sample_trajectory_fast``) is the JAX package's
 multinomial driver run eagerly for one chain: a running Gumbel-argmax picks
@@ -43,6 +55,25 @@ class TreeNoise(NamedTuple):
 
     gumbel: torch.Tensor
     expo: torch.Tensor
+
+
+class MergeNoise(NamedTuple):
+    """The randomness of the generic driver's proposal combines: one
+    Exponential(1) draw per merge and per doubling, accepting the second
+    proposal when ``draw > -logprob2`` (JAX ``nuts.py:240-247``).
+
+    merge    : (max_depth, 2**(max_depth-1)) indexed [doubling, gap]: the
+               merge inside the depth-d adjacent tree whose first half ends
+               at leaf g (0-based, traversal order) reads merge[d, g]
+    doubling : (max_depth,) indexed [doubling]
+
+    ``nuts.sample_tree(fast=False)`` draws both after the momentum and the
+    direction bits, in that order and with the shapes of ``TreeNoise``, so
+    the two drivers consume a generator alike.
+    """
+
+    merge: torch.Tensor
+    doubling: torch.Tensor
 
 
 def gumbel_like(generator, shape, dtype, device):
@@ -120,10 +151,10 @@ class TrajectoryResult(NamedTuple):
     depth: int
 
 
-def _combine_turn_in_direction(ops: FastTrajectoryOps, tau_first, tau_second,
-                               is_forward: bool):
+def _combine_turn_in_direction(ops, tau_first, tau_second, is_forward: bool):
     """Merge turn statistics where ``tau_first`` precedes ``tau_second`` in
-    traversal order, swapped into trajectory-time order backward."""
+    traversal order, swapped into trajectory-time order backward
+    (trees.jl:135-141); ``ops`` is either driver's bundle."""
     if is_forward:
         return ops.combine_turn(tau_first, tau_second)
     return ops.combine_turn(tau_second, tau_first)
@@ -230,3 +261,158 @@ def sample_trajectory_fast(ops: FastTrajectoryOps, z, max_depth: int,
         left, right = min(term), max(term)
     return TrajectoryResult(zeta=payload, v=v, term_left=left,
                             term_right=right, depth=depth)
+
+
+# --- the generic driver ------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajectoryOps:
+    """The seven-operation trajectory interface (trees.jl:45-121), for one
+    chain, eager.
+
+    move(z, is_forward: bool) -> z'
+        One integrator step in the given direction.
+    leaf(z, is_initial: bool) -> (zeta, omega, tau, divergent, v)
+        The leaf's proposal, log weight, turn statistic, divergence (a 0-d
+        bool tensor) and visited statistics.
+    combine_turn(tau_earlier, tau_later) -> (tau, turning)
+        Merge the turn statistics of two adjacent subtrees given in
+        trajectory-time order; ``turning`` is a 0-d bool tensor (the
+        reference's ``nothing`` return, NUTS.jl:132-139).
+    calculate_logprob2(is_doubling: bool, w1, w2, w) -> logprob2
+        Log probability of selecting the second subtree (trees.jl:94,
+        159-161).
+    combine_proposals(draw, zeta1, zeta2, logprob2, is_forward) -> zeta
+        Combine proposals; zeta1 precedes zeta2 in traversal order
+        (trees.jl:97-104). ``draw`` is the merge's Exponential(1) draw
+        (``MergeNoise``), or None when the driver was given no noise.
+    combine_visited(v1, v2) -> v
+        Commutative merge of visited statistics (trees.jl:73-78).
+    visited_identity(v) -> v0
+        The identity of combine_visited (NUTS.jl:78-80).
+    """
+
+    move: Callable
+    leaf: Callable
+    combine_turn: Callable
+    calculate_logprob2: Callable
+    combine_proposals: Callable
+    combine_visited: Callable
+    visited_identity: Callable
+
+
+def biased_progressive_logprob2(bias: bool, w1, w2, w=None):
+    """trees.jl:159-161: w2 - w1 at a doubling (biased), w2 - logaddexp(w1,
+    w2) inside an adjacent tree."""
+    if w is None:
+        w = torch.logaddexp(w1, w2)
+    return w2 - (w1 if bias else w)
+
+
+def _combine_proposals_and_logweights(ops: TrajectoryOps, draw, zeta1, zeta2,
+                                      w1, w2, is_forward: bool,
+                                      is_doubling: bool):
+    """trees.jl:143-149."""
+    w = torch.logaddexp(w1, w2)
+    logprob2 = ops.calculate_logprob2(is_doubling, w1, w2, w)
+    return ops.combine_proposals(draw, zeta1, zeta2, logprob2, is_forward), w
+
+
+def _adjacent_tree(ops: TrajectoryOps, z, i: int, depth: int,
+                   is_forward: bool, max_depth: int,
+                   noise: Optional[MergeNoise], v_identity) -> dict:
+    """The depth-``depth`` adjacent tree from edge ``z`` at position ``i``
+    (trees.jl:231-262), iteratively: after leaf n the pending subtrees at
+    the trailing one bits of n merge with it, level by level, which is the
+    recursion's merge order. The stack holds one pending (zeta, omega, tau)
+    node per level; the completed tree's node is the last one merged."""
+    step = 1 if is_forward else -1
+    n_leaves = 1 << depth
+    stack = [None] * max_depth
+    v = v_identity
+    node = None
+    valid, left, right, n = True, 0, 0, 0
+    while n < n_leaves and valid:
+        z = ops.move(z, is_forward)
+        i_new = i + step * (n + 1)
+        zeta, omega, tau, divergent, v_leaf = ops.leaf(z, False)
+        v = ops.combine_visited(v, v_leaf)
+        node = (zeta, omega, tau)
+        turnings, level = [], 0
+        while (n >> level) & 1:  # merge pending subtrees (trailing one bits)
+            zeta1, w1, tau1 = stack[level]
+            tau_c, turning = _combine_turn_in_direction(ops, tau1, node[2],
+                                                        is_forward)
+            draw = None if noise is None else noise.merge[depth,
+                                                          n - (1 << level)]
+            zeta_c, w_c = _combine_proposals_and_logweights(
+                ops, draw, zeta1, node[0], w1, node[1], is_forward, False)
+            node = (zeta_c, w_c, tau_c)
+            turnings.append(turning)
+            level += 1
+        flags = torch.stack([divergent, *turnings]).tolist()
+        turned_at = next((lv for lv, t in enumerate(flags[1:]) if t), None)
+        if flags[0] or turned_at is not None:
+            valid = False
+            if flags[0]:  # divergent: its merges are discarded
+                left = i_new
+            else:  # first leaf of the merged subtree that turned
+                a = n - (1 << (turned_at + 1)) + 1
+                left = i + step * (a + 1)
+            right = i_new
+        else:
+            stack[level] = node
+        n += 1
+    zeta, omega, tau = node if valid else (None, None, None)
+    return {"valid": valid, "left": left, "right": right, "z": z,
+            "i": i + step * n, "v": v, "zeta": zeta, "omega": omega,
+            "tau": tau}
+
+
+def sample_trajectory(ops: TrajectoryOps, z, max_depth: int, directions: int,
+                      noise: Optional[MergeNoise] = None) -> TrajectoryResult:
+    """Doubling driver of the generic adjacent tree (trees.jl:283-319) for
+    one chain. ``directions``: the uint32 direction bits as a Python int;
+    ``noise``: the merge draws handed to ``combine_proposals`` (None hands
+    it None, for deterministic ops such as the dummy trajectory's)."""
+    if not 0 < max_depth <= MAX_TREE_DEPTH_BOUND:
+        raise ValueError(f"max_depth must be in 1..{MAX_TREE_DEPTH_BOUND}")
+    zeta, omega, tau, _div, v = ops.leaf(z, True)
+    v_identity = ops.visited_identity(v)
+    z_minus = z_plus = z
+    i_minus = i_plus = 0
+    depth = 0
+    term = TERM_MAX_DEPTH
+    while depth < max_depth:
+        is_forward, directions = next_direction(directions)
+        z_edge, i_edge = (z_plus, i_plus) if is_forward else (z_minus, i_minus)
+        adj = _adjacent_tree(ops, z_edge, i_edge, depth, is_forward,
+                             max_depth, noise, v_identity)
+        v = ops.combine_visited(v, adj["v"])
+        if not adj["valid"]:  # no doubling (trees.jl:297)
+            term = (adj["left"], adj["right"])
+            break
+        if is_forward:
+            z_plus, i_plus = adj["z"], adj["i"]
+        else:
+            z_minus, i_minus = adj["z"], adj["i"]
+        # the proposal of a doubling that turns is kept: the reference
+        # combines and counts the depth before the turn check
+        # (trees.jl:310-316)
+        draw = None if noise is None else noise.doubling[depth]
+        zeta, omega = _combine_proposals_and_logweights(
+            ops, draw, zeta, adj["zeta"], omega, adj["omega"], is_forward,
+            True)
+        depth += 1
+        tau_c, turning = _combine_turn_in_direction(ops, tau, adj["tau"],
+                                                    is_forward)
+        if bool(turning):
+            term = (i_minus, i_plus)
+            break
+        tau = tau_c
+    left, right = term
+    if term != TERM_MAX_DEPTH:
+        left, right = min(term), max(term)
+    return TrajectoryResult(zeta=zeta, v=v, term_left=left, term_right=right,
+                            depth=depth)

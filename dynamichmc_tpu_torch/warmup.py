@@ -1,10 +1,16 @@
-"""Staged warmup configuration and metric estimation (port of parts of
-``dynamichmc_tpu.warmup``).
+"""Staged warmup: configuration, metric estimation and the stage fold
+(port of ``dynamichmc_tpu.warmup``).
 
 The Stan-like windowed schedule: stepsize search, 75 eps-only steps,
 25/50/100/200/400 eps+metric blocks, 50 eps-only steps. The metric is
 re-estimated from streaming Welford moments, optionally pooled over all
 chains (one shared metric).
+
+``run_warmup`` is the reference's left fold over any stage tuple
+(mcmc.jl:450-457), for one (K,) chain or a (C, K) batch. Each TuningNUTS
+stage runs as a one-block schedule through the engine's loop
+(engine.run_warmup), so a schedule the engine takes whole gives the same
+draws through either.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .errors import DynamicHMCError
 from .hamiltonian import EvaluatedPoint, evaluate, evaluate_strict
 from .logdensity import LogDensity, check_device
 from .metric import Metric, dense_metric, diagonal_metric, identity_metric
@@ -170,3 +177,109 @@ def estimate_metric(welford: WelfordState, kind: str,
         )
         return dense_metric(reg)
     raise ValueError(kind)
+
+
+# --- the stage fold ---------------------------------------------------------
+
+
+def first_adapting_stage(stages, start: int = 0) -> Optional[TuningNUTS]:
+    """The first metric-adapting TuningNUTS stage at or after index
+    ``start``, or None."""
+    for stage in stages[start:]:
+        if isinstance(stage, TuningNUTS) and stage.metric_kind != "none":
+            return stage
+    return None
+
+
+def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
+                 stage: WarmupStage, state: WarmupState,
+                 collect_positions: bool = False, collect_stats: bool = True,
+                 log=None, reporter=None, metric_kind: Optional[str] = None):
+    """Run one warmup stage on one (K,) chain or a (C, K) batch, as the
+    state's positions say; returns (results, state').
+
+    ``results`` is None for a None stage (mcmc.jl:99-101), ``{eps,
+    success, l0}`` for a stepsize search, and for a TuningNUTS stage each
+    step's ``logdensities``, ``tree_statistics`` and ``epss`` (with
+    ``collect_positions``, ``positions``), steps on the axis after the
+    chain axis; ``{}`` with ``collect_stats=False``. A batch pools the
+    Welford moments over its chains when the stage is ``pooled``.
+    ``metric_kind``: run the transitions with the metric promoted to this
+    kind (a diagonal metric to its dense form; numerically a no-op), as
+    the engine promotes the metric of a whole dense schedule. ``log``
+    receives the search's message, ``reporter`` (a step reporter) every
+    transition."""
+    from .engine import (
+        PER_CHAIN,
+        WarmupSchedule,
+        batched_ops,
+        promote_metric,
+        run_warmup as run_blocks,
+        stepsize_message,
+    )
+
+    if stage is None:
+        return None, state
+    batched = state.Q.q.ndim == 2
+    if isinstance(stage, InitialStepsizeSearch):
+        if state.eps is not None:
+            raise DynamicHMCError(
+                "stepsize eps manually specified, won't perform initial search"
+            )
+        ops = batched_ops(False) if batched else PER_CHAIN
+        eps, success, l0 = ops.make_search(ld, stage)(generator, state.Q,
+                                                      state.metric)
+        if log is not None:
+            log(stepsize_message(eps))
+        return ({"eps": eps, "success": success, "l0": l0},
+                WarmupState(Q=state.Q, metric=state.metric, eps=eps))
+    if not isinstance(stage, TuningNUTS):
+        raise TypeError(f"not a warmup stage: {stage!r}")
+    if state.eps is None:
+        raise DynamicHMCError("no stepsize: run a stepsize search stage first")
+    kind = stage.metric_kind
+    schedule = WarmupSchedule(
+        search=None, block_sizes=(stage.N,), update_metric=(kind != "none",),
+        metric_kind=kind, shrinkages=(stage.shrinkage,),
+        adaptation=stage.stepsize_adaptation, pooled=stage.pooled)
+    metric = (state.metric if metric_kind is None
+              else promote_metric(state.metric, metric_kind))
+    blocks = [] if collect_stats or collect_positions else None
+    Q, metric, eps = run_blocks(
+        generator, ld, algorithm, schedule, state.Q, metric, state.eps,
+        ops=batched_ops(stage.pooled) if batched else PER_CHAIN,
+        blocks=blocks, collect_positions=collect_positions, reporter=reporter)
+    if blocks is None:
+        return {}, WarmupState(Q=Q, metric=metric, eps=eps)
+    results, new_state = blocks[0]
+    if not collect_stats:
+        results = {"positions": results["positions"]}
+    return results, new_state
+
+
+def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
+               stages: Tuple[WarmupStage, ...], state: WarmupState,
+               collect_positions: bool = False, collect_stats: bool = True,
+               log=None, reporter=None):
+    """Left fold of warmup stages (mcmc.jl:450-457) over one chain or a
+    batch, every random number from ``generator`` in stage order. Returns
+    (history, final state), ``history`` a list of (stage, results,
+    state after the stage) aligned with ``stages``.
+
+    Each TuningNUTS stage runs with its metric promoted to the kind of the
+    next metric-adapting stage at or after it, so a diagonal stage keeps a
+    diagonal metric and a dense block (and the eps-only stages before it)
+    runs with a dense one. ``log`` receives a message per stage."""
+    stages = tuple(stages)
+    history = []
+    for s, stage in enumerate(stages):
+        adapting = first_adapting_stage(stages, s)
+        results, state = warmup_stage(
+            generator, ld, algorithm, stage, state,
+            collect_positions=collect_positions, collect_stats=collect_stats,
+            log=log, reporter=reporter,
+            metric_kind=None if adapting is None else adapting.metric_kind)
+        history.append((stage, results, state))
+        if log is not None and isinstance(stage, TuningNUTS):
+            log(f"warmup stage {s + 1}/{len(stages)} done ({stage.N} steps)")
+    return history, state

@@ -867,3 +867,139 @@ def test_cuda_plain_driver_launches_the_leaf_kernel():
     assert gaussian_leaf.launches == tb.fused_leaf_calls > 0
     assert res.metric.m_inv.shape == (256, 25)
     assert bool(torch.isfinite(res.positions).all())
+
+
+# --- the per-chain API and the stage fold on the card -----------------------
+
+@pytest.mark.gpu
+def test_cuda_keep_warmup_equals_mcmc_with_warmup_bitwise():
+    """mcmc_keep_warmup (the stage fold) and mcmc_with_warmup (the engine
+    loop) from one seed on the card, every leapfrog through K4: the same
+    draws, eps and metric bit for bit."""
+    from dynamichmc_tpu_torch import (
+        hamiltonian, mcmc_keep_warmup, mcmc_with_warmup)
+
+    dev = _device()
+    model = _gaussian_model(25)
+    gaussian_leapfrog.reset_launches()
+    hamiltonian.reset_leapfrog_calls()
+    out = mcmc_keep_warmup(torch.Generator(device=dev).manual_seed(0), model,
+                           100)
+    res = mcmc_with_warmup(torch.Generator(device=dev).manual_seed(0), model,
+                           100)
+    torch.cuda.synchronize()
+    assert gaussian_leapfrog.launches == hamiltonian.leapfrog_calls > 0
+    final = out["final_warmup_state"]
+    assert torch.equal(out["inference"].positions, res.positions)
+    assert torch.equal(final.eps, res.eps)
+    assert torch.equal(final.metric.m_inv, res.metric.m_inv)
+    assert [h[1]["positions"].shape[0] for h in out["warmup"][1:]] == [
+        75, 25, 50, 100, 200, 400, 50]
+
+
+class _GeneralizedReimpl:
+    """The generalized statistic as a custom configuration."""
+
+    def leaf(self, metric, z):
+        from dynamichmc_tpu_torch.hamiltonian import calculate_psharp
+        from dynamichmc_tpu_torch.nuts import GeneralizedTurnStatistic
+
+        s = calculate_psharp(metric, z)
+        return GeneralizedTurnStatistic(p_minus=z.p, psharp_minus=s,
+                                        p_plus=z.p, psharp_plus=s, rho=z.p)
+
+    def combine(self, metric, x, y):
+        from dynamichmc_tpu_torch.nuts import _combine_turn_statistics
+
+        return _combine_turn_statistics(x, y)
+
+
+@pytest.mark.gpu
+def test_cuda_generic_driver_launches_the_leapfrog_kernel():
+    """A custom turn statistic and a schedule the engine cannot take whole
+    (a FixedStepsize block after dual averaging) through mcmc_with_warmup:
+    the generic driver and the stage fold, every leapfrog a K4 launch (the
+    metric stays diagonal: K4, like the JAX kernel, takes no dense one),
+    finite draws."""
+    from dynamichmc_tpu_torch import (
+        NUTS, FixedStepsize, InitialStepsizeSearch, TuningNUTS, hamiltonian,
+        mcmc_with_warmup)
+
+    dev = _device()
+    model = _gaussian_model(25)
+    stages = (InitialStepsizeSearch(), TuningNUTS(N=75),
+              TuningNUTS(N=50, metric_kind="diagonal"),
+              TuningNUTS(N=50, metric_kind="diagonal",
+                         stepsize_adaptation=FixedStepsize()))
+    gaussian_leapfrog.reset_launches()
+    hamiltonian.reset_leapfrog_calls()
+    res = mcmc_with_warmup(
+        torch.Generator(device=dev).manual_seed(1), model, 100,
+        warmup_stages=stages,
+        algorithm=NUTS(turn_statistic_configuration=_GeneralizedReimpl()))
+    torch.cuda.synchronize()
+    assert gaussian_leapfrog.launches == hamiltonian.leapfrog_calls > 0
+    assert res.metric.m_inv.shape == (25,)
+    assert res.positions.shape == (100, 25)
+    assert bool(torch.isfinite(res.positions).all())
+
+
+@pytest.mark.gpu
+def test_cuda_batched_next_chunk_launches_the_leaf_kernel():
+    """The stepwise API on a (C, K) batch with a per-chain diagonal metric:
+    every leaf of the plain driver launches K2, and next_chunk is 16
+    next_step calls bit for bit."""
+    from dynamichmc_tpu_torch import NUTS, mcmc_steps
+    from dynamichmc_tpu_torch import tree_batched as tb
+    from dynamichmc_tpu_torch.hamiltonian import evaluate
+
+    dev = _device()
+    model = _gaussian_model(25)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    C = 512
+    metric = diagonal_metric(0.5 + torch.rand((C, 25), generator=gen,
+                                              device=dev))
+    eps = 0.3 + 0.2 * torch.rand((C,), generator=gen, device=dev)
+    Q = evaluate(model, torch.randn((C, 25), generator=gen, device=dev))
+    steps = mcmc_steps(model, NUTS(), metric, eps)
+    gaussian_leaf.reset_launches()
+    tb.reset_fused_leaf_calls()
+    Q_fin, chunk = steps.next_chunk(torch.Generator(device=dev).manual_seed(3),
+                                    Q, 16)
+    torch.cuda.synchronize()
+    assert gaussian_leaf.launches == tb.fused_leaf_calls > 0
+    assert chunk.positions.shape == (16, C, 25)
+    assert bool(torch.isfinite(chunk.positions).all())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for i in range(16):
+        Q, _stats = steps.next_step(gen, Q)
+        assert torch.equal(Q.q, chunk.positions[i])
+    assert torch.equal(Q.q, Q_fin.q)
+
+
+@pytest.mark.gpu
+def test_cuda_heterogeneous_run_chains_takes_the_warp_kernel():
+    """run_chains with pooled diagonal blocks then pooled dense blocks (the
+    stage fold on the batch) on correlated_gaussian(100, tree_kernel=True):
+    every transition a launch of K1's warp variant, the metric shared."""
+    from dynamichmc_tpu_torch import (
+        NUTS, InitialStepsizeSearch, TuningNUTS, run_chains)
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = _device()
+    model = correlated_gaussian(100, dtype=F32, device=dev, tree_kernel=True)
+    stages = (InitialStepsizeSearch(), TuningNUTS(N=75),
+              TuningNUTS(N=25, metric_kind="diagonal", pooled=True),
+              TuningNUTS(N=50, metric_kind="diagonal", pooled=True),
+              TuningNUTS(N=100, metric_kind="dense", pooled=True),
+              TuningNUTS(N=50))
+    reset_launch_counts()
+    res = run_chains(torch.Generator(device=dev).manual_seed(0), model, 512,
+                     64, warmup_stages=stages, algorithm=NUTS(max_depth=4))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    transitions = sum(stage.N for stage in stages[1:]) + 64
+    assert counts["tree_transition"] == counts["tree_transition_warp"] \
+        == transitions
+    assert res.metric.m_inv.shape == (100, 100)  # shared, dense
+    assert bool(torch.isfinite(res.positions).all())

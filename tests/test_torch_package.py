@@ -203,16 +203,24 @@ def test_init_chain_states_strict_check():
 
 
 def test_stepsize_search_check_raises():
+    """The check reads a warmup history, as JAX ``_check_stepsize_search``
+    does: only the search's results (the entries with l0) are checked."""
     ok = torch.tensor([True, True])
-    _check_stepsize_search({"eps": torch.ones(2), "success": ok,
-                            "l0": torch.zeros(2)})
+
+    def history(results):
+        return [(None, None, None), (None, results, None),
+                (None, {"epss": torch.ones(3)}, None)]
+
+    _check_stepsize_search(history({"eps": torch.ones(2), "success": ok,
+                                    "l0": torch.zeros(2)}))
     with pytest.raises(DynamicHMCError, match="non-finite density"):
-        _check_stepsize_search({"eps": torch.ones(2), "success": ok,
-                                "l0": torch.tensor([0.0, -float("inf")])})
+        _check_stepsize_search(history({
+            "eps": torch.ones(2), "success": ok,
+            "l0": torch.tensor([0.0, -float("inf")])}))
     with pytest.raises(DynamicHMCError, match="without crossing"):
-        _check_stepsize_search({"eps": torch.ones(2),
-                                "success": torch.tensor([True, False]),
-                                "l0": torch.zeros(2)})
+        _check_stepsize_search(history({
+            "eps": torch.ones(2), "success": torch.tensor([True, False]),
+            "l0": torch.zeros(2)}))
 
 
 def test_nuts_validation():

@@ -301,19 +301,35 @@ def test_evaluate_strict_raises_with_payload():
 
 
 def test_mcmc_with_warmup_error_paths():
+    """What still raises, and what used to raise before the stage fold,
+    the reporters and the generic driver were ported and now runs."""
+    from dynamichmc_tpu_torch.reporting import NoProgressReport
+
     model = tm.std_normal(2, dtype=torch.float32, device="cpu")
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(DynamicHMCError, match="manually specified"):
         mcmc_with_warmup(gen, model, 5, initialization={"eps": 0.1})
-    with pytest.raises(NotImplementedError, match="homogeneous"):
+    with pytest.raises(DynamicHMCError, match="no stepsize"):
         mcmc_with_warmup(gen, model, 5, warmup_stages=(
             TuningNUTS(N=20, metric_kind="dense"),
             TuningNUTS(N=20, metric_kind="diagonal")))
-    with pytest.raises(NotImplementedError, match="reporter"):
-        mcmc_with_warmup(gen, model, 5, reporter=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sample_tree(gen, NUTS(), model, convert.metric(j_diag(jnp.ones(2))),
-                    evaluate(model, torch.zeros(2)), 0.1, fast=False)
+    # a heterogeneous schedule runs through the stage fold: the metric of
+    # its last adapting stage (diagonal) comes back
+    res = mcmc_with_warmup(gen, model, 5, initialization={"eps": 0.5},
+                           warmup_stages=(
+                               TuningNUTS(N=20, metric_kind="dense"),
+                               TuningNUTS(N=20, metric_kind="diagonal")))
+    assert res.positions.shape == (5, 2) and res.metric.m_inv.shape == (2,)
+    assert bool(torch.isfinite(res.positions).all()) and float(res.eps) > 0
+    # a reporter runs
+    res = mcmc_with_warmup(gen, model, 5, reporter=NoProgressReport())
+    assert res.positions.shape == (5, 2)
+    # the generic driver runs: one transition with finite statistics
+    Q, stats = sample_tree(gen, NUTS(), model,
+                           convert.metric(j_diag(jnp.ones(2))),
+                           evaluate(model, torch.zeros(2)), 0.1, fast=False)
+    assert Q.q.shape == (2,) and bool(torch.isfinite(Q.q).all())
+    assert int(stats.steps) >= 1 and 0 <= float(stats.acceptance_rate) <= 1
     # a manual eps without a search stage runs
     res = mcmc_with_warmup(gen, model, 5, initialization={"eps": 0.5},
                            warmup_stages=(TuningNUTS(N=20),))

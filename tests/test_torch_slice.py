@@ -84,10 +84,18 @@ def test_port_rejects_what_is_not_ported():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="tune"):
         run_chains(gen, model, 4, 10, tune="auto")
-    with pytest.raises(NotImplementedError, match="homogeneous"):
-        run_chains(gen, model, 4, 10, warmup_stages=(
-            TuningNUTS(N=20, metric_kind="dense"),
-            TuningNUTS(N=20, metric_kind="diagonal")))
+    mixed = (InitialStepsizeSearch(), TuningNUTS(N=20, metric_kind="dense"),
+             TuningNUTS(N=20, metric_kind="diagonal"))
+    # a heterogeneous schedule runs through the stage fold on the batch;
+    # the clamp still needs a schedule the engine takes whole
+    res = run_chains(gen, model, 4, 10, warmup_stages=mixed,
+                     algorithm=NUTS(max_depth=4))
+    assert res.positions.shape == (4, 10, K)
+    assert res.metric.m_inv.shape == (4, K)  # per-chain diagonal, last
+    assert bool(torch.isfinite(res.positions).all())
+    with pytest.raises(NotImplementedError, match="warmup_depth_clamp"):
+        run_chains(gen, model, 4, 10, warmup_stages=mixed,
+                   warmup_depth_clamp=2)
     with pytest.raises(ValueError, match="warmup_depth_clamp"):
         run_chains(gen, model, 4, 10, algorithm=NUTS(max_depth=3),
                    warmup_depth_clamp=5)
