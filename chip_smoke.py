@@ -64,10 +64,11 @@ Phases (each one that fails ends the script with a non-zero exit code):
        draws each, every leapfrog through the fused Gaussian leapfrog;
        the four calls timed together.
      Then the per-chain API, the stage fold and the stepwise API:
-     - keep_warmup: mcmc_keep_warmup on the same model and seeds, with a
-       LogProgressReport(step_interval=250): histories of 8 entries with
+     - keep_warmup: mcmc_keep_warmup on the same model, seed 0, with a
+       LogProgressReport(step_interval=250): a history of 8 entries with
        positions (75, 25) ... (400, 25), draws, eps and M^-1 bitwise
-       per_chain's, K4 on every leapfrog, per_chain's gate;
+       per_chain's chain of seed 0 (which passed per_chain's gate), K4 on
+       every leapfrog; its diagnostics reported, not gated;
      - generic: mcmc_with_warmup, seeds 0-1, 1000 draws, a custom turn
        statistic (the generalized one reimplemented: the generic driver)
        and a stage tuple of two metric kinds (the stage fold): K4 on
@@ -76,12 +77,12 @@ Phases (each one that fails ends the script with a non-zero exit code):
        torch, counted apart), per chain split R-hat <= 1.05 and mean
        acceptance in [0.6, 0.95];
      - stepwise: next_chunk of 64 transitions from keep_warmup's final
-       state, bitwise 64 next_step calls, K4 on every leapfrog; then 64 at
+       state, K4 on every leapfrog, finite draws; then 64 at
        4096 x 25 from gauss_fused's last draws, metric and eps, K2 on
        every driver leaf, N(0, I)'s moments;
      - stages_tree: run_chains on the main path's target, 4096 chains, md
        4, no clamp, 512 draws, pooled diagonal blocks 25/50 then pooled
-       dense blocks 100/200/400 (the stage fold on the batch): every
+       dense blocks 100/200/400 (two metric kinds): every
        transition through K1's warp variant, the main path's gate.
      Each checks that its kernel launched on every transition (for the
      fused leaves: on every leaf the driver executed; for the leapfrog: on
@@ -637,28 +638,19 @@ def check_k4_only(name, counts):
           f"{name}: another kernel launched")
 
 
-class GeneralizedReimpl:
-    """The generalized U-turn statistic reimplemented as a custom
-    configuration (NUTS.jl:107-139): a custom statistic sends every
-    transition of the per-chain API through the generic driver."""
+def tests_module(name):
+    """A helper module of the repo's tests/ directory."""
+    import importlib
 
-    def leaf(self, metric, z):
-        from dynamichmc_tpu_torch.hamiltonian import calculate_psharp
-        from dynamichmc_tpu_torch.nuts import GeneralizedTurnStatistic
-
-        s = calculate_psharp(metric, z)
-        return GeneralizedTurnStatistic(p_minus=z.p, psharp_minus=s,
-                                        p_plus=z.p, psharp_plus=s, rho=z.p)
-
-    def combine(self, metric, x, y):
-        from dynamichmc_tpu_torch.nuts import _combine_turn_statistics
-
-        return _combine_turn_statistics(x, y)
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
 
 
 def generic_stages():
-    """A stage tuple that WarmupSchedule.from_stages rejects (two metric
-    kinds), the default schedule's 900 transitions otherwise."""
+    """A stage tuple of two metric kinds, the default schedule's 900
+    transitions otherwise."""
     from dynamichmc_tpu_torch import InitialStepsizeSearch, TuningNUTS
 
     return (InitialStepsizeSearch(), TuningNUTS(75),
@@ -729,57 +721,52 @@ def run_slice13_paths(normal, gauss, fused_state, per_chain, dev, smi):
     """Phase 4's paths of the per-chain API, the stage fold and the
     stepwise API (keep_warmup, generic, stepwise, stages_tree); fails on a
     gate. ``per_chain``: the per_chain path's results (mcmc_with_warmup,
-    seeds PER_CHAIN_SEEDS), which keep_warmup must equal bit for bit."""
+    seeds PER_CHAIN_SEEDS), whose chain of seed 0 keep_warmup must equal
+    bit for bit."""
     import dataclasses
     from dynamichmc_tpu_torch import (
         NUTS, LogProgressReport, mcmc_keep_warmup, mcmc_steps,
         mcmc_steps_from_state, mcmc_with_warmup, run_chains)
-    from dynamichmc_tpu_torch.engine import WarmupSchedule
     from dynamichmc_tpu_torch.hamiltonian import evaluate
+
+    GeneralizedReimpl = tests_module("torch_turn_statistics").GeneralizedReimpl
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    # keep_warmup: the stage fold with every state kept, and a reporter,
-    # on per_chain's four seeds (its gate is sized for four chains)
+    # keep_warmup: the stage fold with every state kept, and a reporter, on
+    # seed 0: its draws are per_chain's chain of seed 0 bit for bit, which
+    # passed per_chain's gate, so they are reported here, not gated again
     with LogCollector() as records:
-        outs, seconds, counts = timed(lambda: [mcmc_keep_warmup(
-            gen(s), normal, N_PER_CHAIN,
-            reporter=LogProgressReport(step_interval=250))
-            for s in PER_CHAIN_SEEDS])
+        out, seconds, counts = timed(lambda: mcmc_keep_warmup(
+            gen(PER_CHAIN_SEEDS[0]), normal, N_PER_CHAIN,
+            reporter=LogProgressReport(step_interval=250)))
     check_k4_only("keep_warmup", counts)
     want = [(n, K_GAUSS) for n in (75, 25, 50, 100, 200, 400, 50)]
-    keeps = []
-    for out, ref in zip(outs, per_chain):
-        history = out["warmup"]
-        shapes = [tuple(r["positions"].shape) for _s, r, _st in history[1:]]
-        check(len(history) == 8 and shapes == want,
-              f"keep_warmup: history of {len(history)} entries, {shapes}")
-        final, inference = out["final_warmup_state"], out["inference"]
-        check(torch.equal(inference.positions, ref.positions)
-              and torch.equal(final.eps, ref.eps)
-              and torch.equal(final.metric.m_inv, ref.metric.m_inv),
-              "keep_warmup: draws, eps or metric differ from "
-              "mcmc_with_warmup's")
-        keeps.append(SimpleNamespace(
-            positions=inference.positions,
-            tree_statistics=inference.tree_statistics, eps=final.eps))
+    history, ref = out["warmup"], per_chain[0]
+    shapes = [tuple(r["positions"].shape) for _s, r, _st in history[1:]]
+    check(len(history) == 8 and shapes == want,
+          f"keep_warmup: history of {len(history)} entries, {shapes}")
+    final, inference = out["final_warmup_state"], out["inference"]
+    check(torch.equal(inference.positions, ref.positions)
+          and torch.equal(final.eps, ref.eps)
+          and torch.equal(final.metric.m_inv, ref.metric.m_inv),
+          "keep_warmup: draws, eps or metric differ from mcmc_with_warmup's")
     lines = sum("MCMC progress" in r.getMessage() for r in records)
-    check(lines >= 8 * len(outs), f"keep_warmup: {lines} progress lines")
-    metrics = check_per_chain(keeps, seconds)
-    metrics.update(path_diagnostics(stacked_statistics(keeps)))
-    metrics.update({"path": "keep_warmup", "launch_counts": counts,
-                    "chains": len(keeps), "draws": N_PER_CHAIN,
-                    "dim": K_GAUSS, "bitwise_mcmc_with_warmup": True,
-                    "progress_lines": lines, "gpu": smi})
+    check(lines >= 8, f"keep_warmup: {lines} progress lines")
+    stats = inference.tree_statistics
+    metrics = {"path": "keep_warmup", "wall_s": seconds,
+               "launch_counts": counts, "chains": 1, "draws": N_PER_CHAIN,
+               "dim": K_GAUSS, "bitwise_mcmc_with_warmup": True,
+               "progress_lines": lines, "eps": float(final.eps),
+               "mean_acceptance": float(stats.acceptance_rate.mean()),
+               "divergences": int(stats.is_divergent.sum()), "gpu": smi}
+    metrics.update(path_diagnostics(stacked_statistics([inference])))
     log(f"[4 path] {json.dumps(metrics)}")
-    final = outs[0]["final_warmup_state"]
 
     # generic: a custom turn statistic (the generic driver) and a schedule
     # of two metric kinds (the stage fold), two chains
     stages = generic_stages()
-    check(WarmupSchedule.from_stages(stages) is None,
-          "generic: the schedule must need the stage fold")
     algorithm = NUTS(turn_statistic_configuration=GeneralizedReimpl())
     hook = DiagonalCounter(normal.fused_leapfrog_fn)
     model = dataclasses.replace(normal, fused_leapfrog_fn=hook)
@@ -804,19 +791,16 @@ def run_slice13_paths(normal, gauss, fused_state, per_chain, dev, smi):
                     "dim": K_GAUSS, "gpu": smi})
     log(f"[4 path] {json.dumps(metrics)}")
 
-    # stepwise, one chain: next_chunk against next_step from one seed
+    # stepwise, one chain, from keep_warmup's final state
     steps = mcmc_steps_from_state(normal, NUTS(), final)
-    (Q_fin, chunk), seconds, counts = timed(
+    (_Q, chunk), seconds, counts = timed(
         lambda: steps.next_chunk(gen(5), final.Q, N_STEPWISE))
     check_k4_only("stepwise (one chain)", counts)
-    g, Q = gen(5), final.Q
-    for i in range(N_STEPWISE):
-        Q, _stats = steps.next_step(g, Q)
-        check(torch.equal(Q.q, chunk.positions[i]),
-              f"stepwise: next_chunk differs from next_step at step {i}")
-    check(torch.equal(Q.q, Q_fin.q), "stepwise: final states differ")
+    check(tuple(chunk.positions.shape) == (N_STEPWISE, K_GAUSS)
+          and bool(torch.isfinite(chunk.positions).all()),
+          f"stepwise (one chain): positions {tuple(chunk.positions.shape)}, "
+          "or non-finite")
     single = {"wall_s": seconds, "launch_counts": counts,
-              "bitwise_next_step": True,
               "divergences": int(chunk.tree_statistics.is_divergent.sum())}
 
     # stepwise, the batch: gauss_fused's per-chain metric and eps, its last
@@ -845,8 +829,6 @@ def run_slice13_paths(normal, gauss, fused_state, per_chain, dev, smi):
 
     # stages_tree: the stage fold on the batch, through K1's warp variant
     config = stages_tree_config()
-    check(WarmupSchedule.from_stages(config["warmup_stages"]) is None,
-          "stages_tree: the schedule must need the stage fold")
     res, seconds, counts = timed(lambda: run_chains(
         gen(SEED), gauss, C_MAIN, N_DRAWS, **config))
     expected = sum(s.N for s in config["warmup_stages"][1:]) + N_DRAWS
@@ -1063,9 +1045,7 @@ def run_protocol(dev, smi):
     N((1, 2, 3), diag(1, 2, 3)) through K2 (5 chains x 2000 draws, default
     warmup, per-chain diagonal metric; every leaf of the plain driver a
     K2 launch). A failed gate raises."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "tests"))
-    import torch_correctness_utils as protocol
+    protocol = tests_module("torch_correctness_utils")
 
     diagonal = next(w for w in protocol.SPECIFIC_NORMALS
                     if w[0] == "mildly scaled diagonal")

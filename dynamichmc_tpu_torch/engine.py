@@ -1,11 +1,12 @@
-"""Staged warmup + sampling, single device (port of the batch-native and
+"""Warmup blocks and sampling, single device (port of the batch-native and
 per-chain drivers of ``dynamichmc_tpu.engine``).
 
 The JAX engine compiles the whole warmup into one program and chunks it
 into dispatches that stay under the TPU runtime's watchdog. PyTorch runs
-eagerly, so here the same schedule is a Python loop over the global step
-index: block boundaries (dual-averaging restart, metric re-estimate,
-Welford reset) happen between two transitions, with the same semantics.
+eagerly, so here a warmup is the stage fold of warmup.py, whose TuningNUTS
+stages each run :func:`run_block`, a Python loop over the block's
+transitions; block boundaries (dual-averaging restart, metric re-estimate,
+Welford reset) fall between two transitions, with the same semantics.
 
 One loop serves both chain layouts. A :class:`ChainOps` names the
 transition, the stepsize search and the Welford fold: ``batched_ops`` for a
@@ -13,11 +14,9 @@ transition, the stepsize search and the Welford fold: ``batched_ops`` for a
 (mcmc_with_warmup).
 
 Two optional hooks ride on the loop without changing what it computes or
-draws: per-block collection of each step's position, log density, tree
-statistics and stepsize (``blocks``; keep-warmup and the stage fold of
-warmup.py), and a step reporter whose ``report_step`` is called once per
-transition (reporting.py). With neither set the loop issues the same ops as
-without them.
+draws: collection of each step's position, log density, tree statistics
+and stepsize (keep-warmup), and a step reporter whose ``report_step`` is
+called once per transition (reporting.py).
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .errors import DynamicHMCError
 from .hamiltonian import EvaluatedPoint, PhasePoint
 from .logdensity import LogDensity
 from .metric import DiagonalMetric, Metric, dense_metric, rand_p
@@ -45,19 +43,16 @@ from .utils.welford import (
     welford_zero,
     welford_zero_shared,
 )
-from .warmup import TuningNUTS, WarmupStage, WarmupState, estimate_metric
+from .warmup import TuningNUTS, WarmupStage, estimate_metric
 
 
 @dataclasses.dataclass(frozen=True)
 class WarmupSchedule:
-    """A normalized schedule: optional search + homogeneous tuning blocks.
-
-    ``depth_clamp`` caps tree doublings during every block except the last
-    (early trees on an unadapted metric hit max depth and pin the lockstep
-    batch); ``depth_clamp_tail`` extends the clamp that many steps into
-    the final block. Any cap is a valid NUTS kernel; only the adaptation
-    trajectory changes, and sampling is never clamped.
-    """
+    """A normalized schedule: optional search + homogeneous tuning blocks,
+    what the JAX package's engine compiles whole. The port runs every stage
+    tuple through the stage fold (warmup.run_warmup); ``run_chains`` takes
+    a warmup depth clamp only with a stage tuple of this form, as the JAX
+    package does."""
 
     search: Optional[InitialStepsizeSearch]
     block_sizes: Tuple[int, ...]
@@ -66,8 +61,6 @@ class WarmupSchedule:
     shrinkages: Tuple[float, ...]
     adaptation: object
     pooled: bool
-    depth_clamp: Optional[int] = None
-    depth_clamp_tail: int = 0
 
     @staticmethod
     def from_stages(stages: Tuple[WarmupStage, ...]
@@ -239,61 +232,39 @@ class _Trace:
         return out
 
 
-def run_warmup(generator, ld: LogDensity, algorithm: NUTS,
-               schedule: WarmupSchedule, Q: EvaluatedPoint, metric, eps,
-               log=None, ops: Optional[ChainOps] = None,
-               blocks: Optional[list] = None, collect_positions: bool = False,
-               reporter=None):
-    """The whole tuning schedule as one loop over the global step index,
-    for the chain layout ``ops`` (default: a batch, pooled as the schedule
-    says). Returns (Q', metric', eps').
+def run_block(generator, ld: LogDensity, algorithm: NUTS, stage: TuningNUTS,
+              Q: EvaluatedPoint, metric, eps, ops: ChainOps,
+              collect: bool = False, collect_positions: bool = False,
+              reporter=None, depth_clamp: Optional[int] = None,
+              clamp_steps: int = 0):
+    """One TuningNUTS block for the chain layout ``ops``: ``stage.N``
+    transitions under the stage's stepsize adaptation, started from
+    ``eps``, with the Welford fold and the metric re-estimate at the end
+    when the stage adapts a metric. Returns (Q', metric', eps', results).
 
-    ``blocks``: a list that receives one ``(results, WarmupState after the
-    block)`` per block, results holding each step's logdensities,
-    tree_statistics, epss and, with ``collect_positions``, positions.
-    ``reporter``: a step reporter (reporting.py); each block opens a stage
-    reporter and reports every transition with its stepsize."""
-    if ops is None:
-        ops = batched_ops(schedule.pooled)
-    adaptation = schedule.adaptation
-    kind = schedule.metric_kind
-    cums = []
-    acc = 0
-    for s in schedule.block_sizes:
-        acc += s
-        cums.append(acc)
-    total = cums[-1]
-    clamp = schedule.depth_clamp
-    clamp_until = cums[-2] if len(cums) > 1 else 0
-    if clamp is not None and schedule.depth_clamp_tail:
-        # clamp the head of the final block too (the dual-averaging restart
-        # transient); never the whole block
-        clamp_until = min(clamp_until + int(schedule.depth_clamp_tail),
-                          total - 1)
-    block_of = []
-    for b, n in enumerate(schedule.block_sizes):
-        block_of += [b] * n
-
-    dense = kind == "dense"
+    ``collect``: ``results`` holds each step's logdensities,
+    tree_statistics, epss and, with ``collect_positions``, positions (else
+    None). ``reporter``: a step reporter (reporting.py), told of every
+    transition with its stepsize. ``depth_clamp``: cap the tree doublings
+    of the first ``clamp_steps`` transitions; the rest then run at
+    ``algorithm.max_depth``."""
+    adaptation = stage.stepsize_adaptation
+    kind = stage.metric_kind
+    update = kind != "none"
     metric = promote_metric(metric, kind)
     da = adaptation.init(eps)
-    wf = ops.welford_zero(Q.q, dense)
-    eps_run = adaptation.current(da)
-    trace = stage_reporter = None
-    for i in range(total):
-        b = block_of[i]
-        j = i - (cums[b] - schedule.block_sizes[b])  # step within the block
-        if j == 0 and blocks is not None:
-            trace = _Trace(Q, schedule.block_sizes[b], collect_positions,
-                           epss=True)
-        if j == 0 and reporter is not None:
-            tuning = (f"stepsize and {kind} metric"
-                      if schedule.update_metric[b] else "stepsize")
-            stage_reporter = reporter.make_stage_reporter(
-                schedule.block_sizes[b], currently_warmup=True, tuning=tuning)
+    wf = ops.welford_zero(Q.q, kind == "dense")
+    trace = (_Trace(Q, stage.N, collect_positions, epss=True) if collect
+             else None)
+    stage_reporter = None
+    if reporter is not None:
+        tuning = f"stepsize and {kind} metric" if update else "stepsize"
+        stage_reporter = reporter.make_stage_reporter(
+            stage.N, currently_warmup=True, tuning=tuning)
+    for j in range(stage.N):
         dl = None
-        if clamp is not None:
-            dl = clamp if i < clamp_until else algorithm.max_depth
+        if depth_clamp is not None:
+            dl = depth_clamp if j < clamp_steps else algorithm.max_depth
         eps_now = adaptation.current(da)
         Q, stats = ops.transition(
             generator, algorithm, ld, metric, Q, eps_now, depth_limit=dl,
@@ -303,20 +274,12 @@ def run_warmup(generator, ld: LogDensity, algorithm: NUTS,
         if stage_reporter is not None:
             stage_reporter.report_step(j, eps=eps_now)
         da = adaptation.update(da, stats.acceptance_rate)
-        if schedule.update_metric[b]:
+        if update:
             wf = ops.welford_update(wf, Q.q)
-        if i + 1 == cums[b]:  # block boundary
-            eps_run = adaptation.final(da)
-            da = adaptation.init(eps_run)
-            if schedule.update_metric[b]:
-                metric = estimate_metric(wf, kind, schedule.shrinkages[b])
-                wf = ops.welford_zero(Q.q, dense)
-            if trace is not None:
-                blocks.append((trace.results(),
-                               WarmupState(Q=Q, metric=metric, eps=eps_run)))
-            if log is not None:
-                log(f"warmup block {b + 1}/{len(cums)} done ({i + 1} steps)")
-    return Q, metric, eps_run
+    eps = adaptation.final(da)
+    if update:
+        metric = estimate_metric(wf, kind, stage.shrinkage)
+    return Q, metric, eps, None if trace is None else trace.results()
 
 
 def stack_statistics(per_draw, lead=(), dtype=torch.float32,
@@ -371,37 +334,3 @@ def stepsize_message(eps) -> str:
         return f"found initial stepsize eps={float(eps):.4g}"
     return (f"found initial stepsizes eps in [{float(eps.min()):.4g}, "
             f"{float(eps.max()):.4g}]")
-
-
-def execute(generator, ld: LogDensity, algorithm: NUTS,
-            schedule: WarmupSchedule, Q: EvaluatedPoint, metric, eps,
-            n_samples: int, log=None, ops: Optional[ChainOps] = None,
-            reporter=None):
-    """Search (if scheduled), warmup, then sampling, for the chain layout
-    ``ops`` (default: a batch). ``log``: block-boundary messages;
-    ``reporter``: a step reporter. Returns (metric, eps, search_results,
-    (Q, positions, lds, stats))."""
-    if ops is None:
-        ops = batched_ops(schedule.pooled)
-    search_results = None
-    if schedule.search is not None:
-        if eps is not None:
-            raise DynamicHMCError(
-                "stepsize eps manually specified, won't perform initial search"
-            )
-        eps, success, l0 = ops.make_search(ld, schedule.search)(
-            generator, Q, metric
-        )
-        search_results = {"eps": eps, "success": success, "l0": l0}
-        if log is not None:
-            log(stepsize_message(eps))
-    elif eps is None:
-        raise DynamicHMCError("no stepsize: provide eps or a search stage")
-    Q, metric, eps = run_warmup(
-        generator, ld, algorithm, schedule, Q, metric, eps, log=log, ops=ops,
-        reporter=reporter,
-    )
-    inference = run_sampling(generator, ld, algorithm, Q, metric, eps,
-                             n_samples, ops=ops, reporter=reporter)
-    return metric, eps, search_results, inference
-

@@ -3,12 +3,9 @@ host-side checks (port of ``dynamichmc_tpu.mcmc``).
 
 ``mcmc_with_warmup`` and ``mcmc_keep_warmup`` are the API DynamicHMC.jl
 users call (mcmc.jl:521-584): one chain, staged warmup, then draws, through
-the per-chain drivers (nuts.py, tree.py). A schedule that the engine takes
-whole (an optional search, then TuningNUTS blocks of one metric kind and
-adaptation) runs through the engine's loop; any other stage tuple, and
-every ``mcmc_keep_warmup``, through the stage fold (warmup.run_warmup),
-whose TuningNUTS stages run that same loop one block at a time.
-``mcmc_steps`` is the stepwise API (mcmc.jl:295-351).
+the per-chain drivers (nuts.py, tree.py). Both run any stage tuple through
+the stage fold (warmup.run_warmup); ``mcmc_keep_warmup`` also keeps what
+each stage did. ``mcmc_steps`` is the stepwise API (mcmc.jl:295-351).
 
 Progress: ``reporter=None`` means ``reporting.default_reporter()``
 (a terminal logs each block, anything else is silent); an explicit step
@@ -180,30 +177,19 @@ def mcmc_with_warmup(generator: torch.Generator, ld: LogDensity,
     through the generic driver. Returns positions (N, K), log densities
     (N,), tree statistics (N,), the adapted metric and eps. Raises when
     the model's tensors lie on another device."""
-    from .engine import PER_CHAIN, WarmupSchedule, execute
     from .warmup import default_warmup_stages, initialize_warmup_state
 
     stages = (tuple(warmup_stages) if warmup_stages is not None
               else default_warmup_stages())
-    schedule = WarmupSchedule.from_stages(stages)
     state = initialize_warmup_state(generator, ld, dtype=dtype,
                                     **(initialization or {}))
-    if schedule is None:
-        _history, final, inference = _keep_warmup(
-            generator, ld, n_samples, state, stages, algorithm, False, False,
-            reporter)
-        return MCMCResult(positions=inference.positions,
-                          logdensities=inference.logdensities,
-                          tree_statistics=inference.tree_statistics,
-                          metric=final.metric, eps=final.eps)
-    log, step_reporter = _reporting(reporter)
-    metric, eps, search_results, inference = execute(
-        generator, ld, algorithm, schedule, state.Q, state.metric, state.eps,
-        n_samples, log=log, ops=PER_CHAIN, reporter=step_reporter)
-    _check_stepsize_search([(None, search_results, None)])
-    _q, positions, logdensities, stats = inference
-    return MCMCResult(positions=positions, logdensities=logdensities,
-                      tree_statistics=stats, metric=metric, eps=eps)
+    _history, final, inference = _keep_warmup(
+        generator, ld, n_samples, state, stages, algorithm, False, False,
+        reporter)
+    return MCMCResult(positions=inference.positions,
+                      logdensities=inference.logdensities,
+                      tree_statistics=inference.tree_statistics,
+                      metric=final.metric, eps=final.eps)
 
 
 # --- stepwise API -----------------------------------------------------------

@@ -1,11 +1,8 @@
 """Batched chains on one device (port of the single-device path of
 ``dynamichmc_tpu.parallel.chains``).
 
-A schedule that the engine takes whole (an optional search, then
-TuningNUTS blocks of one metric kind, adaptation and pooling) runs through
-the engine's loop; any other stage tuple through the stage fold
-(warmup.run_warmup) on the batch, each stage pooled or not as it says: the
-counterpart of the JAX package's vmapped runner."""
+Every stage tuple runs through the stage fold (warmup.run_warmup) on the
+batch, each stage pooled or not as it says."""
 
 from __future__ import annotations
 
@@ -14,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..engine import WarmupSchedule, execute
+from ..engine import WarmupSchedule
 from ..errors import DynamicHMCError
 from ..hamiltonian import evaluate
 from ..logdensity import LogDensity, check_device
@@ -104,7 +101,9 @@ def run_chains(
     max_depth 10, no clamp. ``warmup_depth_clamp`` caps the tree doublings
     in every warmup block but the last (0 = no clamp);
     ``warmup_depth_clamp_tail`` extends the cap that many steps into the
-    last block; both need a schedule the engine takes whole.
+    last block; both need an optional stepsize search followed by
+    TuningNUTS blocks sharing one metric kind, adaptation and pooling, as
+    in the JAX package.
     ``reporter=None`` means ``reporting.default_reporter()``; a reporter's
     messages (each warmup block) go to its ``report_message``, and an
     explicit ``log`` callable takes precedence. Returns positions of shape
@@ -131,55 +130,30 @@ def run_chains(
             "Queue 1 item 19); mcmc_with_warmup runs one chain with it"
         )
     stages = tuple(warmup_stages)
-    schedule = WarmupSchedule.from_stages(stages)
     if warmup_depth_clamp_tail and warmup_depth_clamp is None:
         raise ValueError("warmup_depth_clamp_tail requires warmup_depth_clamp")
-    if warmup_depth_clamp is not None and schedule is None:
-        raise NotImplementedError(
-            "warmup_depth_clamp requires a schedule the engine takes whole "
-            "(an optional stepsize search, then TuningNUTS blocks sharing "
-            "one metric kind, adaptation and pooling)"
-        )
     if warmup_depth_clamp is not None:
+        if WarmupSchedule.from_stages(stages) is None:
+            raise NotImplementedError(
+                "warmup_depth_clamp requires an optional stepsize search, "
+                "then TuningNUTS blocks sharing one metric kind, adaptation "
+                "and pooling"
+            )
         if not 0 < warmup_depth_clamp <= algorithm.max_depth:
             raise ValueError("warmup_depth_clamp must be in 1..max_depth")
-        schedule = dataclasses.replace(
-            schedule, depth_clamp=warmup_depth_clamp,
-            depth_clamp_tail=int(warmup_depth_clamp_tail),
-        )
-    if schedule is not None:
-        pooled = schedule.pooled
-    else:  # the chains share a metric from the start if its first estimate pools
-        first = first_adapting_stage(stages)
-        pooled = first is not None and first.pooled
+    # the chains share a metric from the start if its first estimate pools
+    first = first_adapting_stage(stages)
+    pooled = first is not None and first.pooled
     states = init_chain_states(
         generator, ld, n_chains, dtype=dtype, broadcast_metric=not pooled,
         **initialization,
     )
     if pooled:
         states = dataclasses.replace(states, metric=_shared(states.metric))
-    if schedule is None:
-        return _run_chains_fold(stages, ld, algorithm, n_samples, states,
-                                generator, log=log)
-    return _run_chains_fast(schedule, ld, algorithm, n_samples, states,
-                            generator, log=log)
-
-
-def _shared(metric: Metric) -> Metric:
-    """One metric for all chains: a per-chain initial metric's first
-    chain's."""
-    if not metric_is_batched(metric):
-        return metric
-    return dataclasses.replace(metric, **{
-        f.name: getattr(metric, f.name)[0] for f in dataclasses.fields(metric)
-    })
-
-
-def _run_chains_fold(stages, ld: LogDensity, algorithm: NUTS, n_samples: int,
-                     states: WarmupState, generator: torch.Generator,
-                     log=None) -> MCMCResult:
-    history, state = run_warmup(generator, ld, algorithm, stages, states,
-                                collect_stats=False, log=log)
+    history, state = run_warmup(
+        generator, ld, algorithm, stages, states, collect_stats=False,
+        log=log, depth_clamp=warmup_depth_clamp,
+        depth_clamp_tail=warmup_depth_clamp_tail)
     _check_stepsize_search(history)
     _q, inference = mcmc(generator, ld, algorithm, state, n_samples)
     return MCMCResult(
@@ -191,19 +165,11 @@ def _run_chains_fold(stages, ld: LogDensity, algorithm: NUTS, n_samples: int,
     )
 
 
-def _run_chains_fast(schedule: WarmupSchedule, ld: LogDensity,
-                     algorithm: NUTS, n_samples: int, states: WarmupState,
-                     generator: torch.Generator, log=None) -> MCMCResult:
-    metric, eps, search_results, inference = execute(
-        generator, ld, algorithm, schedule, states.Q, states.metric,
-        states.eps, n_samples, log=log,
-    )
-    _check_stepsize_search([(None, search_results, None)])
-    _q, positions, logdensities, stats = inference
-    return MCMCResult(
-        positions=positions,
-        logdensities=logdensities,
-        tree_statistics=stats,
-        metric=metric,
-        eps=eps,
-    )
+def _shared(metric: Metric) -> Metric:
+    """One metric for all chains: a per-chain initial metric's first
+    chain's."""
+    if not metric_is_batched(metric):
+        return metric
+    return dataclasses.replace(metric, **{
+        f.name: getattr(metric, f.name)[0] for f in dataclasses.fields(metric)
+    })

@@ -7,10 +7,9 @@ re-estimated from streaming Welford moments, optionally pooled over all
 chains (one shared metric).
 
 ``run_warmup`` is the reference's left fold over any stage tuple
-(mcmc.jl:450-457), for one (K,) chain or a (C, K) batch. Each TuningNUTS
-stage runs as a one-block schedule through the engine's loop
-(engine.run_warmup), so a schedule the engine takes whole gives the same
-draws through either.
+(mcmc.jl:450-457), for one (K,) chain or a (C, K) batch, and the one
+warmup path of the port's entry points: each TuningNUTS stage runs the
+engine's block loop (engine.run_block).
 """
 
 from __future__ import annotations
@@ -194,7 +193,8 @@ def first_adapting_stage(stages, start: int = 0) -> Optional[TuningNUTS]:
 def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
                  stage: WarmupStage, state: WarmupState,
                  collect_positions: bool = False, collect_stats: bool = True,
-                 log=None, reporter=None, metric_kind: Optional[str] = None):
+                 log=None, reporter=None, metric_kind: Optional[str] = None,
+                 depth_clamp: Optional[int] = None, clamp_steps: int = 0):
     """Run one warmup stage on one (K,) chain or a (C, K) batch, as the
     state's positions say; returns (results, state').
 
@@ -205,16 +205,15 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
     chain axis; ``{}`` with ``collect_stats=False``. A batch pools the
     Welford moments over its chains when the stage is ``pooled``.
     ``metric_kind``: run the transitions with the metric promoted to this
-    kind (a diagonal metric to its dense form; numerically a no-op), as
-    the engine promotes the metric of a whole dense schedule. ``log``
-    receives the search's message, ``reporter`` (a step reporter) every
-    transition."""
+    kind (a diagonal metric to its dense form; numerically a no-op).
+    ``log`` receives the search's message, ``reporter`` (a step reporter)
+    every transition. ``depth_clamp`` caps the tree doublings of the
+    stage's first ``clamp_steps`` transitions (a batch only)."""
     from .engine import (
         PER_CHAIN,
-        WarmupSchedule,
         batched_ops,
         promote_metric,
-        run_warmup as run_blocks,
+        run_block,
         stepsize_message,
     )
 
@@ -237,30 +236,26 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
         raise TypeError(f"not a warmup stage: {stage!r}")
     if state.eps is None:
         raise DynamicHMCError("no stepsize: run a stepsize search stage first")
-    kind = stage.metric_kind
-    schedule = WarmupSchedule(
-        search=None, block_sizes=(stage.N,), update_metric=(kind != "none",),
-        metric_kind=kind, shrinkages=(stage.shrinkage,),
-        adaptation=stage.stepsize_adaptation, pooled=stage.pooled)
     metric = (state.metric if metric_kind is None
               else promote_metric(state.metric, metric_kind))
-    blocks = [] if collect_stats or collect_positions else None
-    Q, metric, eps = run_blocks(
-        generator, ld, algorithm, schedule, state.Q, metric, state.eps,
+    collect = collect_stats or collect_positions
+    Q, metric, eps, results = run_block(
+        generator, ld, algorithm, stage, state.Q, metric, state.eps,
         ops=batched_ops(stage.pooled) if batched else PER_CHAIN,
-        blocks=blocks, collect_positions=collect_positions, reporter=reporter)
-    if blocks is None:
-        return {}, WarmupState(Q=Q, metric=metric, eps=eps)
-    results, new_state = blocks[0]
-    if not collect_stats:
+        collect=collect, collect_positions=collect_positions,
+        reporter=reporter, depth_clamp=depth_clamp, clamp_steps=clamp_steps)
+    if not collect:
+        results = {}
+    elif not collect_stats:
         results = {"positions": results["positions"]}
-    return results, new_state
+    return results, WarmupState(Q=Q, metric=metric, eps=eps)
 
 
 def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
                stages: Tuple[WarmupStage, ...], state: WarmupState,
                collect_positions: bool = False, collect_stats: bool = True,
-               log=None, reporter=None):
+               log=None, reporter=None, depth_clamp: Optional[int] = None,
+               depth_clamp_tail: int = 0):
     """Left fold of warmup stages (mcmc.jl:450-457) over one chain or a
     batch, every random number from ``generator`` in stage order. Returns
     (history, final state), ``history`` a list of (stage, results,
@@ -269,16 +264,31 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
     Each TuningNUTS stage runs with its metric promoted to the kind of the
     next metric-adapting stage at or after it, so a diagonal stage keeps a
     diagonal metric and a dense block (and the eps-only stages before it)
-    runs with a dense one. ``log`` receives a message per stage."""
+    runs with a dense one. ``log`` receives a message per stage.
+
+    ``depth_clamp`` (a batch only) caps the tree doublings in every
+    TuningNUTS stage but the last, where early trees on an unadapted metric
+    hit max depth and pin the lockstep batch; ``depth_clamp_tail`` extends
+    the cap that many steps into the last stage (the dual-averaging restart
+    transient), never over the whole of it. Any cap is a valid NUTS kernel:
+    only the adaptation trajectory changes, and sampling is never
+    clamped."""
     stages = tuple(stages)
+    tuning = [s for s, stage in enumerate(stages)
+              if isinstance(stage, TuningNUTS)]
     history = []
     for s, stage in enumerate(stages):
         adapting = first_adapting_stage(stages, s)
+        clamp_steps = 0
+        if depth_clamp is not None and s in tuning:
+            clamp_steps = (stage.N if s != tuning[-1] else
+                           min(int(depth_clamp_tail), stage.N - 1))
         results, state = warmup_stage(
             generator, ld, algorithm, stage, state,
             collect_positions=collect_positions, collect_stats=collect_stats,
             log=log, reporter=reporter,
-            metric_kind=None if adapting is None else adapting.metric_kind)
+            metric_kind=None if adapting is None else adapting.metric_kind,
+            depth_clamp=depth_clamp, clamp_steps=clamp_steps)
         history.append((stage, results, state))
         if log is not None and isinstance(stage, TuningNUTS):
             log(f"warmup stage {s + 1}/{len(stages)} done ({stage.N} steps)")

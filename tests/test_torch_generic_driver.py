@@ -33,35 +33,20 @@ from dynamichmc_tpu_torch import NUTS, convert, mcmc_with_warmup, run_chains
 from dynamichmc_tpu_torch import models as tm
 from dynamichmc_tpu_torch.hamiltonian import (
     PhasePoint,
-    calculate_psharp,
     evaluate,
     leapfrog,
 )
 from dynamichmc_tpu_torch.metric import diagonal_metric, identity_metric
 from dynamichmc_tpu_torch.nuts import (
     GeneralizedTurnStatistic,
-    _combine_turn_statistics,
     sample_tree,
 )
 from dynamichmc_tpu_torch.tree import TreeNoise
 from dynamichmc_tpu_torch.warmup import InitialStepsizeSearch, TuningNUTS
+from torch_turn_statistics import GeneralizedReimpl
 
 F64 = torch.float64
 K = 4
-
-
-class GeneralizedReimpl:
-    """A custom configuration that reimplements the generalized statistic:
-    it must reproduce the default generic driver's transitions exactly."""
-
-    def leaf(self, metric, z):
-        psharp = calculate_psharp(metric, z)
-        return GeneralizedTurnStatistic(
-            p_minus=z.p, psharp_minus=psharp, p_plus=z.p,
-            psharp_plus=psharp, rho=z.p)
-
-    def combine(self, metric, x, y):
-        return _combine_turn_statistics(x, y)
 
 
 class NeverTurning:

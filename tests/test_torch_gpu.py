@@ -36,6 +36,7 @@ from dynamichmc_tpu_torch.tree_batched import (
     rand_p_b,
     random_directions,
 )
+from torch_turn_statistics import GeneralizedReimpl
 
 F32 = torch.float32
 
@@ -873,9 +874,10 @@ def test_cuda_plain_driver_launches_the_leaf_kernel():
 
 @pytest.mark.gpu
 def test_cuda_keep_warmup_equals_mcmc_with_warmup_bitwise():
-    """mcmc_keep_warmup (the stage fold) and mcmc_with_warmup (the engine
-    loop) from one seed on the card, every leapfrog through K4: the same
-    draws, eps and metric bit for bit."""
+    """mcmc_keep_warmup (the stage fold, keeping every state) and
+    mcmc_with_warmup (the same fold, keeping none) from one seed on the
+    card, every leapfrog through K4: the same draws, eps and metric bit for
+    bit."""
     from dynamichmc_tpu_torch import (
         hamiltonian, mcmc_keep_warmup, mcmc_with_warmup)
 
@@ -897,28 +899,11 @@ def test_cuda_keep_warmup_equals_mcmc_with_warmup_bitwise():
         75, 25, 50, 100, 200, 400, 50]
 
 
-class _GeneralizedReimpl:
-    """The generalized statistic as a custom configuration."""
-
-    def leaf(self, metric, z):
-        from dynamichmc_tpu_torch.hamiltonian import calculate_psharp
-        from dynamichmc_tpu_torch.nuts import GeneralizedTurnStatistic
-
-        s = calculate_psharp(metric, z)
-        return GeneralizedTurnStatistic(p_minus=z.p, psharp_minus=s,
-                                        p_plus=z.p, psharp_plus=s, rho=z.p)
-
-    def combine(self, metric, x, y):
-        from dynamichmc_tpu_torch.nuts import _combine_turn_statistics
-
-        return _combine_turn_statistics(x, y)
-
-
 @pytest.mark.gpu
 def test_cuda_generic_driver_launches_the_leapfrog_kernel():
-    """A custom turn statistic and a schedule the engine cannot take whole
-    (a FixedStepsize block after dual averaging) through mcmc_with_warmup:
-    the generic driver and the stage fold, every leapfrog a K4 launch (the
+    """A custom turn statistic and a FixedStepsize block after dual
+    averaging through mcmc_with_warmup: the generic driver and the stage
+    fold, every leapfrog a K4 launch (the
     metric stays diagonal: K4, like the JAX kernel, takes no dense one),
     finite draws."""
     from dynamichmc_tpu_torch import (
@@ -936,7 +921,7 @@ def test_cuda_generic_driver_launches_the_leapfrog_kernel():
     res = mcmc_with_warmup(
         torch.Generator(device=dev).manual_seed(1), model, 100,
         warmup_stages=stages,
-        algorithm=NUTS(turn_statistic_configuration=_GeneralizedReimpl()))
+        algorithm=NUTS(turn_statistic_configuration=GeneralizedReimpl()))
     torch.cuda.synchronize()
     assert gaussian_leapfrog.launches == hamiltonian.leapfrog_calls > 0
     assert res.metric.m_inv.shape == (25,)

@@ -9,11 +9,11 @@ package.
   metric after every stage and final eps to 1e-12 at float64, over a
   heterogeneous stage tuple (none / diagonal / dense / FixedStepsize, eps
   given, no search).
-- Stage fold vs engine: on a schedule the engine takes whole, the fold
-  gives the engine loop's metric, eps and draws bitwise from one seed, per
-  chain and on a batch. Both consume the generator in the same order: the
-  fold runs each TuningNUTS stage as a one-block schedule through the
-  engine's own loop.
+- Stage fold vs engine: on a schedule the JAX engine takes whole, the fold
+  gives the metric, eps and draws of that engine's one loop over the global
+  step index (written out here as a reference, with the warmup depth
+  clamp) bitwise from one seed, per chain and on a batch. Both consume the
+  generator in the same order: one search, then one transition per step.
 - Ports of JAX tests/test_mcmc.py: test_keep_warmup_inspectable,
   test_stepwise_api, test_stepwise_chunk_matches_next_step (one chain and a
   (C, K) batch), test_warmup_only_run, test_keep_warmup_matches_fast_engine.
@@ -51,12 +51,18 @@ from dynamichmc_tpu_torch import (
     mcmc_steps_from_state,
     mcmc_with_warmup,
 )
-from dynamichmc_tpu_torch.engine import PER_CHAIN, WarmupSchedule, execute
+from dynamichmc_tpu_torch.engine import (
+    PER_CHAIN,
+    WarmupSchedule,
+    batched_ops,
+    promote_metric,
+    run_sampling,
+)
 from dynamichmc_tpu_torch.hamiltonian import EvaluatedPoint, evaluate
 from dynamichmc_tpu_torch.mcmc import mcmc
 from dynamichmc_tpu_torch.nuts import TreeStatistics
 from dynamichmc_tpu_torch.parallel.chains import init_chain_states
-from dynamichmc_tpu_torch.warmup import run_warmup
+from dynamichmc_tpu_torch.warmup import estimate_metric, run_warmup
 
 F64 = torch.float64
 ATOL = 1e-12
@@ -144,11 +150,48 @@ def test_stage_fold_matches_jax_under_a_stub(monkeypatch):
 # --- stage fold vs the engine loop ------------------------------------------
 
 
-@pytest.mark.parametrize("layout,kind,pooled", [
-    ("per_chain", "diagonal", False), ("per_chain", "dense", False),
-    ("batch", "diagonal", False), ("batch", "dense", True),
+def _one_loop(generator, ld, algorithm, schedule, state, n_samples, ops,
+              clamp=None, tail=0):
+    """The JAX engine's semantics of a whole schedule as one loop over the
+    global step index: one search, the metric promoted once to the
+    schedule's kind, dual averaging restarted and the metric re-estimated
+    at each block boundary; the clamp caps every block but the last and
+    ``tail`` steps into the last. Returns (metric, eps, positions)."""
+    eps, _ok, _l0 = ops.make_search(ld, schedule.search)(
+        generator, state.Q, state.metric)
+    sizes, kind = schedule.block_sizes, schedule.metric_kind
+    total = sum(sizes)
+    clamp_until = min(total - sizes[-1] + tail, total - 1)
+    boundaries = [sum(sizes[:b + 1]) for b in range(len(sizes))]
+    adaptation = schedule.adaptation
+    Q, metric = state.Q, promote_metric(state.metric, kind)
+    da, wf, b = adaptation.init(eps), ops.welford_zero(Q.q, kind == "dense"), 0
+    for i in range(total):
+        dl = None if clamp is None else (
+            clamp if i < clamp_until else algorithm.max_depth)
+        Q, stats = ops.transition(generator, algorithm, ld, metric, Q,
+                                  adaptation.current(da), depth_limit=dl)
+        da = adaptation.update(da, stats.acceptance_rate)
+        if schedule.update_metric[b]:
+            wf = ops.welford_update(wf, Q.q)
+        if i + 1 == boundaries[b]:
+            eps = adaptation.final(da)
+            da = adaptation.init(eps)
+            if schedule.update_metric[b]:
+                metric = estimate_metric(wf, kind, schedule.shrinkages[b])
+                wf = ops.welford_zero(Q.q, kind == "dense")
+            b += 1
+    _q, positions, _lds, _stats = run_sampling(
+        generator, ld, algorithm, Q, metric, eps, n_samples, ops=ops)
+    return metric, eps, positions
+
+
+@pytest.mark.parametrize("layout,kind,pooled,clamp", [
+    ("per_chain", "diagonal", False, None), ("per_chain", "dense", False, None),
+    ("batch", "diagonal", False, None), ("batch", "dense", True, None),
+    ("batch", "dense", True, 2),
 ])
-def test_stage_fold_equals_the_engine_loop(layout, kind, pooled):
+def test_stage_fold_equals_the_engine_loop(layout, kind, pooled, clamp):
     ld = std_mvn(3)
     algorithm = NUTS(max_depth=5)
     stages = (InitialStepsizeSearch(), TuningNUTS(20),
@@ -165,11 +208,12 @@ def test_stage_fold_equals_the_engine_loop(layout, kind, pooled):
                                       broadcast_metric=not pooled)
 
     gen, state = start()
-    metric, eps, _search, (_q, positions, _lds, _stats) = execute(
-        gen, ld, algorithm, schedule, state.Q, state.metric, state.eps, 12,
-        ops=PER_CHAIN if layout == "per_chain" else None)
+    ops = PER_CHAIN if layout == "per_chain" else batched_ops(pooled)
+    metric, eps, positions = _one_loop(gen, ld, algorithm, schedule, state,
+                                       12, ops, clamp=clamp, tail=7)
     gen2, state2 = start()
-    history, final = run_warmup(gen2, ld, algorithm, stages, state2)
+    history, final = run_warmup(gen2, ld, algorithm, stages, state2,
+                                depth_clamp=clamp, depth_clamp_tail=7)
     _q2, inference = mcmc(gen2, ld, algorithm, final, 12)
     assert torch.equal(final.metric.m_inv, metric.m_inv)
     assert torch.equal(final.eps, eps)
@@ -178,6 +222,10 @@ def test_stage_fold_equals_the_engine_loop(layout, kind, pooled):
         (1 if kind == "diagonal" else 2) + (layout == "batch" and not pooled))
     lead = (5,) if layout == "batch" else ()
     assert history[2][1]["epss"].shape == lead + (25,)
+    if clamp is not None:  # the clamp capped the early blocks' trees
+        assert int(history[1][1]["tree_statistics"].depth.max()) <= clamp
+        assert int(history[4][1]["tree_statistics"].depth[:, 7:].max()) \
+            > clamp
 
 
 def test_stage_fold_errors():
@@ -298,8 +346,9 @@ def test_warmup_only_run():
 
 
 def test_keep_warmup_matches_fast_engine():
-    """mcmc_keep_warmup (the stage fold) and mcmc_with_warmup (the engine
-    loop) from one seed: bitwise the same adapted state and draws."""
+    """mcmc_keep_warmup (the stage fold, keeping every state) and
+    mcmc_with_warmup (the same fold, keeping none) from one seed: bitwise
+    the same adapted state and draws."""
     ld = std_mvn(3)
     out = mcmc_keep_warmup(torch.Generator().manual_seed(21), ld, 16,
                            dtype=F64)
@@ -317,8 +366,8 @@ def test_keep_warmup_matches_fast_engine():
 
 
 def test_heterogeneous_mcmc_with_warmup_is_keep_warmup():
-    """A schedule the engine cannot take whole runs through the stage
-    fold: bitwise mcmc_keep_warmup's draws, and it recovers N(0, I)."""
+    """A schedule of two metric kinds: bitwise mcmc_keep_warmup's draws,
+    and it recovers N(0, I)."""
     stages = (InitialStepsizeSearch(), TuningNUTS(40),
               TuningNUTS(30, "diagonal"), TuningNUTS(60, "dense"),
               TuningNUTS(30))

@@ -49,7 +49,7 @@ def test_import_leaves_jax_out():
         "import dynamichmc_tpu_torch.models.mixture\n"
         "import dynamichmc_tpu_torch.models.transforms\n"
         "sys.path.insert(0, 'tests')\n"
-        "import torch_correctness_utils, torch_dummy_batched\n"
+        "import torch_correctness_utils, torch_dummy_batched, torch_turn_statistics\n"
         "import test_torch_db_batched, test_torch_gpu_correctness\n"
         "import test_torch_sample_correctness\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -72,7 +72,8 @@ def test_no_module_of_the_port_imports_jax():
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tests", n)
         for n in ("torch_correctness_utils.py", "torch_dummy_batched.py",
-                  "test_torch_db_batched.py", "test_torch_gpu_correctness.py",
+                  "torch_turn_statistics.py", "test_torch_db_batched.py",
+                  "test_torch_gpu_correctness.py",
                   "test_torch_sample_correctness.py")]
     for root, _dirs, files in os.walk(PKG):
         paths += [os.path.join(root, n) for n in files if n.endswith(".py")]

@@ -4,7 +4,7 @@ and their wiring into the entry points.
 - ``LogProgressReport`` writes the JAX reporter's text for the same call
   sequence, under one monkeypatched clock for both modules.
 - A step reporter is told of every transition: each warmup block's steps
-  0..N-1, then each draw's, on the engine's loop and on the stage fold.
+  0..N-1, then each draw's, for one metric kind and for two.
 - ``NoProgressReport`` is silent; ``default_reporter`` is silent off a tty
   and logs each block on one; reporters never change the draws.
 These test logging, not sampling: a 2-d model and a tiny schedule.
@@ -169,7 +169,7 @@ def test_default_interactive_reporter_logs_each_block(caplog, monkeypatch):
     each transition."""
     monkeypatch.setattr(sys.stdout, "isatty", lambda: True)
     assert isinstance(default_reporter(), LogProgressReport)
-    for stages, word in ((STAGES, "warmup block 1/1"),
+    for stages, word in ((STAGES, "warmup stage 2/2"),
                          (FOLD_STAGES, "warmup stage 3/3")):
         caplog.clear()
         with caplog.at_level(logging.INFO, logger=LOGGER):
@@ -192,7 +192,7 @@ def test_run_chains_reports_through_its_reporter(caplog):
         run_chains(torch.Generator().manual_seed(4), LD, 3, 4, dtype=F64,
                    warmup_stages=stages, reporter=rep)
     assert rep.messages[0].startswith("found initial stepsizes eps in [")
-    assert "warmup block 1/1 done (20 steps)" in rep.messages
+    assert "warmup stage 2/2 done (20 steps)" in rep.messages
     assert "warmup stage 3/3 done (25 steps)" in rep.messages
     assert rep.steps == []  # run_chains reports blocks, not transitions
     with caplog.at_level(logging.INFO, logger=LOGGER):

@@ -87,7 +87,7 @@ def test_port_rejects_what_is_not_ported():
     mixed = (InitialStepsizeSearch(), TuningNUTS(N=20, metric_kind="dense"),
              TuningNUTS(N=20, metric_kind="diagonal"))
     # a heterogeneous schedule runs through the stage fold on the batch;
-    # the clamp still needs a schedule the engine takes whole
+    # the clamp still needs one metric kind, as in the JAX package
     res = run_chains(gen, model, 4, 10, warmup_stages=mixed,
                      algorithm=NUTS(max_depth=4))
     assert res.positions.shape == (4, 10, K)
