@@ -84,6 +84,20 @@ Phases (each one that fails ends the script with a non-zero exit code):
        4, no clamp, 512 draws, pooled diagonal blocks 25/50 then pooled
        dense blocks 100/200/400 (two metric kinds): every
        transition through K1's warp variant, the main path's gate.
+     Then the production surface of run_chains, on main's configuration
+     and seed (every transition through K1's warp variant):
+     - streamed: draws sunk to an io.MemmapDrawStore 64 at a time, every
+       warmup checkpoint kept: the store is main's timed draws bit for
+       bit, positions None, checkpoints at steps 0, 75, ..., 900; prints
+       its peak device memory beside main's;
+     - resumed: the step-450 checkpoint saved, loaded, resumed with a
+       fresh generator: main's draws, eps and M^-1 bit for bit;
+     - ess_target: sampling until a min bulk ESS of 1e6, checked at 64,
+       128, 256 draws: stops at the first checked boundary that meets
+       it, its draws main's prefix;
+     - constrained: Dirichlet(2, 3, 4) through the simplex transform,
+       1024 chains x 256 draws, clamp 2/25, the plain batch driver with
+       autograd (no kernel): rows on the simplex, each mean within 5 MCSE.
      Each checks that its kernel launched on every transition (for the
      fused leaves: on every leaf the driver executed; for the leapfrog: on
      every hamiltonian.leapfrog call; on the main and funnel paths every
@@ -580,21 +594,15 @@ def expected_transitions(n_draws):
     return sum(s.N for s in stages[1:]) + n_draws
 
 
-def run_path(model, C, n_draws, seed, config, dev):
+def run_path(model, C, n_draws, seed, config, dev, **options):
     """Phase 4: one run_chains call through the entry point a user calls;
     returns the result, its wall seconds and the launch counts of the
     run (every count set to 0 just before it)."""
     from dynamichmc_tpu_torch import run_chains
-    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    res = run_chains(gen, model, C, n_draws, **config)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return res, seconds, launch_counts()
+    return timed(lambda: run_chains(gen, model, C, n_draws, **config,
+                                    **options))
 
 
 def run_per_chain(model, dev):
@@ -614,17 +622,26 @@ def run_per_chain(model, dev):
     return results, seconds, launch_counts()
 
 
+MEMORY = {}  # the last timed run's device memory: GB held before it, peak
+
+
 def timed(fn):
     """Run ``fn()`` with every launch count set to 0 just before it; returns
-    its result, its wall seconds and the counts read just after it."""
+    its result, its wall seconds and the counts read just after it. Leaves
+    the device memory held before the run and the run's peak in MEMORY."""
     from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, launch_counts()
+    seconds = time.perf_counter() - t0
+    MEMORY.update(before_gb=before / 1e9,
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out, seconds, launch_counts()
 
 
 def check_k4_only(name, counts):
@@ -851,6 +868,167 @@ def run_slice13_paths(normal, gauss, fused_state, per_chain, dev, smi):
                                           float(res.eps.max())],
                     "gpu": smi})
     log(f"[4 path] {json.dumps(metrics)}")
+
+
+ESS_TARGET, STREAM_CHUNK = 1.0e6, 64  # the ess_target and streamed runs
+CHECKPOINT_STEPS = [0, 75, 100, 150, 250, 450, 850, 900]  # main's stages
+RESUME_STEP = 450  # the resumed run starts before the 400-step block
+N_CONSTRAINED, C_CONSTRAINED = 256, 1024
+DIRICHLET = (2.0, 3.0, 4.0)
+
+
+def run_slice14_paths(gauss, main, dev, smi):
+    """Phase 4's streamed, resumed, ess_target and constrained paths; fails
+    on a gate. ``main``: the main path's timed run (its draws on the host,
+    eps, M^-1, device memory), which the first three equal bit for bit."""
+    import tempfile
+
+    from dynamichmc_tpu_torch.checkpoint import load_state, save_state
+    from dynamichmc_tpu_torch.io import MemmapDrawStore
+
+    config = main_path_config()
+    expected = expected_transitions(N_DRAWS)
+    ref = main["positions"].numpy()
+
+    def same_adaptation(name, res):
+        check(torch.equal(res.eps, main["eps"])
+              and torch.equal(res.metric.m_inv, main["m_inv"]),
+              f"{name}: eps or M^-1 differ from main's")
+
+    def k1_only(name, counts, want):
+        check(counts["tree_transition"] == counts["tree_transition_warp"]
+              == want, f"{name}: {counts['tree_transition']} launches "
+              f"({counts['tree_transition_warp']} warp) for {want} "
+              "transitions")
+        check(counts["gaussian_fused_leaf"] == counts["logreg_fused_leaf"]
+              == counts["gaussian_leapfrog"] == 0,
+              f"{name}: another kernel launched")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # streamed: main's run with its draws sunk to a memmap store, 64 a
+        # chunk, and every warmup checkpoint kept
+        store = MemmapDrawStore(os.path.join(tmp, "draws"), C_MAIN, N_DRAWS,
+                                K_MAIN)
+        ckpts = []
+        res, seconds, counts = run_path(
+            gauss, C_MAIN, N_DRAWS, SEED, config, dev,
+            draw_sink=store.sink, sample_chunk=STREAM_CHUNK,
+            warmup_checkpoint_sink=ckpts.append)
+        memory = dict(MEMORY)
+        k1_only("streamed", counts, expected)
+        check(res.positions is None and res.logdensities is None,
+              "streamed: draws kept on the device")
+        store.flush()
+        check(store.written == N_DRAWS
+              and np.array_equal(np.asarray(store.positions), ref)
+              and np.array_equal(np.asarray(store.logdensities),
+                                 main["logdensities"].numpy()),
+              "streamed: the store differs from main's draws")
+        same_adaptation("streamed", res)
+        steps = [c.step for c in ckpts]
+        check(steps == CHECKPOINT_STEPS,
+              f"streamed: checkpoints at {steps}, expected {CHECKPOINT_STEPS}")
+        line = {
+            "path": "streamed", "wall_s": seconds, "launch_counts": counts,
+            "chains": C_MAIN, "draws": N_DRAWS, "dim": K_MAIN,
+            "sample_chunk": STREAM_CHUNK, "bitwise_main": True,
+            "checkpoint_steps": steps, "device_memory": memory,
+            "main_device_memory": main["memory"],
+            "peak_saved_gb": main["memory"]["peak_gb"] - memory["peak_gb"],
+            "main_wall_s": main["wall_s"], "gpu": smi}
+        log(f"[4 path] {json.dumps(line)}")
+        del store, res
+
+        # resumed: the step-450 checkpoint through disk, a fresh generator
+        ckpt = ckpts[CHECKPOINT_STEPS.index(RESUME_STEP)]
+        save_state(os.path.join(tmp, "ckpt"), ckpt)
+        restored, _ = load_state(os.path.join(tmp, "ckpt"))
+        del ckpts, ckpt
+        res, seconds, counts = run_path(gauss, C_MAIN, N_DRAWS, SEED + 1,
+                                        config, dev, warmup_resume=restored)
+        k1_only("resumed", counts, expected - RESUME_STEP)
+        check(np.array_equal(res.positions.cpu().numpy(), ref),
+              "resumed: draws differ from main's")
+        same_adaptation("resumed", res)
+        line = {
+            "path": "resumed", "wall_s": seconds, "launch_counts": counts,
+            "resume_step": RESUME_STEP, "resume_stage": restored.stage,
+            "bitwise_main": True, "gpu": smi}
+        log(f"[4 path] {json.dumps(line)}")
+        del res, restored
+
+    # ess_target: main's run until min bulk ESS 1e6, checked at 64, 128, 256
+    lines = []
+    res, seconds, counts = run_path(
+        gauss, C_MAIN, N_DRAWS, SEED, config, dev, ess_target=ESS_TARGET,
+        sample_chunk=STREAM_CHUNK, log=lines.append)
+    drawn = res.positions.shape[1]
+    k1_only("ess_target", counts, expected - N_DRAWS + drawn)
+    checks = [(int(m.group(1)), float(m.group(2))) for m in (
+        re.match(r"ess check @ (\d+) draws: min bulk ESS (\d+)", line)
+        for line in lines) if m]
+    check(checks and checks[-1][0] == drawn and checks[-1][1] >= ESS_TARGET
+          and all(ess < ESS_TARGET for _n, ess in checks[:-1]),
+          f"ess_target: stopped at {drawn} draws after checks {checks}")
+    check(np.array_equal(res.positions.cpu().numpy(), ref[:, :drawn]),
+          "ess_target: draws are not main's prefix")
+    line = {
+        "path": "ess_target", "wall_s": seconds, "launch_counts": counts,
+        "target": ESS_TARGET, "draws": drawn, "checks": checks,
+        "main_min_bulk_ess": main["min_bulk_ess"], "prefix_of_main": True,
+        "gpu": smi}
+    log(f"[4 path] {json.dumps(line)}")
+    del res
+    run_constrained(dev, smi)
+
+
+def run_constrained(dev, smi):
+    """constrained: Dirichlet(2, 3, 4) through the simplex transform, 1024
+    chains, float32, warmup depth clamp 2 with a 25-step tail, the plain
+    batch driver with autograd (no kernel): finite draws, rows on the
+    simplex, each mean within 5 MCSE."""
+    from dynamichmc_tpu_torch import run_chains
+    from dynamichmc_tpu_torch.constraints import (
+        constrain_draws, simplex, transformed_logdensity)
+    from dynamichmc_tpu_torch.stats_device import ess_bulk_device
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    alpha = torch.tensor(DIRICHLET, device=dev)
+    model = transformed_logdensity(
+        lambda y: ((alpha - 1) * torch.log(y)).sum(-1), [simplex(3)])
+    stages = default_warmup_stages(init_steps=75, middle_steps=25,
+                                   doubling_stages=3, terminating_steps=50)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the fleet's warmup clamp, as on main: unclamped, the lockstep batch
+    # runs its deepest chain's early trees, 48.4 s on an H100 (700 W)
+    res, seconds, counts = timed(lambda: run_chains(
+        gen, model, C_CONSTRAINED, N_CONSTRAINED, warmup_stages=stages,
+        warmup_depth_clamp=2, warmup_depth_clamp_tail=25))
+    check(sum(counts[k] for k in ("tree_transition", "gaussian_fused_leaf",
+                                  "logreg_fused_leaf", "gaussian_leapfrog"))
+          == 0, "constrained: a kernel launched")
+    check(bool(torch.isfinite(res.positions).all()),
+          "constrained: non-finite draws")
+    p = constrain_draws([simplex(3)], res.positions).double()
+    row_err = float((p.sum(-1) - 1).abs().max())
+    check(row_err <= 1e-5, f"constrained: rows sum to 1 within {row_err:.3g}")
+    ess = ess_bulk_device(p)
+    flat = p.reshape(-1, 3)
+    want = torch.tensor(DIRICHLET, dtype=torch.float64, device=dev)
+    want = want / want.sum()
+    z = (flat.mean(0) - want).abs() / (flat.std(0) / ess.sqrt())
+    check(bool((z <= 5).all()), f"constrained: |mean - alpha / sum| / mcse "
+                                f"= {z.tolist()}")
+    line = {
+        "path": "constrained", "wall_s": seconds, "launch_counts": counts,
+        "chains": C_CONSTRAINED, "draws": N_CONSTRAINED, "dim": 2,
+        "mean": flat.mean(0).tolist(), "target_mean": want.tolist(),
+        "z_mcse": z.tolist(), "min_bulk_ess": float(ess.min()),
+        "max_row_sum_err": row_err, "eps_range": [
+            float(res.eps.min()), float(res.eps.max())],
+        "divergences": int(res.tree_statistics.is_divergent.sum()),
+        "gpu": smi}
+    log(f"[4 path] {json.dumps(line)}")
 
 
 def check_generic(results, seconds):
@@ -1528,12 +1706,19 @@ def run_phases(dev, smi, profile=()):
             if counts["tree_transition"] else "lockstep work (plain driver)"))
         metrics.update({"path": name, "launch_counts": counts, "chains": C,
                         "draws": N_DRAWS, "dim": model.dim,
+                        "device_memory": dict(MEMORY),
                         "adapted_eps_range": [float(res.eps.min()),
                                               float(res.eps.max())],
                         "gpu": smi})
         log(f"[4 path] {json.dumps(metrics)}")
         if name == "gauss_fused":  # the batched stepwise path starts here
             fused_state = (res.metric, res.eps, res.positions[:, -1].clone())
+        if name == "main":  # what the streamed, resumed and ess runs equal
+            main = {"positions": res.positions.cpu(), "eps": res.eps.clone(),
+                    "m_inv": res.metric.m_inv.clone(),
+                    "logdensities": res.logdensities.cpu(),
+                    "memory": dict(MEMORY), "wall_s": seconds,
+                    "min_bulk_ess": metrics["min_bulk_ess"]}
         del res
     z = check_logreg_agreement(summaries["logreg_tree"], summaries["logreg_fused"])
     log(f"[4 path] logreg_tree vs logreg_fused: max |dmean| / mcse = {z:.4f}")
@@ -1559,6 +1744,8 @@ def run_phases(dev, smi, profile=()):
     log(f"[4 path] {json.dumps(metrics)}")
     run_slice13_paths(normal, gauss, fused_state, results, dev, smi)
     del results, fused_state
+    run_slice14_paths(gauss, main, dev, smi)
+    del main
     log_phase_done(4)
 
     # --- phase 5: kernel time against plain, and each kernel's bound -----

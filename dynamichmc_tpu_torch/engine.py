@@ -17,11 +17,18 @@ Two optional hooks ride on the loop without changing what it computes or
 draws: collection of each step's position, log density, tree statistics
 and stepsize (keep-warmup), and a step reporter whose ``report_step`` is
 called once per transition (reporting.py).
+
+Sampling (:func:`run_sampling`) runs in chunks of draws: a chunk boundary
+is where a draw sink takes the chunk off the device (io.py) and where the
+sample-until-converged check reads the draws' ESS; the draws and the
+random stream are the same for every chunk size. A warmup stops and
+resumes at a stage boundary through a :class:`WarmupCheckpoint`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -89,6 +96,37 @@ class WarmupSchedule:
             adaptation=next(iter(adaptations)),
             pooled=next(iter(pooled_flags)) if pooled_flags else False,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmupCheckpoint:
+    """Warmup state at a stage boundary, from which
+    ``run_chains(..., warmup_resume=checkpoint)`` continues the run with
+    the draws, eps and metric of the uninterrupted one, bit for bit.
+
+    The port runs warmup eagerly, one stage at a time, so a checkpoint
+    falls after the stepsize search (``step`` 0) and after each TuningNUTS
+    stage. The dual-averaging and Welford states restart at every stage
+    (``run_block``), so the JAX checkpoint's ``da``, ``wf``, ``eps_run``
+    and ``totals`` have nothing to carry here; the generator's state takes
+    the place of the JAX key. Valid only for the (model, stage tuple,
+    chain count, seed) it was taken from. The tensors are the fold's own
+    state, which no later step writes. Persist with
+    :func:`dynamichmc_tpu_torch.checkpoint.save_state`.
+
+    step: the next absolute warmup step (TuningNUTS steps before ``stage``).
+    stage: the index in the stage tuple of the next stage to run.
+    search: ``{eps, success, l0}`` of the stepsize search, or None.
+    generator_state: ``generator.get_state()`` at the boundary.
+    """
+
+    step: int
+    stage: int
+    Q: EvaluatedPoint
+    metric: Metric
+    eps: Optional[torch.Tensor]
+    search: Optional[dict]
+    generator_state: torch.Tensor
 
 
 def make_search_driver_batched(ld: LogDensity, params: InitialStepsizeSearch):
@@ -307,23 +345,88 @@ def stack_statistics(per_draw, lead=(), dtype=torch.float32,
 
 def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                  Q: EvaluatedPoint, metric, eps, n_samples: int,
-                 ops: Optional[ChainOps] = None, reporter=None):
-    """n_samples transitions at fixed (metric, eps). Returns (Q', positions
+                 ops: Optional[ChainOps] = None, reporter=None,
+                 sample_chunk: Optional[int] = None, draw_sink=None,
+                 ess_target: Optional[float] = None, ess_check_start: int = 0,
+                 ess_check_factor: float = 2.0, log=None):
+    """n_samples transitions at fixed (metric, eps), in chunks of
+    ``sample_chunk`` draws (None: one chunk). Returns (Q', positions
     (C, N, K) or (N, K), logdensities (C, N) or (N,), stats). ``reporter``:
-    a step reporter, told of every draw."""
+    a step reporter, told of every draw; ``log`` receives a line per chunk.
+
+    ``draw_sink(start, positions, logdensities, tree_statistics)`` takes
+    each chunk (``start`` its first draw), and its draws leave the device:
+    positions and logdensities are then None, the statistics stay.
+
+    ``ess_target``: after a chunk boundary at ``done >= next check`` (and
+    ``done < n_samples``), the min over coordinates of the draws' pooled
+    bulk ESS (stats_device, on the device); sampling stops once it reaches
+    the target, and the result holds the ``done`` draws taken. The first
+    check is at ``ess_check_start`` draws (0: ``max(sample_chunk, 64)``),
+    the next at ``max(done + 1, int(done * ess_check_factor))``.
+
+    The chunks decide only where the sink is called and the ESS read: the
+    draws and the random stream are the same for every chunk size."""
     if ops is None:
         ops = batched_ops(False)
-    trace = _Trace(Q, n_samples)
+    chunk = n_samples if sample_chunk is None else int(sample_chunk)
+    if chunk < 1 and n_samples > 0:
+        raise ValueError("sample_chunk must be >= 1")
+    # without a sink every draw goes into one buffer; with one, each chunk
+    # gets its own, dropped once the sink returns
+    trace = _Trace(Q, n_samples) if draw_sink is None else None
+    per_draw = []
     stage_reporter = (None if reporter is None else
                       reporter.make_stage_reporter(n_samples,
                                                    currently_warmup=False))
-    for j in range(n_samples):
-        Q, stats = ops.transition(generator, algorithm, ld, metric, Q, eps,
-                                  depth_limit=None)
-        trace.add(j, Q, stats)
-        if stage_reporter is not None:
-            stage_reporter.report_step(j)
-    return Q, trace.positions, trace.lds, trace.statistics()
+    next_check = None
+    if ess_target is not None:
+        next_check = (int(ess_check_start) if ess_check_start > 0
+                      else max(chunk, 64))
+    done, t0 = 0, time.perf_counter()
+    while done < n_samples:
+        m = min(chunk, n_samples - done)
+        part, offset = ((trace, done) if trace is not None
+                        else (_Trace(Q, m), 0))
+        for j in range(m):
+            Q, stats = ops.transition(generator, algorithm, ld, metric, Q,
+                                      eps, depth_limit=None)
+            part.add(offset + j, Q, stats)
+            if stage_reporter is not None:
+                stage_reporter.report_step(done + j)
+        if draw_sink is not None:
+            draw_sink(done, part.positions, part.lds, part.statistics())
+            per_draw += part.per_draw
+        done += m
+        if log is not None:
+            _synchronize(Q.q)
+            elapsed = time.perf_counter() - t0
+            eta = (n_samples - done) * elapsed / max(done, 1)
+            log(f"sampling: {done}/{n_samples} ({elapsed:.1f}s, "
+                f"{done / max(elapsed, 1e-9):.1f} draws/s, ~{eta:.1f}s left)")
+        if next_check is not None and next_check <= done < n_samples:
+            from .stats_device import ess_rhat_device
+
+            drawn = trace.positions[..., :done, :]
+            min_ess = float(ess_rhat_device(drawn)["ess_bulk"].min())
+            if log is not None:
+                log(f"ess check @ {done} draws: min bulk ESS {min_ess:.0f} "
+                    f"(target {ess_target:g})")
+            if min_ess >= ess_target:
+                break
+            next_check = max(done + 1, int(done * ess_check_factor))
+    if trace is None:
+        return Q, None, None, stack_statistics(per_draw, tuple(Q.q.shape[:-1]),
+                                               dtype=Q.q.dtype,
+                                               device=Q.q.device)
+    return (Q, trace.positions[..., :done, :], trace.lds[..., :done],
+            trace.statistics())
+
+
+def _synchronize(x: torch.Tensor) -> None:
+    """Wait for the device that holds ``x`` (a timed log line)."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
 
 
 def stepsize_message(eps) -> str:

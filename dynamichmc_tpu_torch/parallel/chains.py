@@ -2,7 +2,8 @@
 ``dynamichmc_tpu.parallel.chains``).
 
 Every stage tuple runs through the stage fold (warmup.run_warmup) on the
-batch, each stage pooled or not as it says."""
+batch, each stage pooled or not as it says; the draws come in chunks
+(engine.run_sampling), which a draw sink can take off the device."""
 
 from __future__ import annotations
 
@@ -11,11 +12,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..engine import WarmupSchedule
+from ..engine import WarmupSchedule, run_sampling
 from ..errors import DynamicHMCError
 from ..hamiltonian import evaluate
 from ..logdensity import LogDensity, check_device
-from ..mcmc import MCMCResult, _check_stepsize_search, mcmc
+from ..mcmc import MCMCResult, _check_stepsize_search
 from ..metric import Metric, identity_metric, metric_is_batched
 from ..nuts import NUTS
 from ..warmup import (
@@ -88,9 +89,16 @@ def run_chains(
     dtype=torch.float32,
     tune: str = "reference",
     log=None,
+    draw_sink=None,
     reporter=None,
     warmup_depth_clamp: Optional[int] = None,
     warmup_depth_clamp_tail: int = 0,
+    sample_chunk: Optional[int] = None,
+    warmup_checkpoint_sink=None,
+    warmup_resume=None,
+    ess_target: Optional[float] = None,
+    ess_check_start: int = 0,
+    ess_check_factor: float = 2.0,
 ) -> MCMCResult:
     """Run ``n_chains`` independently started NUTS chains, batched on the
     generator's device: stepsize search, staged warmup, then ``n_samples``
@@ -101,13 +109,36 @@ def run_chains(
     max_depth 10, no clamp. ``warmup_depth_clamp`` caps the tree doublings
     in every warmup block but the last (0 = no clamp);
     ``warmup_depth_clamp_tail`` extends the cap that many steps into the
-    last block; both need an optional stepsize search followed by
-    TuningNUTS blocks sharing one metric kind, adaptation and pooling, as
-    in the JAX package.
+    last block.
     ``reporter=None`` means ``reporting.default_reporter()``; a reporter's
-    messages (each warmup block) go to its ``report_message``, and an
-    explicit ``log`` callable takes precedence. Returns positions of shape
-    (n_chains, n_samples, K).
+    messages (each warmup block, each sampling chunk) go to its
+    ``report_message``, and an explicit ``log`` callable takes precedence.
+
+    ``sample_chunk``: draws per sampling chunk (default
+    ``max(8, min(512, 2**28 // (n_chains * dim)))``, as in the JAX
+    package; an explicit value is capped at ``n_samples``). A chunk
+    boundary is where ``draw_sink`` and the ESS check run; the draws are
+    the same for every chunk size.
+    ``draw_sink(start, positions, logdensities, tree_statistics)``: each
+    chunk leaves the device through it (``io.MemmapDrawStore.sink``); the
+    result's positions and logdensities are then None.
+    ``ess_target``: sample until the min over coordinates of the pooled
+    bulk ESS reaches it, checked at ``ess_check_start`` draws (0: the
+    first chunk boundary >= ``max(sample_chunk, 64)``) and then at draw
+    counts growing by ``ess_check_factor`` (1.0: every chunk);
+    ``n_samples`` is the cap, and positions hold the draws taken. Not with
+    a ``draw_sink``.
+    ``warmup_checkpoint_sink`` is called with an
+    ``engine.WarmupCheckpoint`` after the stepsize search and after every
+    warmup stage (persist with ``checkpoint.save_state``);
+    ``warmup_resume`` continues a run from one, with the same model,
+    stages, chain count and seed, and gives the uninterrupted run's draws
+    bit for bit.
+
+    The warmup depth clamp, ``draw_sink``, ``ess_target`` and
+    checkpointing need an optional stepsize search followed by TuningNUTS
+    blocks sharing one metric kind, adaptation and pooling, as in the JAX
+    package. Returns positions of shape (n_chains, n_samples, K).
     """
     if log is None:
         from ..reporting import default_reporter, stage_log
@@ -132,15 +163,36 @@ def run_chains(
     stages = tuple(warmup_stages)
     if warmup_depth_clamp_tail and warmup_depth_clamp is None:
         raise ValueError("warmup_depth_clamp_tail requires warmup_depth_clamp")
-    if warmup_depth_clamp is not None:
-        if WarmupSchedule.from_stages(stages) is None:
-            raise NotImplementedError(
-                "warmup_depth_clamp requires an optional stepsize search, "
-                "then TuningNUTS blocks sharing one metric kind, adaptation "
-                "and pooling"
-            )
-        if not 0 < warmup_depth_clamp <= algorithm.max_depth:
-            raise ValueError("warmup_depth_clamp must be in 1..max_depth")
+    uses = [name for name, value in (
+        ("warmup_depth_clamp", warmup_depth_clamp), ("draw_sink", draw_sink),
+        ("ess_target", ess_target),
+        ("warmup checkpoint/resume", warmup_checkpoint_sink),
+        ("warmup checkpoint/resume", warmup_resume)) if value is not None]
+    if uses and WarmupSchedule.from_stages(stages) is None:
+        raise NotImplementedError(
+            f"{uses[0]} requires an optional stepsize search, then "
+            "TuningNUTS blocks sharing one metric kind, adaptation and "
+            "pooling"
+        )
+    if warmup_depth_clamp is not None and not (
+            0 < warmup_depth_clamp <= algorithm.max_depth):
+        raise ValueError("warmup_depth_clamp must be in 1..max_depth")
+    if ess_target is not None:
+        if draw_sink is not None:
+            raise DynamicHMCError(
+                "ess_target needs the accumulated draws on the device to "
+                "evaluate convergence; it cannot be combined with a "
+                "draw_sink")
+        if not ess_target > 0:
+            raise DynamicHMCError("ess_target must be > 0")
+        if not ess_check_factor >= 1.0:
+            raise DynamicHMCError("ess_check_factor must be >= 1.0")
+    if sample_chunk is None:
+        sample_chunk = default_sample_chunk(n_chains, ld.dim)
+    else:
+        sample_chunk = int(min(sample_chunk, n_samples))
+        if sample_chunk < 1:
+            raise ValueError("sample_chunk must be >= 1")
     # the chains share a metric from the start if its first estimate pools
     first = first_adapting_stage(stages)
     pooled = first is not None and first.pooled
@@ -153,16 +205,28 @@ def run_chains(
     history, state = run_warmup(
         generator, ld, algorithm, stages, states, collect_stats=False,
         log=log, depth_clamp=warmup_depth_clamp,
-        depth_clamp_tail=warmup_depth_clamp_tail)
+        depth_clamp_tail=warmup_depth_clamp_tail,
+        checkpoint_sink=warmup_checkpoint_sink, resume=warmup_resume)
     _check_stepsize_search(history)
-    _q, inference = mcmc(generator, ld, algorithm, state, n_samples)
+    _q, positions, lds, stats = run_sampling(
+        generator, ld, algorithm, state.Q, state.metric, state.eps,
+        n_samples, sample_chunk=sample_chunk, draw_sink=draw_sink,
+        ess_target=ess_target, ess_check_start=ess_check_start,
+        ess_check_factor=ess_check_factor, log=log)
     return MCMCResult(
-        positions=inference.positions,
-        logdensities=inference.logdensities,
-        tree_statistics=inference.tree_statistics,
+        positions=positions,
+        logdensities=lds,
+        tree_statistics=stats,
         metric=state.metric,
         eps=state.eps,
     )
+
+
+def default_sample_chunk(n_chains: int, dim: int) -> int:
+    """Draws per sampling chunk when ``run_chains`` is given none: about
+    1 GB of float32 positions, between 8 and 512 draws (the JAX package's
+    rule, ``parallel/chains.py``)."""
+    return int(max(8, min(512, (1 << 28) // max(n_chains * dim, 1))))
 
 
 def _shared(metric: Metric) -> Metric:

@@ -251,11 +251,41 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
     return results, WarmupState(Q=Q, metric=metric, eps=eps)
 
 
+def _stage_start_steps(stages) -> list:
+    """The absolute warmup step at which each stage of ``stages`` starts,
+    and the total after the last: the TuningNUTS steps before it."""
+    starts = [0]
+    for stage in stages:
+        n = stage.N if isinstance(stage, TuningNUTS) else 0
+        starts.append(starts[-1] + n)
+    return starts
+
+
+def _check_resume(stages, starts, resume, state) -> None:
+    """Raise ``DynamicHMCError`` unless ``resume`` can continue this run:
+    the same chain-state shape, and a step that is a stage boundary of
+    this schedule."""
+    if tuple(resume.Q.q.shape) != tuple(state.Q.q.shape):
+        raise DynamicHMCError(
+            f"warmup_resume chain state shape {tuple(resume.Q.q.shape)} "
+            f"does not match this run's {tuple(state.Q.q.shape)}")
+    if not 0 <= resume.step <= starts[-1]:
+        raise DynamicHMCError(
+            f"warmup_resume step {resume.step} is outside this schedule's "
+            f"0..{starts[-1]} warmup steps")
+    if not (0 <= resume.stage <= len(stages)
+            and starts[resume.stage] == resume.step):
+        raise DynamicHMCError(
+            f"warmup_resume step {resume.step} at stage {resume.stage} is "
+            "not a stage boundary of this schedule")
+
+
 def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
                stages: Tuple[WarmupStage, ...], state: WarmupState,
                collect_positions: bool = False, collect_stats: bool = True,
                log=None, reporter=None, depth_clamp: Optional[int] = None,
-               depth_clamp_tail: int = 0):
+               depth_clamp_tail: int = 0, checkpoint_sink=None,
+               resume=None):
     """Left fold of warmup stages (mcmc.jl:450-457) over one chain or a
     batch, every random number from ``generator`` in stage order. Returns
     (history, final state), ``history`` a list of (stage, results,
@@ -272,12 +302,33 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
     the cap that many steps into the last stage (the dual-averaging restart
     transient), never over the whole of it. Any cap is a valid NUTS kernel:
     only the adaptation trajectory changes, and sampling is never
-    clamped."""
+    clamped.
+
+    ``checkpoint_sink`` is called with an ``engine.WarmupCheckpoint`` after
+    the stepsize search and after every TuningNUTS stage. ``resume`` (such
+    a checkpoint) skips the stages before ``resume.stage``, restores the
+    state and the search's results, and sets ``generator`` to the
+    checkpoint's state, so the fold continues the interrupted one bit for
+    bit (the clamp applied per stage as above); ``history`` then holds the
+    restored search, if any, and the stages run."""
+    from .engine import WarmupCheckpoint
+
     stages = tuple(stages)
     tuning = [s for s, stage in enumerate(stages)
               if isinstance(stage, TuningNUTS)]
-    history = []
-    for s, stage in enumerate(stages):
+    starts = _stage_start_steps(stages)
+    history, search, first = [], None, 0
+    if resume is not None:
+        _check_resume(stages, starts, resume, state)
+        state = WarmupState(Q=resume.Q, metric=resume.metric, eps=resume.eps)
+        search, first = resume.search, resume.stage
+        if search is not None:
+            searched = next((s for s in stages[:first]
+                             if isinstance(s, InitialStepsizeSearch)), None)
+            history.append((searched, search, state))
+        generator.set_state(resume.generator_state.cpu())
+    for s in range(first, len(stages)):
+        stage = stages[s]
         adapting = first_adapting_stage(stages, s)
         clamp_steps = 0
         if depth_clamp is not None and s in tuning:
@@ -290,6 +341,13 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
             metric_kind=None if adapting is None else adapting.metric_kind,
             depth_clamp=depth_clamp, clamp_steps=clamp_steps)
         history.append((stage, results, state))
+        if isinstance(stage, InitialStepsizeSearch):
+            search = results
         if log is not None and isinstance(stage, TuningNUTS):
             log(f"warmup stage {s + 1}/{len(stages)} done ({stage.N} steps)")
+        if checkpoint_sink is not None and stage is not None:
+            checkpoint_sink(WarmupCheckpoint(
+                step=starts[s + 1], stage=s + 1, Q=state.Q,
+                metric=state.metric, eps=state.eps, search=search,
+                generator_state=generator.get_state()))
     return history, state

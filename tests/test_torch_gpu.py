@@ -988,3 +988,99 @@ def test_cuda_heterogeneous_run_chains_takes_the_warp_kernel():
         == transitions
     assert res.metric.m_inv.shape == (100, 100)  # shared, dense
     assert bool(torch.isfinite(res.positions).all())
+
+
+def _slice14_run(dev, **kw):
+    """run_chains at 256 x 100 on correlated_gaussian(100, tree_kernel=True):
+    a pooled dense schedule of 80 warmup steps, md 4, clamp 2 with a 5-step
+    tail, 32 draws; returns the result and the run's launch counts."""
+    from dynamichmc_tpu_torch import NUTS, run_chains
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    model = correlated_gaussian(100, dtype=F32, device=dev, tree_kernel=True)
+    stages = default_warmup_stages(metric_kind="dense", pooled=True,
+                                   init_steps=20, middle_steps=20,
+                                   doubling_stages=2, terminating_steps=20)
+    reset_launch_counts()
+    res = run_chains(torch.Generator(device=dev).manual_seed(0), model, 256,
+                     32, warmup_stages=stages, algorithm=NUTS(max_depth=4),
+                     warmup_depth_clamp=2, warmup_depth_clamp_tail=5, **kw)
+    torch.cuda.synchronize()
+    return res, launch_counts()
+
+
+@pytest.mark.gpu
+def test_cuda_warmup_resume_through_disk_is_bitwise(tmp_path):
+    """Every checkpoint of a K1 run, saved and loaded, resumes to the
+    uninterrupted run's draws, eps and M^-1 bit for bit, each remaining
+    transition a launch of K1's warp variant."""
+    from dynamichmc_tpu_torch.checkpoint import load_state, save_state
+
+    dev = _device()
+    ckpts = []
+    ref, counts = _slice14_run(dev, warmup_checkpoint_sink=ckpts.append)
+    assert [c.step for c in ckpts] == [0, 20, 40, 80, 100]
+    assert counts["tree_transition_warp"] == 100 + 32
+    for ckpt in ckpts:
+        save_state(str(tmp_path / f"s{ckpt.step}"), ckpt)
+        restored, _ = load_state(str(tmp_path / f"s{ckpt.step}"))
+        assert restored.Q.q.is_cuda  # loaded where it was saved
+        res, counts = _slice14_run(dev, warmup_resume=restored)
+        assert counts["tree_transition"] == counts["tree_transition_warp"] \
+            == 100 - ckpt.step + 32
+        assert torch.equal(res.positions, ref.positions)
+        assert torch.equal(res.eps, ref.eps)
+        assert torch.equal(res.metric.m_inv, ref.metric.m_inv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 8, None])
+def test_cuda_draw_sink_streams_the_tree_kernels_draws(chunk, tmp_path):
+    """A K1 run with a draw sink fills its store with the kept run's draws
+    bit for bit, whatever the chunk; nothing of the draws stays on the
+    card."""
+    from dynamichmc_tpu_torch.io import MemmapDrawStore
+
+    dev = _device()
+    ref, _ = _slice14_run(dev)
+    store = MemmapDrawStore(str(tmp_path / "d"), 256, 32, 100)
+    res, counts = _slice14_run(dev, draw_sink=store.sink, sample_chunk=chunk)
+    assert counts["tree_transition"] == counts["tree_transition_warp"] == 132
+    assert res.positions is None and res.logdensities is None
+    assert res.tree_statistics.depth.is_cuda
+    assert np.array_equal(np.asarray(store.positions), ref.positions.cpu().numpy())
+    assert np.array_equal(np.asarray(store.logdensities),
+                          ref.logdensities.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_constraints_match_the_cpu():
+    """Forward, log|J|, inverse and the transformed density's gradient on
+    the card at float64 equal the CPU's to 1e-12."""
+    from dynamichmc_tpu_torch import constraints as tc
+
+    dev = _device()
+    ts = [tc.positive(2), tc.bounded(-2.0, 5.0, 1), tc.simplex(4),
+          tc.identity(1)]
+    stack = tc.as_stack(ts)
+    x = torch.randn((64, stack.input_dim), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0))
+    alpha = torch.tensor([2.0, 3.0, 4.0, 5.0], dtype=torch.float64)
+
+    def lp(y):
+        a = alpha.to(y.device)
+        return -y[..., 0] - 0.5 * y[..., 3] ** 2 + (
+            (a - 1) * torch.log(y[..., 3:7])).sum(-1)
+
+    ld = tc.transformed_logdensity(lp, ts)
+    y_cpu, lj_cpu = stack.forward_with_logdet(x)
+    y_gpu, lj_gpu = stack.forward_with_logdet(x.to(dev))
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-12, atol=0)
+    torch.testing.assert_close(lj_gpu.cpu(), lj_cpu, rtol=1e-12, atol=1e-14)
+    torch.testing.assert_close(stack.inverse(y_gpu).cpu(), stack.inverse(y_cpu),
+                               rtol=1e-12, atol=1e-14)
+    v_cpu, g_cpu = ld.logdensity_and_gradient(x)
+    v_gpu, g_gpu = ld.logdensity_and_gradient(x.to(dev))
+    torch.testing.assert_close(v_gpu.cpu(), v_cpu, rtol=1e-12, atol=1e-14)
+    torch.testing.assert_close(g_gpu.cpu(), g_cpu, rtol=1e-12, atol=1e-14)
