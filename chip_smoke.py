@@ -98,6 +98,25 @@ Phases (each one that fails ends the script with a non-zero exit code):
      - constrained: Dirichlet(2, 3, 4) through the simplex transform,
        1024 chains x 256 draws, clamp 2/25, the plain batch driver with
        autograd (no kernel): rows on the simplex, each mean within 5 MCSE.
+     Then run_chains' defaults (tune="auto") and a custom turn statistic:
+     - auto_main: run_chains(generator, main's target, 4096, 512) with
+       nothing else but a log: its autotune line reads max_depth=4, pooled
+       dense metric, per-chain eps, warmup clamp 2/25, and its draws, eps
+       and M^-1 are main's timed run's bit for bit, every transition
+       through K1's warp variant;
+     - auto_funnel: the same call on the funnel path's target: the same
+       line, K1's warp variant with the funnel leaf and a dense metric on
+       every transition; prints the share of draws at the cap and checks
+       that the autotune WARNING line appears exactly when that share
+       exceeds autotune.CAP_SATURATION_WARN; the v-marginal is reported,
+       not gated (the cap costs mixing);
+     - custom_batch: N(0, I_25) = mvnormal(0, I, fused=True), 4 chains x
+       256 draws, NUTS with the generalized statistic reimplemented as a
+       custom one (the generic driver looped over the chains), warmup
+       search, 75, diagonal 25, 50, 100, then 50: K4 once for every
+       hamiltonian.leapfrog call and no other kernel, split R-hat over the
+       4 chains <= 1.05, mean acceptance in [0.6, 0.95], every
+       coordinate's |mean| <= 0.15 and variance in [0.8, 1.2].
      Each checks that its kernel launched on every transition (for the
      fused leaves: on every leaf the driver executed; for the leapfrog: on
      every hamiltonian.leapfrog call; on the main and funnel paths every
@@ -1002,8 +1021,9 @@ def run_constrained(dev, smi):
     # the fleet's warmup clamp, as on main: unclamped, the lockstep batch
     # runs its deepest chain's early trees, 48.4 s on an H100 (700 W)
     res, seconds, counts = timed(lambda: run_chains(
-        gen, model, C_CONSTRAINED, N_CONSTRAINED, warmup_stages=stages,
-        warmup_depth_clamp=2, warmup_depth_clamp_tail=25))
+        gen, model, C_CONSTRAINED, N_CONSTRAINED, tune="reference",
+        warmup_stages=stages, warmup_depth_clamp=2,
+        warmup_depth_clamp_tail=25))
     check(sum(counts[k] for k in ("tree_transition", "gaussian_fused_leaf",
                                   "logreg_fused_leaf", "gaussian_leapfrog"))
           == 0, "constrained: a kernel launched")
@@ -1029,6 +1049,109 @@ def run_constrained(dev, smi):
         "divergences": int(res.tree_statistics.is_divergent.sum()),
         "gpu": smi}
     log(f"[4 path] {json.dumps(line)}")
+
+
+AUTO_LINE = ("autotune: max_depth=4, pooled dense metric, per-chain eps, "
+             "warmup clamp 2/25")  # what the JAX package logs at 4096 x 100
+C_CUSTOM, N_CUSTOM = 4, 256  # the custom_batch path
+
+
+def custom_stages():
+    """custom_batch's warmup: search, 75 eps-only, diagonal 25, 50, 100,
+    then 50 eps-only (556 transitions with its 256 draws)."""
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    return default_warmup_stages(init_steps=75, middle_steps=25,
+                                 doubling_stages=3, terminating_steps=50)
+
+
+def run_slice15_paths(gauss, fun, normal, main, dev, smi):
+    """Phase 4's auto_main, auto_funnel and custom_batch paths; fails on a
+    gate. ``main``: the main path's timed run, which auto_main must equal
+    bit for bit."""
+    from dynamichmc_tpu_torch import NUTS, autotune
+    from dynamichmc_tpu_torch.stats_device import ess_rhat_device
+
+    GeneralizedReimpl = tests_module("torch_turn_statistics").GeneralizedReimpl
+    expected = expected_transitions(N_DRAWS)
+
+    def auto_run(name, model):
+        lines = []
+        res, seconds, counts = run_path(model, C_MAIN, N_DRAWS, SEED, {}, dev,
+                                        log=lines.append)
+        auto = [line for line in lines if line.startswith("autotune:")]
+        check(auto == [AUTO_LINE], f"{name}: autotune lines {auto}")
+        check(counts["tree_transition"] == counts["tree_transition_warp"]
+              == expected, f"{name}: {counts['tree_transition']} launches "
+              f"({counts['tree_transition_warp']} warp) for {expected} "
+              "transitions")
+        check(counts["gaussian_fused_leaf"] == counts["logreg_fused_leaf"]
+              == counts["gaussian_leapfrog"] == 0,
+              f"{name}: another kernel launched")
+        check(tuple(res.metric.m_inv.shape) == (model.dim, model.dim),
+              f"{name}: metric shape {tuple(res.metric.m_inv.shape)}")
+        # the warning appears exactly when the share at the cap exceeds
+        # the threshold
+        share = float((res.tree_statistics.depth >= MD_MAIN).double().mean())
+        warned = sum(line.startswith("autotune WARNING") for line in lines)
+        check(warned == int(share > autotune.CAP_SATURATION_WARN),
+              f"{name}: {warned} warnings at a cap share of {share:.4f}")
+        metrics, _ess = path_metrics(res, seconds)
+        metrics.update(path_diagnostics(res.tree_statistics,
+                                        "per-chain work (tree kernel)"))
+        metrics.update({"path": name, "launch_counts": counts,
+                        "chains": C_MAIN, "draws": N_DRAWS, "dim": model.dim,
+                        "autotune_line": auto[0], "cap_share": share,
+                        "warned": bool(warned),
+                        "adapted_eps_range": [float(res.eps.min()),
+                                              float(res.eps.max())],
+                        "gpu": smi})
+        return res, metrics
+
+    # auto_main: the plain call is main's configuration
+    res, metrics = auto_run("auto_main", gauss)
+    check(torch.equal(res.positions.cpu(), main["positions"])
+          and torch.equal(res.eps, main["eps"])
+          and torch.equal(res.metric.m_inv, main["m_inv"]),
+          "auto_main: draws, eps or M^-1 differ from main's")
+    metrics.update({"bitwise_main": True, "main_wall_s": main["wall_s"]})
+    log(f"[4 path] {json.dumps(metrics)}")
+    del res
+
+    # auto_funnel: the plain call on the funnel, a dense metric and md 4
+    res, metrics = auto_run("auto_funnel", fun)
+    v = res.positions[:, :, 0].double()
+    metrics.update({"mean_v": float(v.mean()),
+                    "sd_v": float(v.std(correction=0))})
+    log(f"[4 path] {json.dumps(metrics)}")
+    del res
+
+    # custom_batch: the generic driver looped over 4 chains, K4 per leapfrog
+    algorithm = NUTS(turn_statistic_configuration=GeneralizedReimpl())
+    res, seconds, counts = run_path(
+        normal, C_CUSTOM, N_CUSTOM, SEED,
+        {"warmup_stages": custom_stages(), "algorithm": algorithm}, dev)
+    check_k4_only("custom_batch", counts)
+    check(tuple(res.positions.shape) == (C_CUSTOM, N_CUSTOM, K_GAUSS),
+          f"custom_batch: positions shape {tuple(res.positions.shape)}")
+    metrics, _ess = path_metrics(res, seconds)
+    draws = res.positions.double()
+    metrics.update(check_standard_normal(draws.reshape(-1, K_GAUSS), 0.15,
+                                         (0.8, 1.2)))
+    rhat = float(ess_rhat_device(draws)["rhat"].max())
+    check(rhat <= 1.05, f"custom_batch: split R-hat up to {rhat:.4f}")
+    acc = float(res.tree_statistics.acceptance_rate.mean())
+    check(0.6 <= acc <= 0.95, f"custom_batch: mean acceptance {acc:.4f}")
+    metrics.update(path_diagnostics(res.tree_statistics))
+    metrics.update({"path": "custom_batch", "launch_counts": counts,
+                    "chains": C_CUSTOM, "draws": N_CUSTOM, "dim": K_GAUSS,
+                    "max_rhat": rhat, "mean_acceptance": acc,
+                    "transitions_per_chain": sum(
+                        s.N for s in custom_stages()[1:]) + N_CUSTOM,
+                    "host_ms_per_leapfrog": 1e3 * seconds
+                    / counts["leapfrog_calls"],
+                    "eps": res.eps.tolist(), "gpu": smi})
+    log(f"[4 path] {json.dumps(metrics)}")
 
 
 def check_generic(results, seconds):
@@ -1745,6 +1868,7 @@ def run_phases(dev, smi, profile=()):
     run_slice13_paths(normal, gauss, fused_state, results, dev, smi)
     del results, fused_state
     run_slice14_paths(gauss, main, dev, smi)
+    run_slice15_paths(gauss, fun, normal, main, dev, smi)
     del main
     log_phase_done(4)
 

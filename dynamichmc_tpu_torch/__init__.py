@@ -4,7 +4,8 @@ Imports torch, numpy and scipy only; never JAX or the JAX package. The hot
 loops run in hand-written CUDA kernels (csrc/): one whole NUTS transition
 per chain (tree_kernel.cu), the fused logreg leaf (logreg_leaf.cu) and the
 fused Gaussian leaf and leapfrog (gaussian_leaf.cu). ``run_chains`` runs a
-batch of chains, streaming its draws to ``io.MemmapDrawStore``, sampling
+batch of chains (by default with the knobs left out chosen by
+``autotune``, as in the JAX package), streaming its draws to ``io.MemmapDrawStore``, sampling
 until an ESS target or resuming a checkpointed warmup (``checkpoint``) as
 asked; ``mcmc_with_warmup`` and ``mcmc_keep_warmup`` run one chain, and
 ``mcmc_steps`` steps a chain or a batch one transition at a time.

@@ -8,10 +8,13 @@ stages each run :func:`run_block`, a Python loop over the block's
 transitions; block boundaries (dual-averaging restart, metric re-estimate,
 Welford reset) fall between two transitions, with the same semantics.
 
-One loop serves both chain layouts. A :class:`ChainOps` names the
+One loop serves every chain layout. A :class:`ChainOps` names the
 transition, the stepsize search and the Welford fold: ``batched_ops`` for a
 (C, K) chain batch (run_chains), ``PER_CHAIN`` for one (K,) chain
-(mcmc_with_warmup).
+(mcmc_with_warmup), and ``looped_ops`` for a (C, K) batch whose algorithm
+has a custom turn statistic, which the batch driver does not take: the
+generic per-chain driver looped over the chains. :func:`chain_ops` picks
+one.
 
 Two optional hooks ride on the loop without changing what it computes or
 draws: collection of each step's position, log density, tree statistics
@@ -35,7 +38,13 @@ import torch
 
 from .hamiltonian import EvaluatedPoint, PhasePoint
 from .logdensity import LogDensity
-from .metric import DiagonalMetric, Metric, dense_metric, rand_p
+from .metric import (
+    DiagonalMetric,
+    Metric,
+    dense_metric,
+    metric_is_batched,
+    rand_p,
+)
 from .nuts import NUTS, TreeStatistics, sample_tree
 from .stepsize import (
     InitialStepsizeSearch,
@@ -224,6 +233,99 @@ PER_CHAIN = ChainOps(
 """One (K,) chain through the per-chain fast driver (nuts.sample_tree)."""
 
 
+def chain_metric(metric: Metric, c: int) -> Metric:
+    """Chain ``c``'s metric: a copy of its row of a per-chain metric (a
+    matrix product's rounding can depend on where its operand lies, so the
+    row does not stay a view into the batch), else the shared one."""
+    if not metric_is_batched(metric):
+        return metric
+    return dataclasses.replace(metric, **{
+        f.name: (None if getattr(metric, f.name) is None
+                 else getattr(metric, f.name)[c].clone())
+        for f in dataclasses.fields(metric)})
+
+
+def _chain_point(Q: EvaluatedPoint, c: int) -> EvaluatedPoint:
+    return EvaluatedPoint(q=Q.q[c], logdensity=Q.logdensity[c],
+                          grad=Q.grad[c])
+
+
+def _stack_points(points) -> EvaluatedPoint:
+    return EvaluatedPoint(q=torch.stack([P.q for P in points]),
+                          logdensity=torch.stack([P.logdensity
+                                                  for P in points]),
+                          grad=torch.stack([P.grad for P in points]))
+
+
+def _looped_transition(generator, algorithm, ld, metric, Q, eps,
+                       depth_limit=None, p=None, directions=None):
+    """The generic driver (``nuts.sample_tree(fast=False)``, with the
+    algorithm's turn statistic) for chain 0, 1, ..., C-1 of a (C, K)
+    batch, in that order, each with its metric row and its eps; ``p``
+    (C, K) and ``directions`` (C,) inject the momenta and direction bits
+    (tests)."""
+    if depth_limit is not None:
+        raise ValueError("the looped generic driver has no warmup depth "
+                         "clamp")
+    C = Q.q.shape[0]
+    if not torch.is_tensor(eps):
+        eps = torch.as_tensor(eps, dtype=Q.q.dtype, device=Q.q.device)
+    eps = eps.expand(C)
+    out = [sample_tree(generator, algorithm, ld, chain_metric(metric, c),
+                       _chain_point(Q, c), eps[c],
+                       p=None if p is None else p[c],
+                       directions=None if directions is None
+                       else directions[c], fast=False)
+           for c in range(C)]
+    return (_stack_points([point for point, _s in out]),
+            stack_statistics([s for _point, s in out]))
+
+
+def make_search_driver_looped(ld: LogDensity, params: InitialStepsizeSearch):
+    """(generator, Q, metric[, p]) -> (eps (C,), success (C,), l0 (C,)):
+    the per-chain search (:func:`make_search_driver`) for chain 0, 1, ...,
+    C-1 of a (C, K) batch, in that order, as the JAX package vmaps it for
+    a custom turn statistic; ``p`` (C, K) injects the momenta (tests)."""
+    single = make_search_driver(ld, params)
+
+    def search(generator, Q: EvaluatedPoint, metric: Metric, p=None):
+        out = [single(generator, _chain_point(Q, c), chain_metric(metric, c),
+                      None if p is None else p[c])
+               for c in range(Q.q.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*out))
+
+    return search
+
+
+def looped_ops(pooled: bool) -> ChainOps:
+    """A (C, K) chain batch through the generic per-chain driver, chain by
+    chain, every random number from the run's one generator in chain
+    order: the batch layout for a custom turn statistic, the counterpart
+    in law of the JAX package's vmapped generic driver (one key per
+    chain), not in speed. The generic driver costs about 1.24-1.30 ms of
+    host time a leapfrog on an H100 machine (PERF.md), and the loop
+    pays it C times a leaf: a transition of C chains costs C times one
+    chain's. Welford moments per chain, or one pooled over the batch."""
+    return ChainOps(
+        transition=_looped_transition,
+        make_search=make_search_driver_looped,
+        welford_zero=_shared_welford_zero if pooled else welford_zero,
+        welford_update=welford_update_pooled_b if pooled else welford_update_b,
+    )
+
+
+def chain_ops(algorithm: NUTS, batched: bool, pooled: bool = False
+              ) -> ChainOps:
+    """The ops of a chain layout: ``PER_CHAIN`` for one (K,) chain; for a
+    (C, K) batch ``batched_ops``, or ``looped_ops`` when the algorithm has
+    a custom turn statistic, which the batch driver does not take."""
+    if not batched:
+        return PER_CHAIN
+    if algorithm.turn_statistic_configuration != "generalized":
+        return looped_ops(pooled)
+    return batched_ops(pooled)
+
+
 def promote_metric(metric: Metric, kind: str) -> Metric:
     """Promote a diagonal initial metric to the dense representation when
     the schedule adapts a dense one (numerically a no-op)."""
@@ -351,8 +453,10 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                  ess_check_factor: float = 2.0, log=None):
     """n_samples transitions at fixed (metric, eps), in chunks of
     ``sample_chunk`` draws (None: one chunk). Returns (Q', positions
-    (C, N, K) or (N, K), logdensities (C, N) or (N,), stats). ``reporter``:
-    a step reporter, told of every draw; ``log`` receives a line per chunk.
+    (C, N, K) or (N, K), logdensities (C, N) or (N,), stats). ``ops``: the
+    chain layout (None: :func:`chain_ops` of the algorithm and of ``Q``'s
+    shape). ``reporter``: a step reporter, told of every draw; ``log``
+    receives a line per chunk.
 
     ``draw_sink(start, positions, logdensities, tree_statistics)`` takes
     each chunk (``start`` its first draw), and its draws leave the device:
@@ -368,7 +472,7 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
     The chunks decide only where the sink is called and the ESS read: the
     draws and the random stream are the same for every chunk size."""
     if ops is None:
-        ops = batched_ops(False)
+        ops = chain_ops(algorithm, Q.q.ndim == 2)
     chunk = n_samples if sample_chunk is None else int(sample_chunk)
     if chunk < 1 and n_samples > 0:
         raise ValueError("sample_chunk must be >= 1")

@@ -97,11 +97,13 @@ def mcmc(generator: torch.Generator, ld: LogDensity, algorithm: NUTS, state,
     """Post-warmup sampling (mcmc.jl:366-381): ``n_samples`` transitions
     from a ``WarmupState`` at its fixed metric and eps, one (K,) chain or a
     (C, K) batch. A ``reporter`` that wants step callbacks is told of every
-    draw. Returns (Q_final, InferenceResult)."""
-    from .engine import PER_CHAIN, batched_ops, run_sampling
+    draw. A batch with a custom turn statistic runs the generic driver
+    looped over its chains (engine.chain_ops). Returns (Q_final,
+    InferenceResult)."""
+    from .engine import chain_ops, run_sampling
 
     check_device(ld, generator.device)
-    ops = PER_CHAIN if state.Q.q.ndim == 1 else batched_ops(False)
+    ops = chain_ops(algorithm, state.Q.q.ndim == 2)
     if reporter is not None and not reporter.wants_step_callbacks:
         reporter = None
     Q, positions, lds, stats = run_sampling(

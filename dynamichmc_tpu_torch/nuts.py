@@ -48,7 +48,8 @@ class NUTS:
     the built-in generalized U-turn statistic; an object with
     ``leaf(metric, z) -> tau`` and ``combine(metric, tau_x, tau_y) -> (tau,
     turning)`` runs the per-chain transition through the generic driver
-    with that statistic (the batched drivers take only the default)."""
+    with that statistic (the batch driver takes only the default; a batch
+    runs the generic driver looped over its chains, engine.looped_ops)."""
 
     max_depth: int = DEFAULT_MAX_TREE_DEPTH
     min_delta: float = -1000.0

@@ -3,7 +3,10 @@
 
 Every stage tuple runs through the stage fold (warmup.run_warmup) on the
 batch, each stage pooled or not as it says; the draws come in chunks
-(engine.run_sampling), which a draw sink can take off the device."""
+(engine.run_sampling), which a draw sink can take off the device. By
+default (``tune="auto"``) the knobs a caller leaves out come from
+autotune.py, as in the JAX package. A custom turn statistic runs the
+generic per-chain driver looped over the chains (engine.looped_ops)."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from ..logdensity import LogDensity, check_device
 from ..mcmc import MCMCResult, _check_stepsize_search
 from ..metric import Metric, identity_metric, metric_is_batched
 from ..nuts import NUTS
+from ..stepsize import PooledStepsize
 from ..warmup import (
     WarmupStage,
     WarmupState,
@@ -87,13 +91,18 @@ def run_chains(
     warmup_stages: Optional[Tuple[WarmupStage, ...]] = None,
     algorithm: Optional[NUTS] = None,
     dtype=torch.float32,
-    tune: str = "reference",
+    tune: str = "auto",
+    mesh=None,
     log=None,
     draw_sink=None,
     reporter=None,
+    warmup_driver: str = "sync",
+    sampling_driver: str = "sync",
+    stratify_sampling: int = 0,
     warmup_depth_clamp: Optional[int] = None,
     warmup_depth_clamp_tail: int = 0,
     sample_chunk: Optional[int] = None,
+    epoch_ring: int = 8,
     warmup_checkpoint_sink=None,
     warmup_resume=None,
     ess_target: Optional[float] = None,
@@ -104,6 +113,17 @@ def run_chains(
     generator's device: stepsize search, staged warmup, then ``n_samples``
     draws. Every random number comes from ``generator``.
 
+    ``tune="auto"`` (the default, as in the JAX package) fills every knob
+    the caller left out from :func:`autotune.auto_choices`, keyed on
+    ``n_chains`` and the target's dimension: the metric's kind and pooling
+    in the default warmup stages, per-chain eps, the warmup depth clamp
+    and, for large lockstep fleets, a sampling ``max_depth`` cap. It logs
+    one ``autotune: ...`` line of what it applied, and after the run warns
+    when more than ``autotune.CAP_SATURATION_WARN`` of the draws hit an
+    auto-applied cap. Explicit arguments win: ``algorithm`` pins the
+    depth (the cap applies only when neither ``algorithm`` nor stages were
+    given), and ``warmup_depth_clamp=0`` means no clamp. A custom turn
+    statistic gets no stages and no clamp.
     ``tune="reference"`` fills unspecified knobs with the reference's
     semantics: per-chain diagonal metric, per-chain dual averaging,
     max_depth 10, no clamp. ``warmup_depth_clamp`` caps the tree doublings
@@ -113,6 +133,12 @@ def run_chains(
     ``reporter=None`` means ``reporting.default_reporter()``; a reporter's
     messages (each warmup block, each sampling chunk) go to its
     ``report_message``, and an explicit ``log`` callable takes precedence.
+
+    An algorithm with a custom turn statistic runs the generic driver
+    looped over the chains (``engine.looped_ops``), chain by chain, C
+    times one chain's host time a transition; as in the JAX package it
+    takes no pooled stepsize, no warmup depth clamp and no warmup
+    checkpoint or resume.
 
     ``sample_chunk``: draws per sampling chunk (default
     ``max(8, min(512, 2**28 // (n_chains * dim)))``, as in the JAX
@@ -138,29 +164,37 @@ def run_chains(
     The warmup depth clamp, ``draw_sink``, ``ess_target`` and
     checkpointing need an optional stepsize search followed by TuningNUTS
     blocks sharing one metric kind, adaptation and pooling, as in the JAX
-    package. Returns positions of shape (n_chains, n_samples, K).
+    package. ``mesh``, ``warmup_driver``, ``sampling_driver``,
+    ``stratify_sampling`` and ``epoch_ring`` are the JAX package's
+    keywords; only their defaults (one device, the lockstep drivers) are
+    ported, and any other value raises ``NotImplementedError`` (ROADMAP
+    Queue 1 items 16 and 17). Returns positions of shape (n_chains,
+    n_samples, K).
     """
     if log is None:
         from ..reporting import default_reporter, stage_log
 
         log = stage_log(default_reporter() if reporter is None else reporter)
-    if tune != "reference":
-        raise NotImplementedError(
-            f"tune={tune!r}: only tune='reference' is ported"
-        )
-    if warmup_depth_clamp == 0:
+    if tune not in ("auto", "reference"):
+        raise ValueError("tune must be 'auto' or 'reference'")
+    _check_schedulers(mesh, warmup_driver, sampling_driver,
+                      stratify_sampling, epoch_ring)
+    # warmup_depth_clamp=0 means "no clamp", which auto does not fill in
+    explicit_no_clamp = warmup_depth_clamp == 0
+    if explicit_no_clamp:
         warmup_depth_clamp = None
+    auto_cap = None
+    if tune == "auto":
+        (algorithm, warmup_stages, warmup_depth_clamp,
+         warmup_depth_clamp_tail, auto_cap) = _auto_tune(
+            n_chains, ld.dim, algorithm, warmup_stages, warmup_depth_clamp,
+            warmup_depth_clamp_tail, explicit_no_clamp, log)
     if algorithm is None:
         algorithm = NUTS()
     if warmup_stages is None:
         warmup_stages = default_warmup_stages()
-    if algorithm.turn_statistic_configuration != "generalized":
-        raise NotImplementedError(
-            "run_chains with a custom turn statistic needs the generic "
-            "driver looped over the chains, which is not ported (ROADMAP "
-            "Queue 1 item 19); mcmc_with_warmup runs one chain with it"
-        )
     stages = tuple(warmup_stages)
+    schedule = WarmupSchedule.from_stages(stages)
     if warmup_depth_clamp_tail and warmup_depth_clamp is None:
         raise ValueError("warmup_depth_clamp_tail requires warmup_depth_clamp")
     uses = [name for name, value in (
@@ -168,7 +202,7 @@ def run_chains(
         ("ess_target", ess_target),
         ("warmup checkpoint/resume", warmup_checkpoint_sink),
         ("warmup checkpoint/resume", warmup_resume)) if value is not None]
-    if uses and WarmupSchedule.from_stages(stages) is None:
+    if uses and schedule is None:
         raise NotImplementedError(
             f"{uses[0]} requires an optional stepsize search, then "
             "TuningNUTS blocks sharing one metric kind, adaptation and "
@@ -177,6 +211,10 @@ def run_chains(
     if warmup_depth_clamp is not None and not (
             0 < warmup_depth_clamp <= algorithm.max_depth):
         raise ValueError("warmup_depth_clamp must be in 1..max_depth")
+    if (algorithm.turn_statistic_configuration != "generalized"
+            and schedule is not None):
+        _check_custom_statistic(schedule, warmup_depth_clamp,
+                                warmup_checkpoint_sink, warmup_resume)
     if ess_target is not None:
         if draw_sink is not None:
             raise DynamicHMCError(
@@ -213,6 +251,7 @@ def run_chains(
         n_samples, sample_chunk=sample_chunk, draw_sink=draw_sink,
         ess_target=ess_target, ess_check_start=ess_check_start,
         ess_check_factor=ess_check_factor, log=log)
+    _warn_auto_cap(stats, auto_cap, log)
     return MCMCResult(
         positions=positions,
         logdensities=lds,
@@ -220,6 +259,116 @@ def run_chains(
         metric=state.metric,
         eps=state.eps,
     )
+
+
+def _check_schedulers(mesh, warmup_driver, sampling_driver,
+                      stratify_sampling, epoch_ring) -> None:
+    """Raise on the JAX package's scheduling keywords beyond their
+    defaults: ``ValueError`` for a value the JAX package refuses too,
+    ``NotImplementedError`` for one it runs and the port does not yet."""
+    if warmup_driver not in ("sync", "wavefront"):
+        raise ValueError("warmup_driver must be 'sync' or 'wavefront'")
+    if sampling_driver not in ("sync", "epoch"):
+        raise ValueError("sampling_driver must be 'sync' or 'epoch'")
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_chains over a mesh of devices is not ported (ROADMAP "
+            "Queue 1 item 16); the port runs the chains on the generator's "
+            "device")
+    for name, value, default in (
+            ("warmup_driver", warmup_driver, "sync"),
+            ("sampling_driver", sampling_driver, "sync"),
+            ("stratify_sampling", stratify_sampling, 0),
+            ("epoch_ring", epoch_ring, 8)):
+        if value != default:
+            raise NotImplementedError(
+                f"{name}={value!r}: the wavefront, epoch and stratified "
+                "schedulers are not ported (ROADMAP Queue 1 item 17); the "
+                "port runs the lockstep drivers")
+
+
+def _auto_tune(n_chains, dim, algorithm, warmup_stages, warmup_depth_clamp,
+               warmup_depth_clamp_tail, explicit_no_clamp, log):
+    """``tune="auto"``: fill the knobs the caller left out from
+    ``autotune.auto_choices``, as the JAX package does, and log what was
+    applied. Returns (algorithm, warmup_stages, warmup_depth_clamp,
+    warmup_depth_clamp_tail, the auto-applied max_depth cap or None)."""
+    from ..autotune import auto_choices
+
+    choices = auto_choices(
+        n_chains, dim,
+        max_depth_limit=algorithm.max_depth if algorithm is not None else 10)
+    generalized = (algorithm is None
+                   or algorithm.turn_statistic_configuration == "generalized")
+    applied, auto_cap = [], None
+    if algorithm is None:
+        # the cap only where auto also owns the warmup stages: its safety
+        # rests on the pooled metric's quality
+        if choices.max_depth is not None and warmup_stages is None:
+            algorithm = NUTS(max_depth=choices.max_depth)
+            auto_cap = choices.max_depth
+            applied.append(f"max_depth={choices.max_depth}")
+        else:
+            algorithm = NUTS()
+    if warmup_stages is None and generalized:
+        pooled_eps = choices.pooled_stepsize and choices.pooled_metric
+        warmup_stages = default_warmup_stages(
+            metric_kind=choices.metric_kind, pooled=choices.pooled_metric,
+            pooled_stepsize=pooled_eps)
+        applied.append(("pooled " if choices.pooled_metric else "per-chain ")
+                       + choices.metric_kind + " metric")
+        applied.append("pooled eps" if pooled_eps else "per-chain eps")
+    if (warmup_depth_clamp is None and not explicit_no_clamp and generalized
+            and warmup_stages is not None):
+        schedule = WarmupSchedule.from_stages(tuple(warmup_stages))
+        if schedule is not None and choices.warmup_depth_clamp:
+            warmup_depth_clamp = min(choices.warmup_depth_clamp,
+                                     algorithm.max_depth)
+            if warmup_depth_clamp_tail == 0:
+                warmup_depth_clamp_tail = min(
+                    choices.warmup_depth_clamp_tail,
+                    schedule.block_sizes[-1] // 2)
+            applied.append(f"warmup clamp {warmup_depth_clamp}"
+                           f"/{warmup_depth_clamp_tail}")
+    if applied and log is not None:
+        log("autotune: " + ", ".join(applied))
+    return (algorithm, warmup_stages, warmup_depth_clamp,
+            warmup_depth_clamp_tail, auto_cap)
+
+
+def _check_custom_statistic(schedule, warmup_depth_clamp,
+                            warmup_checkpoint_sink, warmup_resume) -> None:
+    """What the JAX package refuses for a custom turn statistic on a
+    schedule of TuningNUTS blocks, with its messages."""
+    if warmup_checkpoint_sink is not None or warmup_resume is not None:
+        raise NotImplementedError(
+            "warmup checkpoint/resume requires the batch-native drivers "
+            "(generalized turn statistic)")
+    if warmup_depth_clamp is not None:
+        raise NotImplementedError(
+            "warmup_depth_clamp requires the batch-native drivers "
+            "(generalized turn statistic)")
+    if isinstance(schedule.adaptation, PooledStepsize):
+        raise NotImplementedError(
+            "pooled stepsize adaptation requires the batch-native drivers "
+            "(generalized turn statistic)")
+
+
+def _warn_auto_cap(stats, auto_cap, log) -> None:
+    """After a run whose max_depth auto applied: warn when more than
+    ``CAP_SATURATION_WARN`` of the draws hit the cap, which costs mixing,
+    never exactness (one scalar read from the device)."""
+    from ..autotune import CAP_SATURATION_WARN
+
+    if auto_cap is None or log is None or stats.depth.numel() == 0:
+        return
+    frac = float((stats.depth >= auto_cap).float().mean())
+    if frac > CAP_SATURATION_WARN:
+        log(f"autotune WARNING: {100 * frac:.0f}% of draws hit the "
+            f"auto-applied max_depth={auto_cap} cap — this target builds "
+            "genuinely deep trajectories, and the cap is costing mixing. "
+            "Pass algorithm=NUTS() (reference max_depth 10) or "
+            "tune='reference' and compare ESS.")
 
 
 def default_sample_chunk(n_chains: int, dim: int) -> int:

@@ -203,19 +203,15 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
     step's ``logdensities``, ``tree_statistics`` and ``epss`` (with
     ``collect_positions``, ``positions``), steps on the axis after the
     chain axis; ``{}`` with ``collect_stats=False``. A batch pools the
-    Welford moments over its chains when the stage is ``pooled``.
+    Welford moments over its chains when the stage is ``pooled``, and runs
+    the batch driver, or the generic driver looped over its chains when
+    the algorithm has a custom turn statistic (engine.chain_ops).
     ``metric_kind``: run the transitions with the metric promoted to this
     kind (a diagonal metric to its dense form; numerically a no-op).
     ``log`` receives the search's message, ``reporter`` (a step reporter)
     every transition. ``depth_clamp`` caps the tree doublings of the
     stage's first ``clamp_steps`` transitions (a batch only)."""
-    from .engine import (
-        PER_CHAIN,
-        batched_ops,
-        promote_metric,
-        run_block,
-        stepsize_message,
-    )
+    from .engine import chain_ops, promote_metric, run_block, stepsize_message
 
     if stage is None:
         return None, state
@@ -225,7 +221,7 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
             raise DynamicHMCError(
                 "stepsize eps manually specified, won't perform initial search"
             )
-        ops = batched_ops(False) if batched else PER_CHAIN
+        ops = chain_ops(algorithm, batched)
         eps, success, l0 = ops.make_search(ld, stage)(generator, state.Q,
                                                       state.metric)
         if log is not None:
@@ -241,7 +237,7 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
     collect = collect_stats or collect_positions
     Q, metric, eps, results = run_block(
         generator, ld, algorithm, stage, state.Q, metric, state.eps,
-        ops=batched_ops(stage.pooled) if batched else PER_CHAIN,
+        ops=chain_ops(algorithm, batched, stage.pooled),
         collect=collect, collect_positions=collect_positions,
         reporter=reporter, depth_clamp=depth_clamp, clamp_steps=clamp_steps)
     if not collect:

@@ -13,7 +13,7 @@ and custom turn statistics) with real Hamiltonian ops at float64.
   from one generator state, so their discrete statistics agree exactly,
   and their proposals agree in distribution (JAX
   tests/test_fast_driver.py:34).
-- ``mcmc_with_warmup`` runs a custom statistic; ``run_chains`` refuses one.
+- ``mcmc_with_warmup`` and ``run_chains`` run a custom statistic.
 """
 
 import jax
@@ -243,7 +243,17 @@ def test_mcmc_with_warmup_runs_a_custom_statistic():
 
 
 def test_run_chains_refuses_a_custom_statistic():
+    """No longer refused: run_chains runs a custom statistic through the
+    generic driver looped over the chains (tests/
+    test_torch_run_chains_custom.py holds it to the JAX package); a
+    never-turning statistic ends every draw at max depth or a divergence."""
     model = tm.std_normal(2, dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        run_chains(torch.Generator().manual_seed(0), model, 4, 10,
-                   algorithm=NUTS(turn_statistic_configuration=NeverTurning()))
+    res = run_chains(torch.Generator().manual_seed(0), model, 4, 10,
+                     algorithm=NUTS(max_depth=3,
+                                    turn_statistic_configuration=NeverTurning()),
+                     warmup_stages=(InitialStepsizeSearch(), TuningNUTS(N=20)),
+                     dtype=F64)
+    assert tuple(res.positions.shape) == (4, 10, 2)
+    assert bool(torch.isfinite(res.positions).all())
+    stats = res.tree_statistics
+    assert bool((stats.reached_max_depth | stats.is_divergent).all())

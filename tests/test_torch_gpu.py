@@ -980,7 +980,8 @@ def test_cuda_heterogeneous_run_chains_takes_the_warp_kernel():
               TuningNUTS(N=50))
     reset_launch_counts()
     res = run_chains(torch.Generator(device=dev).manual_seed(0), model, 512,
-                     64, warmup_stages=stages, algorithm=NUTS(max_depth=4))
+                     64, tune="reference", warmup_stages=stages,
+                     algorithm=NUTS(max_depth=4))
     torch.cuda.synchronize()
     counts = launch_counts()
     transitions = sum(stage.N for stage in stages[1:]) + 64
@@ -1004,8 +1005,9 @@ def _slice14_run(dev, **kw):
                                    doubling_stages=2, terminating_steps=20)
     reset_launch_counts()
     res = run_chains(torch.Generator(device=dev).manual_seed(0), model, 256,
-                     32, warmup_stages=stages, algorithm=NUTS(max_depth=4),
-                     warmup_depth_clamp=2, warmup_depth_clamp_tail=5, **kw)
+                     32, tune="reference", warmup_stages=stages,
+                     algorithm=NUTS(max_depth=4), warmup_depth_clamp=2,
+                     warmup_depth_clamp_tail=5, **kw)
     torch.cuda.synchronize()
     return res, launch_counts()
 
@@ -1084,3 +1086,68 @@ def test_cuda_constraints_match_the_cpu():
     v_gpu, g_gpu = ld.logdensity_and_gradient(x.to(dev))
     torch.testing.assert_close(v_gpu.cpu(), v_cpu, rtol=1e-12, atol=1e-14)
     torch.testing.assert_close(g_gpu.cpu(), g_cpu, rtol=1e-12, atol=1e-14)
+
+
+# --- tune="auto" and a custom turn statistic on the card --------------------
+
+
+@pytest.mark.gpu
+def test_cuda_auto_is_the_explicit_configuration():
+    """run_chains(generator, model, 256, 100) with nothing else on
+    correlated_gaussian(100, tree_kernel=True): auto's line, and the draws,
+    eps and M^-1 of the configuration spelled out (pooled dense stages,
+    NUTS(max_depth=4), clamp 2/25) bit for bit, every transition a launch
+    of K1's warp variant."""
+    from dynamichmc_tpu_torch import NUTS, run_chains
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    dev = _device()
+    model = correlated_gaussian(100, dtype=F32, device=dev, tree_kernel=True)
+    lines = []
+    reset_launch_counts()
+    auto = run_chains(torch.Generator(device=dev).manual_seed(0), model, 256,
+                      100, log=lines.append)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert lines[0] == ("autotune: max_depth=4, pooled dense metric, "
+                        "per-chain eps, warmup clamp 2/25")
+    assert counts["tree_transition"] == counts["tree_transition_warp"] \
+        == 900 + 100
+    ref = run_chains(torch.Generator(device=dev).manual_seed(0), model, 256,
+                     100, tune="reference",
+                     warmup_stages=default_warmup_stages(metric_kind="dense",
+                                                         pooled=True),
+                     algorithm=NUTS(max_depth=4), warmup_depth_clamp=2,
+                     warmup_depth_clamp_tail=25)
+    assert torch.equal(auto.positions, ref.positions)
+    assert torch.equal(auto.eps, ref.eps)
+    assert torch.equal(auto.metric.m_inv, ref.metric.m_inv)
+
+
+@pytest.mark.gpu
+def test_cuda_custom_statistic_batch_launches_k4_per_leapfrog():
+    """run_chains at 4 x 25 on N(0, I) with the fused hooks and the
+    generalized statistic reimplemented (the generic driver looped over the
+    chains): K4 once for every hamiltonian.leapfrog call, and no other
+    kernel."""
+    from dynamichmc_tpu_torch import NUTS, run_chains
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    dev = _device()
+    model = mvnormal(np.zeros(25), np.eye(25), dtype=F32, device=dev,
+                     fused=True)
+    stages = default_warmup_stages(init_steps=20, middle_steps=20,
+                                   doubling_stages=1, terminating_steps=20)
+    reset_launch_counts()
+    res = run_chains(torch.Generator(device=dev).manual_seed(0), model, 4, 16,
+                     warmup_stages=stages, algorithm=NUTS(
+                         turn_statistic_configuration=GeneralizedReimpl()))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["gaussian_leapfrog"] == counts["leapfrog_calls"] > 0
+    assert counts["tree_transition"] == counts["gaussian_fused_leaf"] \
+        == counts["logreg_fused_leaf"] == 0
+    assert tuple(res.positions.shape) == (4, 16, 25)
+    assert bool(torch.isfinite(res.positions).all())

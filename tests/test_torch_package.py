@@ -49,7 +49,7 @@ def test_import_leaves_jax_out():
         "import dynamichmc_tpu_torch.models.mixture\n"
         "import dynamichmc_tpu_torch.models.transforms\n"
         "import dynamichmc_tpu_torch.io, dynamichmc_tpu_torch.checkpoint\n"
-        "import dynamichmc_tpu_torch.constraints\n"
+        "import dynamichmc_tpu_torch.constraints, dynamichmc_tpu_torch.autotune\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_correctness_utils, torch_dummy_batched, torch_turn_statistics\n"
         "import test_torch_db_batched, test_torch_gpu_correctness\n"

@@ -82,8 +82,8 @@ def test_port_rejects_what_is_not_ported():
 
     model = correlated_gaussian(K, dtype=torch.float32, device="cpu")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="tune"):
-        run_chains(gen, model, 4, 10, tune="auto")
+    with pytest.raises(ValueError, match="tune"):
+        run_chains(gen, model, 4, 10, tune="fastest")
     mixed = (InitialStepsizeSearch(), TuningNUTS(N=20, metric_kind="dense"),
              TuningNUTS(N=20, metric_kind="diagonal"))
     # a heterogeneous schedule runs through the stage fold on the batch;
