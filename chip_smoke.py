@@ -157,6 +157,25 @@ Phases (each one that fails ends the script with a non-zero exit code):
      diag(1, 2, 3)) (5 chains x 2000 draws, default warmup) with K2 on
      every leaf of the plain driver. Each prints R-hat max, tau min, EBFMI
      min, the smallest AD p and the wall; a failed gate fails the run.
+  7. Mesh: main's configuration over a torch.distributed group, each rank
+     a process started by this script (``--mesh-worker``) that loads the
+     tree kernel phase 2 built, every launch count set to 0 just before
+     its run and read just after; every rank is killed after
+     MESH_SPAWN_SECONDS and every collective times out:
+     - one_rank: one rank on an NCCL group (after one NCCL all_reduce),
+       run_chains with main's generator on global_chain_mesh: main's
+       draws, eps and M^-1 bit for bit (SHA-256 against phase 4's main
+       run), K1's warp variant on all 1,412 transitions;
+     - two_ranks: two ranks sharing the card over gloo (NCCL refuses two
+       ranks on one device), run_chains_multihost with 2048 chains each:
+       on each rank 1,412 warp-variant launches and finite draws, the
+       pooled metric bitwise the same on both, main's moment gate and
+       split R-hat <= 1.01 over the gathered 4096 chains; then a short
+       pooled-eps run (256 chains a rank) whose eps and metric must be
+       bitwise the same on both ranks. Prints each rank's wall and the
+       gathered min bulk ESS beside main's, and the phase's time. Two
+       ranks on one card share its SMs: their wall says nothing of
+       scaling, and no multi-GPU run is made.
 With --profile, each path's timed run is repeated under torch.profiler
 after phase 5 and the device split is printed; --profile=main,funnel
 profiles the paths named only.
@@ -1638,8 +1657,238 @@ def gaussian_plan(dev, write_pi, C, K, kind):
             "ctas": plan.ctas, "staged": plan.staged, "smem_bytes": info.smem,
             "registers": info.registers, "ctas_per_sm": info.ctas_per_sm}
 
+# --- phase 7: run_chains over a mesh of ranks ---------------------------------
+
+MESH_SPAWN_SECONDS = 240  # one spawn of phase 7, every rank killed after it
+MESH_COLLECTIVE_SECONDS = 120  # one collective of a phase-7 rank
+MESH_1RANK_BACKEND = "nccl"
+MESH_POOLED_EPS_CHAINS = 256  # a rank's chains in the pooled-eps run
+
+
+def sha256(x: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def pooled_eps_config():
+    """Phase 7's pooled-eps run: main's target with a pooled dense metric
+    and a pooled stepsize, 250 warmup transitions."""
+    from dynamichmc_tpu_torch.nuts import NUTS
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    stages = default_warmup_stages(
+        metric_kind="dense", pooled=True, pooled_stepsize=True,
+        init_steps=25, middle_steps=25, doubling_stages=3,
+        terminating_steps=50)
+    return dict(tune="reference", warmup_stages=stages,
+                algorithm=NUTS(max_depth=MD_MAIN), dtype=torch.float32)
+
+
+def mesh_worker(argv):
+    """One rank of phase 7, started by :func:`mesh_spawn`:
+    ``--mesh-worker CASE RANK WORLD INIT_METHOD BACKEND DEVICE CHAINS K
+    DRAWS OUT``. It loads the tree kernel the parent built (it never
+    builds one), joins the group, runs main's configuration on ``CHAINS``
+    chains of its own (``one_rank``: run_chains with main's generator on
+    the global mesh; ``two_ranks``: run_chains_multihost), every launch
+    count set to 0 just before and read just after, and saves what the
+    parent checks to ``OUT``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    case, rank, world, init_method, backend, device = argv[:6]
+    rank, world = int(rank), int(world)
+    chains, K, draws = (int(a) for a in argv[6:9])
+    out_path = argv[9]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamichmc_tpu_torch import run_chains, run_chains_multihost
+    from dynamichmc_tpu_torch.models import correlated_gaussian
+    from dynamichmc_tpu_torch.ops import tree_kernel
+    from dynamichmc_tpu_torch.parallel import global_chain_mesh, initialize
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        so = tree_kernel.library.library_path()
+        check(os.path.exists(so), f"the tree kernel {so} was not built")
+        tree_kernel.library.load()
+    initialize(init_method, world, rank, backend=backend,
+               timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_SECONDS))
+    try:
+        # the group carries a collective on the device (NCCL's is checked
+        # here: a mesh of one rank makes none of its own)
+        probe = torch.full((1,), rank + 1.0, device=dev)
+        dist.all_reduce(probe)
+        check(probe.item() == world * (world + 1) / 2,
+              f"all_reduce over {backend} gave {probe.item()}")
+        gauss = correlated_gaussian(K, dtype=torch.float32, device=dev,
+                                    tree_kernel=True)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        if case == "one_rank":
+            mesh = global_chain_mesh(dev)
+            res, seconds, counts = timed(lambda: run_chains(
+                gen, gauss, chains * world, draws, mesh=mesh,
+                **main_path_config()))
+        else:
+            res, seconds, counts = timed(lambda: run_chains_multihost(
+                gen, gauss, chains, draws, device=dev, **main_path_config()))
+        out = {"rank": rank, "wall_s": seconds, "counts": counts,
+               "backend": dist.get_backend(), "world": dist.get_world_size(),
+               "positions_sha": sha256(res.positions),
+               "eps_sha": sha256(res.eps), "m_inv_sha": sha256(res.metric.m_inv),
+               "shape": list(res.positions.shape),
+               "finite": bool(torch.isfinite(res.positions).all())}
+        if case == "two_ranks":
+            stats = res.tree_statistics
+            out.update(positions=res.positions.cpu(), steps=stats.steps.cpu(),
+                       is_divergent=stats.is_divergent.cpu())
+            del res
+            pooled = run_chains_multihost(
+                gen, gauss, MESH_POOLED_EPS_CHAINS, 64, device=dev,
+                **pooled_eps_config())
+            out.update(pooled_eps=float(pooled.eps),
+                       pooled_eps_sha=sha256(pooled.eps),
+                       pooled_m_inv_sha=sha256(pooled.metric.m_inv),
+                       pooled_finite=bool(torch.isfinite(
+                           pooled.positions).all()))
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_spawn(case, world, backend, dev, chains, K, draws, tmp):
+    """Start ``world`` ranks of ``case`` (:func:`mesh_worker`) on ``dev``,
+    a ``file://`` rendezvous in ``tmp``; wait at most MESH_SPAWN_SECONDS,
+    then kill every rank still running. Returns each rank's saved result;
+    a rank that failed or hung fails the phase with every rank's log."""
+    store = os.path.join(tmp, f"{case}.store")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    logs = [os.path.join(tmp, f"{case}_rank{r}.log") for r in range(world)]
+    outs = [os.path.join(tmp, f"{case}_rank{r}.pt") for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                     case, str(r), str(world), f"file://{store}", backend,
+                     str(dev), str(chains), str(K), str(draws), outs[r]],
+                    stdout=f, stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + MESH_SPAWN_SECONDS
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if hung or any(codes):
+        tails = []
+        for r, path in enumerate(logs):
+            with open(path) as f:
+                tails.append(f"--- rank {r}:\n{f.read()[-4000:]}")
+        check(False, f"phase 7 {case}: ranks {hung} hung (killed after "
+                     f"{MESH_SPAWN_SECONDS} s), exit codes {codes}\n"
+                     + "\n".join(tails))
+    return [torch.load(path) for path in outs]
+
+
+def run_mesh_phase(dev, smi, main, K=K_MAIN, C=C_MAIN, n_draws=N_DRAWS):
+    """Phase 7: main's configuration over a mesh of ranks on the one card.
+    (a) one rank on an NCCL group, run_chains on global_chain_mesh with
+    main's generator: main's draws, eps and M^-1 bit for bit (SHA-256 set
+    against phase 4's main run), K1's warp variant on every transition;
+    (b) two ranks sharing the card over gloo, run_chains_multihost with C/2
+    chains each: the pooled metric bitwise the same on both ranks, each
+    rank's every transition through the warp variant, finite draws, main's
+    moment gate and split R-hat <= 1.01 over the gathered C chains; then a
+    pooled-eps run (MESH_POOLED_EPS_CHAINS a rank), its eps and metric
+    bitwise the same on both ranks. Prints each part's line; a failed or
+    hung rank fails the phase. No multi-GPU run: two ranks on one card
+    share its SMs, so their wall says nothing of scaling."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from dynamichmc_tpu_torch.stats_device import ess_rhat_device
+
+    t0 = time.perf_counter()
+    expected = expected_transitions(n_draws)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        (one,) = mesh_spawn("one_rank", 1, MESH_1RANK_BACKEND, dev, C, K,
+                            n_draws, tmp)
+        check(one["backend"] == MESH_1RANK_BACKEND and one["world"] == 1,
+              f"one_rank: backend {one['backend']}, world {one['world']}")
+        counts = one["counts"]
+        check(counts["tree_transition"] == counts["tree_transition_warp"]
+              == expected, f"one_rank: {counts['tree_transition']} launches "
+              f"({counts['tree_transition_warp']} warp) for {expected} "
+              "transitions")
+        bitwise = (one["positions_sha"], one["eps_sha"], one["m_inv_sha"]) \
+            == (main["positions_sha"], main["eps_sha"], main["m_inv_sha"])
+        check(bitwise, "one_rank: draws, eps or M^-1 differ from main's")
+        log(f"[7 mesh] {json.dumps({'part': 'one_rank', 'backend': one['backend'], 'bitwise_main': bitwise, 'launch_counts': counts, 'wall_s': one['wall_s'], 'main_wall_s': main['wall_s'], 'gpu': smi})}")
+
+        two = mesh_spawn("two_ranks", 2, "gloo", dev, C // 2, K, n_draws, tmp)
+    for r, out in enumerate(two):
+        counts = out["counts"]
+        check(out["backend"] == "gloo" and out["world"] == 2,
+              f"two_ranks: rank {r} on {out['backend']}, world {out['world']}")
+        check(out["shape"] == [C // 2, n_draws, K],
+              f"two_ranks: rank {r} positions shape {out['shape']}")
+        check(out["finite"] and out["pooled_finite"],
+              f"two_ranks: rank {r} has non-finite draws")
+        check(counts["tree_transition"] == counts["tree_transition_warp"]
+              == expected, f"two_ranks: rank {r} launched "
+              f"{counts['tree_transition']} ({counts['tree_transition_warp']}"
+              f" warp) for {expected} transitions")
+    check(two[0]["m_inv_sha"] == two[1]["m_inv_sha"],
+          "two_ranks: the pooled metric differs between the ranks")
+    check(two[0]["positions_sha"] != two[1]["positions_sha"],
+          "two_ranks: both ranks ran the same chains")
+    check((two[0]["pooled_eps_sha"], two[0]["pooled_m_inv_sha"])
+          == (two[1]["pooled_eps_sha"], two[1]["pooled_m_inv_sha"]),
+          "two_ranks: the pooled eps or metric differs between the ranks")
+    gathered = SimpleNamespace(
+        positions=torch.cat([out["positions"] for out in two]).to(dev),
+        tree_statistics=SimpleNamespace(
+            steps=torch.cat([out["steps"] for out in two]).to(dev),
+            is_divergent=torch.cat([out["is_divergent"] for out in two]).to(dev)))
+    del two[0]["positions"], two[1]["positions"]
+    gauss = main["model"]
+    seconds = max(out["wall_s"] for out in two)
+    metrics = check_draws(gauss, gathered, seconds)
+    rhat = float(ess_rhat_device(gathered.positions)["rhat"].max())
+    check(rhat <= 1.01, f"two_ranks: split R-hat up to {rhat:.4f}")
+    metrics.update({
+        "part": "two_ranks", "backend": "gloo", "chains_per_rank": C // 2,
+        "wall_s_per_rank": [out["wall_s"] for out in two],
+        "launch_counts_per_rank": [out["counts"] for out in two],
+        "metric_bitwise_across_ranks": True, "max_rhat": rhat,
+        "main_min_bulk_ess": main["min_bulk_ess"],
+        "main_wall_s": main["wall_s"],
+        "pooled_eps_run": {"chains_per_rank": MESH_POOLED_EPS_CHAINS,
+                           "eps": two[0]["pooled_eps"],
+                           "eps_and_metric_bitwise_across_ranks": True},
+        "gpu": smi})
+    log(f"[7 mesh] {json.dumps(metrics)}")
+    log(f"[time] phase 7 took {time.perf_counter() - t0:.1f} s")
+
+
 
 def main():
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1838,6 +2087,9 @@ def run_phases(dev, smi, profile=()):
             fused_state = (res.metric, res.eps, res.positions[:, -1].clone())
         if name == "main":  # what the streamed, resumed and ess runs equal
             main = {"positions": res.positions.cpu(), "eps": res.eps.clone(),
+                    "positions_sha": sha256(res.positions),
+                    "eps_sha": sha256(res.eps),
+                    "m_inv_sha": sha256(res.metric.m_inv), "model": model,
                     "m_inv": res.metric.m_inv.clone(),
                     "logdensities": res.logdensities.cpu(),
                     "memory": dict(MEMORY), "wall_s": seconds,
@@ -1869,6 +2121,8 @@ def run_phases(dev, smi, profile=()):
     del results, fused_state
     run_slice14_paths(gauss, main, dev, smi)
     run_slice15_paths(gauss, fun, normal, main, dev, smi)
+    mesh_ref = {k: main[k] for k in ("positions_sha", "eps_sha", "m_inv_sha",
+                                      "model", "wall_s", "min_bulk_ess")}
     del main
     log_phase_done(4)
 
@@ -1954,6 +2208,10 @@ def run_phases(dev, smi, profile=()):
     # --- phase 6: the reference's statistical protocol through K1 and K2 --
     run_protocol(dev, smi)
     log_phase_done(6)
+
+    # --- phase 7: main's configuration over a mesh of ranks ---------------
+    run_mesh_phase(dev, smi, mesh_ref)
+    log_phase_done(7)
 
     entries = [  # name, phase-3/5 key, path, replaces, source
         ("tree_transition", "gaussian", "main", "dynamichmc_tpu/ops/pallas_tree.py:93",

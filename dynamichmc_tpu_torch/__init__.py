@@ -9,6 +9,9 @@ batch of chains (by default with the knobs left out chosen by
 until an ESS target or resuming a checkpointed warmup (``checkpoint``) as
 asked; ``mcmc_with_warmup`` and ``mcmc_keep_warmup`` run one chain, and
 ``mcmc_steps`` steps a chain or a batch one transition at a time.
+``run_chains(..., mesh=chain_mesh())`` and ``run_chains_multihost`` run
+the chains over a ``torch.distributed`` process group, one rank per
+device.
 ``constraints`` maps constrained parameters to R^n.
 
 float32 matrix products run in full fp32: TF32 is switched off here for
@@ -55,7 +58,13 @@ from .metric import (  # noqa: E402
     identity_metric,
 )
 from .nuts import NUTS, TreeStatistics, sample_tree  # noqa: E402
-from .parallel import run_chains  # noqa: E402
+from .parallel import (  # noqa: E402
+    ChainMesh,
+    chain_mesh,
+    global_chain_mesh,
+    run_chains,
+    run_chains_multihost,
+)
 from .reporting import (  # noqa: E402
     LogProgressReport,
     NoProgressReport,
@@ -80,17 +89,19 @@ from .warmup import (  # noqa: E402
 __version__ = "0.1.0"
 
 __all__ = [
-    "DenseMetric", "DiagonalMetric", "DualAveraging", "DynamicHMCError",
-    "EBFMI", "EvaluatedPoint", "FixedStepsize", "InferenceResult",
-    "InitialStepsizeSearch", "LogDensity", "LogProgressReport", "MCMCResult",
-    "NUTS", "NoProgressReport", "PhasePoint", "PooledStepsize",
-    "StepwiseChunk", "TqdmProgressReport", "TreeStatistics", "TuningNUTS",
-    "WarmupCheckpoint", "WarmupState", "__version__", "default_reporter",
-    "default_warmup_stages", "dense_metric", "diagonal_metric", "ess_rhat",
-    "evaluate", "evaluate_strict", "fixed_stepsize_warmup_stages",
-    "from_logdensity_fn", "identity_metric", "initialize_warmup_state",
+    "ChainMesh", "DenseMetric", "DiagonalMetric", "DualAveraging",
+    "DynamicHMCError", "EBFMI", "EvaluatedPoint", "FixedStepsize",
+    "InferenceResult", "InitialStepsizeSearch", "LogDensity",
+    "LogProgressReport", "MCMCResult", "NUTS", "NoProgressReport",
+    "PhasePoint", "PooledStepsize", "StepwiseChunk", "TqdmProgressReport",
+    "TreeStatistics", "TuningNUTS", "WarmupCheckpoint", "WarmupState",
+    "__version__", "chain_mesh", "default_reporter", "default_warmup_stages",
+    "dense_metric", "diagonal_metric", "ess_rhat", "evaluate",
+    "evaluate_strict", "fixed_stepsize_warmup_stages", "from_logdensity_fn",
+    "global_chain_mesh", "identity_metric", "initialize_warmup_state",
     "leapfrog", "mcmc", "mcmc_keep_warmup", "mcmc_steps",
     "mcmc_steps_from_state", "mcmc_with_warmup", "pool_posterior_matrices",
-    "run_chains", "sample_tree", "stack_posterior_matrices",
-    "straggler_waste", "summarize_tree_statistics",
+    "run_chains", "run_chains_multihost", "sample_tree",
+    "stack_posterior_matrices", "straggler_waste",
+    "summarize_tree_statistics",
 ]

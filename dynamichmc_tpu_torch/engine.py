@@ -53,6 +53,7 @@ from .stepsize import (
 )
 from .tree_batched import _Edge, _joint_b, _leapfrog_b, rand_p_b, sample_tree_batched
 from .utils.welford import (
+    pool_welford_over_group,
     welford_update,
     welford_update_b,
     welford_update_pooled_b,
@@ -376,7 +377,7 @@ def run_block(generator, ld: LogDensity, algorithm: NUTS, stage: TuningNUTS,
               Q: EvaluatedPoint, metric, eps, ops: ChainOps,
               collect: bool = False, collect_positions: bool = False,
               reporter=None, depth_clamp: Optional[int] = None,
-              clamp_steps: int = 0):
+              clamp_steps: int = 0, mesh=None):
     """One TuningNUTS block for the chain layout ``ops``: ``stage.N``
     transitions under the stage's stepsize adaptation, started from
     ``eps``, with the Welford fold and the metric re-estimate at the end
@@ -387,7 +388,10 @@ def run_block(generator, ld: LogDensity, algorithm: NUTS, stage: TuningNUTS,
     None). ``reporter``: a step reporter (reporting.py), told of every
     transition with its stepsize. ``depth_clamp``: cap the tree doublings
     of the first ``clamp_steps`` transitions; the rest then run at
-    ``algorithm.max_depth``."""
+    ``algorithm.max_depth``. ``mesh`` (a ``parallel.mesh.ChainMesh``): a
+    pooled stage's moments are pooled over the ranks before the metric
+    estimate (a per-chain stage needs no collective); a pooled stepsize
+    carries the mesh in the stage's adaptation."""
     adaptation = stage.stepsize_adaptation
     kind = stage.metric_kind
     update = kind != "none"
@@ -418,6 +422,8 @@ def run_block(generator, ld: LogDensity, algorithm: NUTS, stage: TuningNUTS,
             wf = ops.welford_update(wf, Q.q)
     eps = adaptation.final(da)
     if update:
+        if stage.pooled:
+            wf = pool_welford_over_group(wf, mesh)
         metric = estimate_metric(wf, kind, stage.shrinkage)
     return Q, metric, eps, None if trace is None else trace.results()
 
@@ -450,7 +456,7 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                  ops: Optional[ChainOps] = None, reporter=None,
                  sample_chunk: Optional[int] = None, draw_sink=None,
                  ess_target: Optional[float] = None, ess_check_start: int = 0,
-                 ess_check_factor: float = 2.0, log=None):
+                 ess_check_factor: float = 2.0, log=None, mesh=None):
     """n_samples transitions at fixed (metric, eps), in chunks of
     ``sample_chunk`` draws (None: one chunk). Returns (Q', positions
     (C, N, K) or (N, K), logdensities (C, N) or (N,), stats). ``ops``: the
@@ -470,7 +476,11 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
     the next at ``max(done + 1, int(done * ess_check_factor))``.
 
     The chunks decide only where the sink is called and the ESS read: the
-    draws and the random stream are the same for every chunk size."""
+    draws and the random stream are the same for every chunk size.
+
+    ``mesh`` (a ``parallel.mesh.ChainMesh``): the batch is this rank's
+    chains, and the ESS at a check is over every rank's draws, computed on
+    rank 0 and broadcast, so that every rank stops at the same chunk."""
     if ops is None:
         ops = chain_ops(algorithm, Q.q.ndim == 2)
     chunk = n_samples if sample_chunk is None else int(sample_chunk)
@@ -509,10 +519,8 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
             log(f"sampling: {done}/{n_samples} ({elapsed:.1f}s, "
                 f"{done / max(elapsed, 1e-9):.1f} draws/s, ~{eta:.1f}s left)")
         if next_check is not None and next_check <= done < n_samples:
-            from .stats_device import ess_rhat_device
-
-            drawn = trace.positions[..., :done, :]
-            min_ess = float(ess_rhat_device(drawn)["ess_bulk"].min())
+            min_ess = float(_min_bulk_ess(trace.positions[..., :done, :],
+                                          mesh))
             if log is not None:
                 log(f"ess check @ {done} draws: min bulk ESS {min_ess:.0f} "
                     f"(target {ess_target:g})")
@@ -525,6 +533,23 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                                                device=Q.q.device)
     return (Q, trace.positions[..., :done, :], trace.lds[..., :done],
             trace.statistics())
+
+
+def _min_bulk_ess(drawn: torch.Tensor, mesh) -> torch.Tensor:
+    """The min over coordinates of the draws' pooled bulk ESS (0-d, on the
+    draws' device); over a mesh, of every rank's chains, on every rank."""
+    from .stats_device import ess_rhat_device
+
+    if mesh is None:
+        return ess_rhat_device(drawn)["ess_bulk"].min()
+    from .parallel.mesh import all_gather_chains, broadcast_from
+
+    drawn = all_gather_chains(drawn, mesh)
+    if mesh.rank == 0:
+        value = ess_rhat_device(drawn)["ess_bulk"].min()
+    else:
+        value = torch.empty((), dtype=torch.float64, device=drawn.device)
+    return broadcast_from(value, mesh)
 
 
 def _synchronize(x: torch.Tensor) -> None:

@@ -285,16 +285,26 @@ def pool_posterior_matrices(results) -> torch.Tensor:
     return positions.reshape(c * n, k).T
 
 
-def _check_stepsize_search(history) -> None:
+def _check_stepsize_search(history, mesh=None) -> None:
     """Raise what the reference throws on a failed bracketing search
     (stepsize.jl:56-59, 77-79): a non-finite joint density at the starting
     point, or no crossing within ``maxiter_crossing`` iterations.
     ``history``: (stage, results, state) triples; results with ``l0`` and
-    ``success`` are a search's."""
+    ``success`` are a search's. ``mesh`` (a ``parallel.mesh.ChainMesh``):
+    the results are this rank's chains, and the check reads every rank's,
+    so that every rank raises the same error, naming global chains."""
     for _stage, results, _state in history:
         if not isinstance(results, dict) or "l0" not in results:
             continue
-        l0 = torch.atleast_1d(results["l0"]).cpu()
+        l0, success, eps = (torch.atleast_1d(results["l0"]),
+                            torch.atleast_1d(results["success"]),
+                            results["eps"])
+        if mesh is not None:
+            from .parallel.mesh import all_gather_chains
+
+            l0, success, eps = (all_gather_chains(x, mesh)
+                                for x in (l0, success, eps))
+        l0 = l0.cpu()
         bad = torch.nonzero(~torch.isfinite(l0)).flatten()
         if bad.numel():
             raise DynamicHMCError(
@@ -302,11 +312,11 @@ def _check_stepsize_search(history) -> None:
                 chains=bad.tolist(),
                 logdensity=l0[bad].tolist(),
             )
-        success = torch.atleast_1d(results["success"]).cpu()
+        success = success.cpu()
         if not bool(success.all()):
             raise DynamicHMCError(
                 "Initial stepsize search reached maximum number of iterations "
                 "without crossing.",
-                eps=results["eps"].cpu(),
+                eps=eps.cpu(),
                 failed_fraction=float(1 - success.double().mean()),
             )

@@ -1,4 +1,4 @@
-"""Batched chains on one device (port of the single-device path of
+"""Batched chains on one device, or over a mesh of devices (port of
 ``dynamichmc_tpu.parallel.chains``).
 
 Every stage tuple runs through the stage fold (warmup.run_warmup) on the
@@ -6,11 +6,15 @@ batch, each stage pooled or not as it says; the draws come in chunks
 (engine.run_sampling), which a draw sink can take off the device. By
 default (``tune="auto"``) the knobs a caller leaves out come from
 autotune.py, as in the JAX package. A custom turn statistic runs the
-generic per-chain driver looped over the chains (engine.looped_ops)."""
+generic per-chain driver looped over the chains (engine.looped_ops).
+Over a mesh (parallel/mesh.py) each rank runs its share of the chains
+through the same code, and the pooling points and the checks that read
+every chain make collective calls."""
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Tuple
 
 import torch
@@ -23,6 +27,7 @@ from ..mcmc import MCMCResult, _check_stepsize_search
 from ..metric import Metric, identity_metric, metric_is_batched
 from ..nuts import NUTS
 from ..stepsize import PooledStepsize
+from .mesh import ChainMesh, all_gather_chains, all_sum, broadcast_from
 from ..warmup import (
     WarmupStage,
     WarmupState,
@@ -42,13 +47,17 @@ def init_chain_states(
     eps=None,
     dtype=torch.float32,
     broadcast_metric: bool = True,
+    mesh: Optional[ChainMesh] = None,
 ) -> WarmupState:
     """Initial states on the generator's device: uniform [-2, 2]^K
     positions per chain (or the given ``q``), identity metric, optional
     shared eps. The initial point is checked strictly: a non-finite log
     density at any chain raises ``DynamicHMCError`` naming the chains.
     ``broadcast_metric=False`` keeps a shared metric unbatched (pooled
-    adaptation). Raises when the model's tensors lie on another device."""
+    adaptation). Raises when the model's tensors lie on another device.
+    ``mesh``: the ``n_chains`` chains are this rank's, and the check reads
+    every rank's, so that every rank raises the same error, naming global
+    chains (rank r's chain i is chain r * n_chains + i)."""
     device = generator.device
     check_device(ld, device)
     if q is None:
@@ -60,7 +69,9 @@ def init_chain_states(
                 f"q must have shape {(n_chains, ld.dim)}, got {tuple(q.shape)}"
             )
     Q = evaluate(ld, q)
-    lds = Q.logdensity.cpu()
+    lds = Q.logdensity if mesh is None else all_gather_chains(Q.logdensity,
+                                                              mesh)
+    lds = lds.cpu()
     bad = torch.nonzero(~torch.isfinite(lds)).flatten()
     if bad.numel():
         raise DynamicHMCError(
@@ -164,12 +175,36 @@ def run_chains(
     The warmup depth clamp, ``draw_sink``, ``ess_target`` and
     checkpointing need an optional stepsize search followed by TuningNUTS
     blocks sharing one metric kind, adaptation and pooling, as in the JAX
-    package. ``mesh``, ``warmup_driver``, ``sampling_driver``,
-    ``stratify_sampling`` and ``epoch_ring`` are the JAX package's
-    keywords; only their defaults (one device, the lockstep drivers) are
-    ported, and any other value raises ``NotImplementedError`` (ROADMAP
-    Queue 1 items 16 and 17). Returns positions of shape (n_chains,
-    n_samples, K).
+    package. ``warmup_driver``, ``sampling_driver``, ``stratify_sampling``
+    and ``epoch_ring`` are the JAX package's keywords; only their defaults
+    (the lockstep drivers) are ported, and any other value raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 17), on one device or
+    over a mesh. Returns positions of shape (n_chains, n_samples, K).
+
+    ``mesh`` (a ``parallel.mesh.ChainMesh``, not a ``jax.sharding.Mesh``):
+    run the chains over a ``torch.distributed`` process group, one rank per
+    device, every rank making this same call. ``n_chains`` is global and
+    must divide by ``mesh.size``; each rank runs ``n_chains / size``
+    chains on ``mesh.device``, where ``generator`` must lie. Sampling
+    needs no communication; a pooled stage pools its Welford moments over
+    every rank before each metric estimate, a pooled stepsize its initial
+    eps and every acceptance signal, and the stepsize search's and the
+    initial point's checks, the ESS target's check and the cap warning
+    read every rank's chains, so that every rank takes the same decision
+    and raises the same error. The result holds this rank's chains
+    (positions (n_chains / size, n_samples, K), and so on), with the pooled
+    metric and eps the same on every rank, bit for bit; a per-chain
+    ``initialization`` (``q``, a batched metric, eps) holds this rank's
+    chains too, and a per-chain initial metric under pooling is reduced to
+    global chain 0's, rank 0's. One generator drives a rank's whole batch,
+    so the ranks' generators must be in different states (else two ranks
+    would run the same chains and the ESS would count them twice): their
+    states are compared without drawing, and equal states raise
+    ``DynamicHMCError``; ``multihost.run_chains_multihost`` derives one
+    stream per rank from one seed. ``draw_sink`` receives the rank's own
+    chains (one ``io.MemmapDrawStore`` per rank), and each rank
+    checkpoints and resumes its own chains and generator. A mesh of one
+    rank gives the draws, metric and eps of the call without a mesh.
     """
     if log is None:
         from ..reporting import default_reporter, stage_log
@@ -177,8 +212,9 @@ def run_chains(
         log = stage_log(default_reporter() if reporter is None else reporter)
     if tune not in ("auto", "reference"):
         raise ValueError("tune must be 'auto' or 'reference'")
-    _check_schedulers(mesh, warmup_driver, sampling_driver,
-                      stratify_sampling, epoch_ring)
+    _check_schedulers(warmup_driver, sampling_driver, stratify_sampling,
+                      epoch_ring)
+    n_local = _local_chains(n_chains, mesh)
     # warmup_depth_clamp=0 means "no clamp", which auto does not fill in
     explicit_no_clamp = warmup_depth_clamp == 0
     if explicit_no_clamp:
@@ -232,26 +268,30 @@ def run_chains(
         if sample_chunk < 1:
             raise ValueError("sample_chunk must be >= 1")
     # the chains share a metric from the start if its first estimate pools
+    if mesh is not None:
+        _check_ranks(generator, mesh, warmup_resume)
     first = first_adapting_stage(stages)
     pooled = first is not None and first.pooled
     states = init_chain_states(
-        generator, ld, n_chains, dtype=dtype, broadcast_metric=not pooled,
-        **initialization,
+        generator, ld, n_local, dtype=dtype, broadcast_metric=not pooled,
+        mesh=mesh, **initialization,
     )
     if pooled:
-        states = dataclasses.replace(states, metric=_shared(states.metric))
+        states = dataclasses.replace(states,
+                                     metric=_shared(states.metric, mesh))
     history, state = run_warmup(
         generator, ld, algorithm, stages, states, collect_stats=False,
         log=log, depth_clamp=warmup_depth_clamp,
         depth_clamp_tail=warmup_depth_clamp_tail,
-        checkpoint_sink=warmup_checkpoint_sink, resume=warmup_resume)
-    _check_stepsize_search(history)
+        checkpoint_sink=warmup_checkpoint_sink, resume=warmup_resume,
+        mesh=mesh)
+    _check_stepsize_search(history, mesh)
     _q, positions, lds, stats = run_sampling(
         generator, ld, algorithm, state.Q, state.metric, state.eps,
         n_samples, sample_chunk=sample_chunk, draw_sink=draw_sink,
         ess_target=ess_target, ess_check_start=ess_check_start,
-        ess_check_factor=ess_check_factor, log=log)
-    _warn_auto_cap(stats, auto_cap, log)
+        ess_check_factor=ess_check_factor, log=log, mesh=mesh)
+    _warn_auto_cap(stats, auto_cap, log, mesh)
     return MCMCResult(
         positions=positions,
         logdensities=lds,
@@ -261,8 +301,8 @@ def run_chains(
     )
 
 
-def _check_schedulers(mesh, warmup_driver, sampling_driver,
-                      stratify_sampling, epoch_ring) -> None:
+def _check_schedulers(warmup_driver, sampling_driver, stratify_sampling,
+                      epoch_ring) -> None:
     """Raise on the JAX package's scheduling keywords beyond their
     defaults: ``ValueError`` for a value the JAX package refuses too,
     ``NotImplementedError`` for one it runs and the port does not yet."""
@@ -270,11 +310,6 @@ def _check_schedulers(mesh, warmup_driver, sampling_driver,
         raise ValueError("warmup_driver must be 'sync' or 'wavefront'")
     if sampling_driver not in ("sync", "epoch"):
         raise ValueError("sampling_driver must be 'sync' or 'epoch'")
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_chains over a mesh of devices is not ported (ROADMAP "
-            "Queue 1 item 16); the port runs the chains on the generator's "
-            "device")
     for name, value, default in (
             ("warmup_driver", warmup_driver, "sync"),
             ("sampling_driver", sampling_driver, "sync"),
@@ -284,7 +319,62 @@ def _check_schedulers(mesh, warmup_driver, sampling_driver,
             raise NotImplementedError(
                 f"{name}={value!r}: the wavefront, epoch and stratified "
                 "schedulers are not ported (ROADMAP Queue 1 item 17); the "
-                "port runs the lockstep drivers")
+                "port runs the lockstep drivers, on one device or over a "
+                "mesh")
+
+
+def _local_chains(n_chains: int, mesh: Optional[ChainMesh]) -> int:
+    """The chains this rank runs: ``n_chains``, or its share over a mesh
+    (the JAX package's divisibility error)."""
+    if mesh is None:
+        return n_chains
+    if not isinstance(mesh, ChainMesh):
+        raise TypeError(
+            "mesh must be a parallel.mesh.ChainMesh (a torch.distributed "
+            f"process group), got {type(mesh).__name__}")
+    if n_chains % mesh.size:
+        raise ValueError(
+            f"n_chains={n_chains} not divisible by mesh size {mesh.size}")
+    return n_chains // mesh.size
+
+
+def _fingerprint(state: torch.Tensor) -> int:
+    """A 64-bit fingerprint of a ``generator.get_state()``."""
+    digest = hashlib.blake2b(state.cpu().numpy().tobytes(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little", signed=True)
+
+
+def _check_ranks(generator: torch.Generator, mesh: ChainMesh,
+                 resume) -> None:
+    """Before a run over a mesh, on every rank alike: the generator lies
+    on the mesh's device, the ranks' random streams differ (two ranks in
+    one generator state would run the same chains; the states are
+    compared, not drawn from) and every rank resumes from the same warmup
+    stage, or none does. One collective."""
+    device = torch.device(generator.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device != mesh.device:
+        raise ValueError(f"the generator lies on {device}, the mesh's "
+                         f"chains on {mesh.device}")
+    state = generator.get_state() if resume is None else resume.generator_state
+    row = torch.tensor([[_fingerprint(state),
+                         -1 if resume is None else resume.stage]],
+                       dtype=torch.int64, device=mesh.device)
+    rows = all_gather_chains(row, mesh).cpu()
+    stages = rows[:, 1].tolist()
+    if len(set(stages)) > 1:
+        raise DynamicHMCError(
+            "warmup_resume: the ranks resume from different warmup stages "
+            "(-1: no resume)", stages=stages)
+    fingerprints = rows[:, 0].tolist()
+    if len(set(fingerprints)) < mesh.size:
+        raise DynamicHMCError(
+            "two ranks' generators are in the same state, so they would run "
+            "the same chains: seed each rank's generator apart "
+            "(multihost.run_chains_multihost derives one stream per rank "
+            "from one seed)", fingerprints=fingerprints)
 
 
 def _auto_tune(n_chains, dim, algorithm, warmup_stages, warmup_depth_clamp,
@@ -354,16 +444,21 @@ def _check_custom_statistic(schedule, warmup_depth_clamp,
             "(generalized turn statistic)")
 
 
-def _warn_auto_cap(stats, auto_cap, log) -> None:
+def _warn_auto_cap(stats, auto_cap, log, mesh=None) -> None:
     """After a run whose max_depth auto applied: warn when more than
     ``CAP_SATURATION_WARN`` of the draws hit the cap, which costs mixing,
-    never exactness (one scalar read from the device)."""
+    never exactness (one scalar read from the device). ``mesh``: the share
+    of every rank's draws, on every rank."""
     from ..autotune import CAP_SATURATION_WARN
 
-    if auto_cap is None or log is None or stats.depth.numel() == 0:
+    if (auto_cap is None or stats.depth.numel() == 0
+            or (log is None and mesh is None)):
         return
-    frac = float((stats.depth >= auto_cap).float().mean())
-    if frac > CAP_SATURATION_WARN:
+    hits = (stats.depth >= auto_cap).float().mean()
+    if mesh is not None:
+        hits = all_sum(hits.double(), mesh) / mesh.size
+    frac = float(hits)
+    if log is not None and frac > CAP_SATURATION_WARN:
         log(f"autotune WARNING: {100 * frac:.0f}% of draws hit the "
             f"auto-applied max_depth={auto_cap} cap — this target builds "
             "genuinely deep trajectories, and the cap is costing mixing. "
@@ -378,11 +473,13 @@ def default_sample_chunk(n_chains: int, dim: int) -> int:
     return int(max(8, min(512, (1 << 28) // max(n_chains * dim, 1))))
 
 
-def _shared(metric: Metric) -> Metric:
+def _shared(metric: Metric, mesh: Optional[ChainMesh] = None) -> Metric:
     """One metric for all chains: a per-chain initial metric's first
-    chain's."""
+    chain's (over a mesh, rank 0's first chain's on every rank)."""
     if not metric_is_batched(metric):
         return metric
     return dataclasses.replace(metric, **{
-        f.name: getattr(metric, f.name)[0] for f in dataclasses.fields(metric)
+        f.name: (getattr(metric, f.name)[0] if mesh is None
+                 else broadcast_from(getattr(metric, f.name)[0], mesh))
+        for f in dataclasses.fields(metric)
     })

@@ -137,9 +137,15 @@ class DualAveraging:
 class PooledStepsize:
     """One shared stepsize for the whole fleet, adapted from the batch-mean
     acceptance rate (warmup-only coupling; sampling runs a fixed shared
-    eps). The initial eps is the geometric mean of the chains' eps."""
+    eps). The initial eps is the geometric mean of the chains' eps.
+
+    ``mesh`` (a ``parallel.mesh.ChainMesh``): pool over every chain of
+    every rank, the counterpart of the JAX package's ``axis_name``. Only
+    the warmup sets it, on the copy a stage runs with over a mesh
+    (``dataclasses.replace``); an instance a user builds leaves it None."""
 
     inner: object = None
+    mesh: object = None
 
     def __post_init__(self):
         if self.inner is None:
@@ -148,12 +154,25 @@ class PooledStepsize:
     def init(self, eps):
         eps = torch.as_tensor(eps)
         if eps.ndim > 0:
-            eps = torch.exp(torch.mean(torch.log(eps)))
+            log_eps = torch.log(eps)
+            if self.mesh is None or self.mesh.size == 1:  # bit for bit
+                eps = torch.exp(torch.mean(log_eps))
+            else:
+                # the sum of log eps over the global chains, over their count
+                from .parallel.mesh import all_sum
+
+                eps = torch.exp(all_sum(log_eps.sum(), self.mesh)
+                                / (log_eps.numel() * self.mesh.size))
         return self.inner.init(eps)
 
     def update(self, state, a):
         a = torch.as_tensor(a)
-        return self.inner.update(state, a if a.ndim == 0 else a.mean())
+        a = a if a.ndim == 0 else a.mean()
+        if self.mesh is not None:
+            from .parallel.mesh import all_mean
+
+            a = all_mean(a, self.mesh)
+        return self.inner.update(state, a)
 
     def current(self, state):
         return self.inner.current(state)

@@ -100,3 +100,25 @@ def welford_zero(q: torch.Tensor, dense: bool) -> WelfordState:
         m2=torch.zeros((c, k, k) if dense else (c, k), dtype=q.dtype,
                        device=q.device),
     )
+
+
+def pool_welford_over_group(w: WelfordState, mesh) -> WelfordState:
+    """Chan-combine every rank's pooled (unbatched) state into the moments
+    of the union of the ranks' draws, on every rank (the counterpart of
+    the JAX package's ``pool_welford_over_axis``; equal counts on every
+    rank): the grand mean is the mean of the rank means, m2 the sum over
+    the ranks of m2 + count * delta delta^T, diagonal or dense, and the
+    count the sum. Two collectives; ``mesh`` None or of one rank returns
+    ``w`` itself."""
+    if mesh is None or mesh.size == 1:
+        return w
+    from ..parallel.mesh import all_mean, all_sum
+
+    grand = all_mean(w.mean, mesh)
+    delta = w.mean - grand
+    corr = w.count * (torch.outer(delta, delta) if w.m2.ndim == 2
+                      else delta * delta)
+    summed = all_sum(torch.cat([w.count.reshape(1), (w.m2 + corr).flatten()]),
+                     mesh)
+    return WelfordState(count=summed[0], mean=grand,
+                        m2=summed[1:].reshape(w.m2.shape))

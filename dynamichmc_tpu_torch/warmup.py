@@ -194,7 +194,8 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
                  stage: WarmupStage, state: WarmupState,
                  collect_positions: bool = False, collect_stats: bool = True,
                  log=None, reporter=None, metric_kind: Optional[str] = None,
-                 depth_clamp: Optional[int] = None, clamp_steps: int = 0):
+                 depth_clamp: Optional[int] = None, clamp_steps: int = 0,
+                 mesh=None):
     """Run one warmup stage on one (K,) chain or a (C, K) batch, as the
     state's positions say; returns (results, state').
 
@@ -210,7 +211,10 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
     kind (a diagonal metric to its dense form; numerically a no-op).
     ``log`` receives the search's message, ``reporter`` (a step reporter)
     every transition. ``depth_clamp`` caps the tree doublings of the
-    stage's first ``clamp_steps`` transitions (a batch only)."""
+    stage's first ``clamp_steps`` transitions (a batch only). ``mesh`` (a
+    ``parallel.mesh.ChainMesh``, a batch only): a pooled stage pools its
+    moments, and a ``PooledStepsize`` its stepsize, over every rank's
+    chains."""
     from .engine import chain_ops, promote_metric, run_block, stepsize_message
 
     if stage is None:
@@ -235,11 +239,17 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
     metric = (state.metric if metric_kind is None
               else promote_metric(state.metric, metric_kind))
     collect = collect_stats or collect_positions
+    adaptation = stage.stepsize_adaptation
+    if mesh is not None and isinstance(adaptation, PooledStepsize):
+        stage = dataclasses.replace(
+            stage, stepsize_adaptation=dataclasses.replace(adaptation,
+                                                           mesh=mesh))
     Q, metric, eps, results = run_block(
         generator, ld, algorithm, stage, state.Q, metric, state.eps,
         ops=chain_ops(algorithm, batched, stage.pooled),
         collect=collect, collect_positions=collect_positions,
-        reporter=reporter, depth_clamp=depth_clamp, clamp_steps=clamp_steps)
+        reporter=reporter, depth_clamp=depth_clamp, clamp_steps=clamp_steps,
+        mesh=mesh)
     if not collect:
         results = {}
     elif not collect_stats:
@@ -281,7 +291,7 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
                collect_positions: bool = False, collect_stats: bool = True,
                log=None, reporter=None, depth_clamp: Optional[int] = None,
                depth_clamp_tail: int = 0, checkpoint_sink=None,
-               resume=None):
+               resume=None, mesh=None):
     """Left fold of warmup stages (mcmc.jl:450-457) over one chain or a
     batch, every random number from ``generator`` in stage order. Returns
     (history, final state), ``history`` a list of (stage, results,
@@ -306,7 +316,12 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
     state and the search's results, and sets ``generator`` to the
     checkpoint's state, so the fold continues the interrupted one bit for
     bit (the clamp applied per stage as above); ``history`` then holds the
-    restored search, if any, and the stages run."""
+    restored search, if any, and the stages run.
+
+    ``mesh`` (a ``parallel.mesh.ChainMesh``, a batch only): the batch is
+    this rank's chains, and every pooled stage pools over the ranks
+    (:func:`warmup_stage`); each rank checkpoints and resumes its own
+    chains and generator."""
     from .engine import WarmupCheckpoint
 
     stages = tuple(stages)
@@ -335,7 +350,7 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
             collect_positions=collect_positions, collect_stats=collect_stats,
             log=log, reporter=reporter,
             metric_kind=None if adapting is None else adapting.metric_kind,
-            depth_clamp=depth_clamp, clamp_steps=clamp_steps)
+            depth_clamp=depth_clamp, clamp_steps=clamp_steps, mesh=mesh)
         history.append((stage, results, state))
         if isinstance(stage, InitialStepsizeSearch):
             search = results

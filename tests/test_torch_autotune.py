@@ -13,9 +13,9 @@ block, against the JAX package.
 - The auto configuration gives the draws of the same configuration
   spelled out by hand, bit for bit; ``tune="reference"`` gives the draws
   of the reference defaults spelled out by hand.
-- ``run_chains`` takes the JAX package's keywords; the schedulers and the
-  mesh that are not ported raise ``NotImplementedError`` naming their
-  ROADMAP item.
+- ``run_chains`` takes the JAX package's keywords; the schedulers that
+  are not ported raise ``NotImplementedError`` naming their ROADMAP item,
+  on one device and over a mesh.
 """
 
 import jax
@@ -32,6 +32,7 @@ from dynamichmc_tpu.warmup import default_warmup_stages as j_default_stages
 from dynamichmc_tpu_torch import NUTS, autotune, run_chains
 from dynamichmc_tpu_torch.autotune import auto_choices
 from dynamichmc_tpu_torch.models import correlated_gaussian, funnel, std_normal
+from dynamichmc_tpu_torch.parallel import ChainMesh
 from dynamichmc_tpu_torch.parallel.chains import _auto_tune
 from dynamichmc_tpu_torch.warmup import TuningNUTS, default_warmup_stages
 
@@ -371,7 +372,8 @@ def test_signature_is_the_jax_packages():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 16"),
+    ({"mesh": ChainMesh(None, 0, 1, torch.device("cpu")),
+      "warmup_driver": "wavefront"}, "item 17"),
     ({"warmup_driver": "wavefront"}, "item 17"),
     ({"sampling_driver": "epoch"}, "item 17"),
     ({"stratify_sampling": 4}, "item 17"),
