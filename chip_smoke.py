@@ -175,13 +175,41 @@ Phases (each one that fails ends the script with a non-zero exit code):
        bitwise the same on both ranks. Prints each rank's wall and the
        gathered min bulk ESS beside main's, and the phase's time. Two
        ranks on one card share its SMs: their wall says nothing of
-       scaling, and no multi-GPU run is made.
+       scaling, and no multi-GPU run is made;
+     - dryrun_passes_4_6: passes 4-6 of the JAX package's
+       dryrun_multichip on two gloo ranks sharing the card, 4 chains a
+       rank of mvnormal(0, I_4, fused=True), 8 draws, the dry run's
+       stages with a diagonal metric (K2 takes no dense one): (4) per-chain eps
+       stratified over the mesh with warmup clamp 3, (5) the wavefront
+       warmup with a pooled stepsize, its eps bitwise the same on both
+       ranks, (6) epoch sampling; K2 on every driver leaf of each pass.
+  8. Schedulers, at full width, each line beside its lockstep twin of
+     phase 4 (``twin``: wall, min bulk ESS, warmup and draw slots, host ms
+     per warmup slot):
+     - wavefront_gauss: gauss_fused's configuration with
+       warmup_driver="wavefront": K2 on every wavefront slot and every
+       draw leaf; its warmup slots, their fill (leapfrog steps over slots
+       x chains) and host ms a slot; gauss_fused's moment bands and split
+       R-hat <= 1.01;
+     - epoch_gauss and stratified_gauss: from gauss_fused's final warmup
+       checkpoint (its eps and M^-1 bit for bit), the draws through the
+       epoch driver, or stratify_sampling=4 (group-serial); K2 on every
+       slot or leaf; the same gates and min bulk ESS within 10% of
+       gauss_fused's;
+     - stratified_main: main's configuration with stratify_sampling=4:
+       eps and M^-1 bitwise main's, K1's warp variant on all 900 + 4 x 512
+       transitions, main's moment gate;
+     - wavefront_logreg: logreg_fused's configuration with the wavefront
+       warmup, 64 draws (cut from 512): K3 on every slot, every posterior
+       mean within 5 MCSE of logreg_tree's.
 With --profile, each path's timed run is repeated under torch.profiler
 after phase 5 and the device split is printed; --profile=main,funnel
 profiles the paths named only.
 
-The line before the last is the nvidia-smi name and power limit; the last
-line is {"ok": true, "device": {...}}. Needs CUDA; never runs on the CPU.
+The kernels line's ``launches`` are each kernel's launches on its phase-4
+path plus those of phase 8. The line before the last is the nvidia-smi
+name and power limit; the last line is {"ok": true, "device": {...}}.
+Needs CUDA; never runs on the CPU.
 """
 
 import concurrent.futures
@@ -661,6 +689,7 @@ def run_per_chain(model, dev):
 
 
 MEMORY = {}  # the last timed run's device memory: GB held before it, peak
+TIMES = {}  # the last timed run's start on the host clock ("t0")
 
 
 def timed(fn):
@@ -673,7 +702,7 @@ def timed(fn):
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = TIMES["t0"] = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1708,12 +1737,15 @@ def mesh_worker(argv):
     from dynamichmc_tpu_torch.ops import tree_kernel
     from dynamichmc_tpu_torch.parallel import global_chain_mesh, initialize
 
+    from dynamichmc_tpu_torch.ops import gaussian_leaf
+
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        so = tree_kernel.library.library_path()
-        check(os.path.exists(so), f"the tree kernel {so} was not built")
-        tree_kernel.library.load()
+        lib = gaussian_leaf.library if case == "dryrun" else tree_kernel.library
+        so = lib.library_path()
+        check(os.path.exists(so), f"the kernel library {so} was not built")
+        lib.load()
     initialize(init_method, world, rank, backend=backend,
                timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_SECONDS))
     try:
@@ -1723,6 +1755,9 @@ def mesh_worker(argv):
         dist.all_reduce(probe)
         check(probe.item() == world * (world + 1) / 2,
               f"all_reduce over {backend} gave {probe.item()}")
+        if case == "dryrun":
+            torch.save(mesh_dryrun(dev, chains, K, draws), out_path)
+            return 0
         gauss = correlated_gaussian(K, dtype=torch.float32, device=dev,
                                     tree_kernel=True)
         gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1757,6 +1792,54 @@ def mesh_worker(argv):
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def mesh_dryrun(dev, chains, K, draws):
+    """Passes 4-6 of the JAX package's dryrun_multichip on this rank,
+    float32, ``chains`` a rank of mvnormal(0, I_K, fused=True): (4)
+    per-chain eps, stratified over the mesh, warmup clamp 3; (5) the
+    wavefront warmup with a pooled stepsize; (6) epoch sampling. The dry
+    run's pooled stages with a diagonal metric where it has a dense one,
+    since K2 takes a diagonal M^-1 only (a dense one runs the plain leaf).
+    Each pass's launch counts, draws' finiteness and shape, and eps (and
+    its SHA-256)."""
+    import torch.distributed as dist
+
+    from dynamichmc_tpu_torch import run_chains
+    from dynamichmc_tpu_torch.models import mvnormal
+    from dynamichmc_tpu_torch.parallel import global_chain_mesh
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    mesh = global_chain_mesh(dev)
+    model = mvnormal(np.zeros(K), np.eye(K), dtype=torch.float32, device=dev,
+                     fused=True)
+
+    def stages(pooled_stepsize=False):
+        return default_warmup_stages(
+            metric_kind="diagonal", init_steps=20, middle_steps=20,
+            doubling_stages=1, terminating_steps=20, pooled=True,
+            pooled_stepsize=pooled_stepsize)
+
+    passes = {
+        "pass4": (stages(), dict(stratify_sampling=mesh.size,
+                                 warmup_depth_clamp=3)),
+        "pass5": (stages(True), dict(warmup_driver="wavefront")),
+        "pass6": (stages(), dict(sampling_driver="epoch"))}
+    out = {"rank": mesh.rank, "backend": dist.get_backend(),
+           "world": dist.get_world_size()}
+    for i, (name, (st, kw)) in enumerate(passes.items()):
+        gen = torch.Generator(device=dev).manual_seed(10 * (i + 3) + mesh.rank)
+        res, seconds, counts = timed(lambda: run_chains(
+            gen, model, chains * mesh.size, draws, warmup_stages=st,
+            dtype=torch.float32, mesh=mesh, tune="reference", **kw))
+        out[name] = {"wall_s": seconds, "counts": counts,
+                     "shape": list(res.positions.shape),
+                     "finite": bool(torch.isfinite(res.positions).all()),
+                     "eps_shape": list(res.eps.shape),
+                     "eps": res.eps.cpu(), "eps_sha": sha256(res.eps),
+                     "m_inv_sha": sha256(res.metric.m_inv),
+                     "positions_sha": sha256(res.positions)}
+    return out
 
 
 def mesh_spawn(case, world, backend, dev, chains, K, draws, tmp):
@@ -1882,8 +1965,272 @@ def run_mesh_phase(dev, smi, main, K=K_MAIN, C=C_MAIN, n_draws=N_DRAWS):
                            "eps_and_metric_bitwise_across_ranks": True},
         "gpu": smi})
     log(f"[7 mesh] {json.dumps(metrics)}")
+    run_mesh_dryrun(dev, smi)
     log(f"[time] phase 7 took {time.perf_counter() - t0:.1f} s")
 
+
+DRYRUN_CHAINS, DRYRUN_K, DRYRUN_DRAWS = 4, 4, 8  # a rank's, as the dry run
+
+
+def run_mesh_dryrun(dev, smi):
+    """Phase 7, passes 4-6 of the JAX package's dryrun_multichip on two
+    gloo ranks sharing the card (:func:`mesh_dryrun`): each pass's draws
+    finite, of the rank's shape, K2 on every driver leaf of each pass;
+    pass 4's eps per chain, pass 5's one eps bitwise the same on both
+    ranks, pass 6's draws other on each rank."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = mesh_spawn("dryrun", 2, "gloo", dev, DRYRUN_CHAINS, DRYRUN_K,
+                          DRYRUN_DRAWS, tmp)
+    line = {"part": "dryrun_passes_4_6", "backend": "gloo",
+            "chains_per_rank": DRYRUN_CHAINS, "dim": DRYRUN_K,
+            "draws": DRYRUN_DRAWS, "gpu": smi}
+    for name in ("pass4", "pass5", "pass6"):
+        for r, out in enumerate(outs):
+            p = out[name]
+            counts = p["counts"]
+            check(p["finite"] and p["shape"] == [DRYRUN_CHAINS, DRYRUN_DRAWS,
+                                                 DRYRUN_K],
+                  f"dryrun {name}: rank {r} draws {p['shape']}, finite "
+                  f"{p['finite']}")
+            check(counts["gaussian_fused_leaf"] == counts["driver_fused_leaves"]
+                  > 0 and counts["tree_transition"] == 0,
+                  f"dryrun {name}: rank {r} launch counts {counts}")
+        line[name] = {"wall_s_per_rank": [o[name]["wall_s"] for o in outs],
+                      "launch_counts_per_rank": [o[name]["counts"]
+                                                 for o in outs],
+                      "eps_shape": outs[0][name]["eps_shape"]}
+    check(outs[0]["pass4"]["eps_shape"] == [DRYRUN_CHAINS],
+          "dryrun pass4: eps is not per chain")
+    check(outs[0]["pass5"]["eps_shape"] == [] and outs[0]["pass5"]["eps_sha"]
+          == outs[1]["pass5"]["eps_sha"], "dryrun pass5: the pooled eps "
+          "differs between the ranks")
+    check(outs[0]["pass6"]["positions_sha"] != outs[1]["pass6"]["positions_sha"],
+          "dryrun pass6: both ranks drew the same chains")
+    line["pass5"]["eps"] = float(outs[0]["pass5"]["eps"])
+    line["pass5"]["eps_bitwise_across_ranks"] = True
+    log(f"[7 mesh] {json.dumps(line)}")
+
+
+
+# --- phase 8: the schedulers ------------------------------------------------
+
+STRATIFY_G = 4  # stratify_sampling of the stratified paths
+N_WAVEFRONT_LOGREG = 64  # wavefront_logreg's draws, cut from 512
+
+
+class Stamps(list):
+    """A ``log`` that keeps each message with its host time."""
+
+    def __call__(self, msg):
+        self.append((time.perf_counter(), msg))
+
+    def warmup_end(self):
+        """The host time of the last warmup stage's message."""
+        return max(t for t, msg in self if msg.startswith("warmup stage"))
+
+
+def sync_twin_metrics(res, seconds, counts, stamps):
+    """A lockstep run's warmup: its leaf slots (the driver's fused leaves
+    less the draws' lockstep slots), its wall to the last stage's message,
+    and the host ms per warmup slot; the draws' slots and wall."""
+    sampling_slots = int(res.tree_statistics.work[0].sum())
+    warmup_slots = counts["driver_fused_leaves"] - sampling_slots
+    warmup_s = stamps.warmup_end() - TIMES["t0"]
+    return {"warmup_slots": warmup_slots, "warmup_wall_s": warmup_s,
+            "host_ms_per_warmup_slot": 1e3 * warmup_s / max(warmup_slots, 1),
+            "sampling_slots": sampling_slots,
+            "sampling_wall_s": seconds - warmup_s}
+
+
+def grouped_lockstep_waste(stats, eps, groups):
+    """The lockstep meaning of straggler_waste for chains that each run
+    their own leaves (the tree kernel): 1 - the leapfrog steps over the
+    slots a lockstep driver would take, each draw of each of ``groups``
+    eps-sorted groups costing its deepest chain's leaves."""
+    order = torch.argsort(eps, stable=True).reshape(groups, -1)
+    work = stats.work.double()
+    slots = sum(work[idx].max(dim=0).values.sum() * idx.numel()
+                for idx in order)
+    return float(1 - stats.steps.double().sum() / slots)
+
+
+def max_rhat(positions):
+    from dynamichmc_tpu_torch.stats_device import ess_rhat_device
+
+    return float(ess_rhat_device(positions)["rhat"].max())
+
+
+def run_scheduler_phase(dev, smi, twins, normal, gauss, lr_fused):
+    """Phase 8: the wavefront warmup, epoch sampling and stratified
+    sampling at full width, each beside its lockstep twin of phase 4 (in
+    the line as ``twin``). Returns each kernel's launches over the phase,
+    for the kernels line. Fails on a gate."""
+    from dynamichmc_tpu_torch import tree_wavefront, tree_wavefront_epoch
+
+    t_phase = time.perf_counter()
+    fused_tw, logreg_tw, main = (twins["gauss_fused"], twins["logreg_fused"],
+                                 twins["main"])
+    twin_keys = ("wall_s", "min_bulk_ess", "min_bulk_ess_per_s",
+                 "mean_bulk_ess_per_s", "grad_evals_per_s", "warmup_slots",
+                 "warmup_wall_s", "host_ms_per_warmup_slot", "sampling_slots",
+                 "sampling_wall_s", "straggler_waste", "divergences")
+    sched = {"gaussian_fused_leaf": 0, "logreg_fused_leaf": 0,
+             "tree_transition": 0}
+
+    def run(name, model, C, n_draws, config, **options):
+        tree_wavefront.reset_slots_run()
+        tree_wavefront_epoch.reset_slots_run()
+        stamps = Stamps()
+        res, seconds, counts = run_path(model, C, n_draws, SEED, config, dev,
+                                        log=stamps, **options)
+        check(tuple(res.positions.shape) == (C, n_draws, model.dim),
+              f"{name}: positions shape {tuple(res.positions.shape)}")
+        for key in sched:
+            sched[key] += counts[key]
+        return res, seconds, counts, stamps
+
+    def fused_only(name, counts, own):
+        others = [k for k in ("gaussian_fused_leaf", "logreg_fused_leaf",
+                              "tree_transition", "gaussian_leapfrog")
+                  if k != own]
+        check(counts[own] == counts["driver_fused_leaves"] > 0
+              and all(counts[k] == 0 for k in others),
+              f"{name}: {own} launched {counts[own]} times for "
+              f"{counts['driver_fused_leaves']} driver leaves; {counts}")
+
+    def emit(name, res, seconds, counts, twin, extra, waste_reads):
+        metrics, ess = path_metrics(res, seconds)
+        metrics.update(path_diagnostics(res.tree_statistics, waste_reads))
+        metrics.update(extra)
+        metrics.update({
+            "path": name, "launch_counts": counts, "chains": res.eps.numel(),
+            "draws": res.positions.shape[1], "dim": res.positions.shape[2],
+            "adapted_eps_range": [float(res.eps.min()), float(res.eps.max())],
+            "twin": {k: twin[k] for k in twin_keys if k in twin},
+            "gpu": smi})
+        log(f"[8 scheduler] {json.dumps(metrics)}")
+        return metrics, ess
+
+    def standard_normal_gate(name, res):
+        out = check_standard_normal(
+            res.positions.double().reshape(-1, K_GAUSS), 0.05, (0.9, 1.1))
+        rhat = max_rhat(res.positions)
+        check(rhat <= 1.01, f"{name}: split R-hat up to {rhat:.4f}")
+        out["max_rhat"] = rhat
+        return out
+
+    def wavefront_extra(res, counts, stamps, twin):
+        slots, steps = tree_wavefront.slots_run, tree_wavefront.lane_steps
+        sampling = int(res.tree_statistics.work[0].sum())
+        check(slots > 0 and counts["driver_fused_leaves"] == slots + sampling,
+              f"wavefront: {counts['driver_fused_leaves']} driver leaves for "
+              f"{slots} warmup slots and {sampling} draw slots")
+        warmup_s = stamps.warmup_end() - TIMES["t0"]
+        C = res.eps.numel()
+        return {"warmup_slots": slots, "sampling_slots": sampling,
+                "warmup_wall_s": warmup_s,
+                "host_ms_per_warmup_slot": 1e3 * warmup_s / slots,
+                "warmup_slot_fill": steps / (slots * C),
+                "sampling_slot_fill": float(
+                    res.tree_statistics.steps.sum()) / (sampling * C),
+                "warmup_slots_vs_twin": slots / twin["warmup_slots"]}
+
+    # wavefront_gauss: gauss_fused's configuration, the wavefront warmup
+    res, seconds, counts, stamps = run(
+        "wavefront_gauss", normal, C_GAUSS, N_DRAWS,
+        {"tune": "reference", "warmup_driver": "wavefront"})
+    fused_only("wavefront_gauss", counts, "gaussian_fused_leaf")
+    extra = wavefront_extra(res, counts, stamps, fused_tw)
+    extra.update(standard_normal_gate("wavefront_gauss", res))
+    emit("wavefront_gauss", res, seconds, counts, fused_tw, extra,
+         "lockstep work (plain driver) over the draws")
+    del res
+
+    # epoch_gauss and stratified_gauss: from gauss_fused's final warmup
+    # checkpoint (its warmup, bit for bit), then the other samplers
+    for name, option in (("epoch_gauss", {"sampling_driver": "epoch"}),
+                         ("stratified_gauss",
+                          {"stratify_sampling": STRATIFY_G})):
+        res, seconds, counts, _stamps = run(
+            name, normal, C_GAUSS, N_DRAWS, {"tune": "reference", **option},
+            warmup_resume=fused_tw["checkpoint"])
+        fused_only(name, counts, "gaussian_fused_leaf")
+        check(sha256(res.eps) == fused_tw["eps_sha"]
+              and sha256(res.metric.m_inv) == fused_tw["m_inv_sha"],
+              f"{name}: eps or M^-1 differ from gauss_fused's")
+        extra = standard_normal_gate(name, res)
+        if name == "epoch_gauss":
+            slots = tree_wavefront_epoch.slots_run
+            check(counts["driver_fused_leaves"] == slots,
+                  f"epoch_gauss: {counts['driver_fused_leaves']} leaves for "
+                  f"{slots} slots")
+            lanes = C_GAUSS
+            reads = ("per-lane work (epoch driver: a draw's slots from its "
+                     "restart to its completion, waits included)")
+        else:
+            slots, lanes = counts["driver_fused_leaves"], C_GAUSS // STRATIFY_G
+            reads = "lockstep work (plain driver) of each chain's group"
+        extra.update(
+            sampling_slots=slots, resumed_from_step=int(
+                fused_tw["checkpoint"].step),
+            eps_and_metric_bitwise_twin=True,
+            sampling_slot_fill=float(res.tree_statistics.steps.sum())
+            / (slots * lanes))
+        metrics, _ess = emit(name, res, seconds, counts, fused_tw, extra,
+                             reads)
+        ratio = metrics["min_bulk_ess"] / fused_tw["min_bulk_ess"]
+        check(abs(ratio - 1) <= 0.10, f"{name}: min bulk ESS "
+              f"{metrics['min_bulk_ess']:.2f} is {ratio:.4f} of "
+              "gauss_fused's")
+        del res
+
+    # stratified_main: main's configuration, stratified
+    res, seconds, counts, _stamps = run(
+        "stratified_main", gauss, C_MAIN, N_DRAWS,
+        dict(main_path_config(), stratify_sampling=STRATIFY_G))
+    want = expected_transitions(N_DRAWS) - N_DRAWS + STRATIFY_G * N_DRAWS
+    check(counts["tree_transition"] == counts["tree_transition_warp"] == want
+          and counts["gaussian_fused_leaf"] == counts["logreg_fused_leaf"]
+          == 0, f"stratified_main: {counts} for {want} group transitions")
+    check(sha256(res.eps) == main["eps_sha"]
+          and sha256(res.metric.m_inv) == main["m_inv_sha"],
+          "stratified_main: eps or M^-1 differ from main's")
+    metrics = check_draws(gauss, res, seconds)
+    metrics.update(path_diagnostics(res.tree_statistics,
+                                    "per-chain work (tree kernel)"))
+    metrics.update({"path": "stratified_main", "launch_counts": counts,
+                    "expected_launches": want, "groups": STRATIFY_G,
+                    "lockstep_waste_groups": grouped_lockstep_waste(
+                        res.tree_statistics, res.eps, STRATIFY_G),
+                    "lockstep_waste_one_group": grouped_lockstep_waste(
+                        res.tree_statistics, res.eps, 1),
+                    "eps_and_metric_bitwise_main": True,
+                    "twin": {"wall_s": main["wall_s"],
+                             "min_bulk_ess": main["min_bulk_ess"]},
+                    "gpu": smi})
+    log(f"[8 scheduler] {json.dumps(metrics)}")
+    del res
+
+    # wavefront_logreg: logreg_fused's configuration, the wavefront warmup
+    config = dict(path_config("diagonal", MD_LOGREG), warmup_driver="wavefront")
+    res, seconds, counts, stamps = run("wavefront_logreg", lr_fused, C_LOGREG,
+                                       N_WAVEFRONT_LOGREG, config)
+    fused_only("wavefront_logreg", counts, "logreg_fused_leaf")
+    extra = wavefront_extra(res, counts, stamps, logreg_tw)
+    _m, ess = path_metrics(res, seconds)
+    z = check_logreg_agreement(twins["logreg_tree_summary"],
+                               posterior_summary(res, ess))
+    extra.update(max_dmean_over_mcse_vs_logreg_tree=z,
+                 cut=f"{N_WAVEFRONT_LOGREG} draws, not {N_DRAWS}")
+    emit("wavefront_logreg", res, seconds, counts, logreg_tw, extra,
+         "lockstep work (plain driver) over the draws")
+    del res
+    log(f"[time] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return {"tree_transition": sched["tree_transition"],
+            "logreg_fused_leaf": sched["logreg_fused_leaf"],
+            "gaussian_fused_leaf": sched["gaussian_fused_leaf"]}
 
 
 def main():
@@ -2030,9 +2377,17 @@ def run_phases(dev, smi, profile=()):
         # BASELINE config 1 under the fleet: the reference-default warmup
         "gauss_fused": (normal, C_GAUSS, {"tune": "reference"}),
     }
-    launches, summaries = {}, {}
+    launches, summaries, twins = {}, {}, {}
     for name, (model, C, config) in paths.items():
-        res, seconds, counts = run_path(model, C, N_DRAWS, SEED, config, dev)
+        # the schedulers' sync twins (phase 8) log the warmup's end, and
+        # gauss_fused keeps its final warmup checkpoint for phase 8 to
+        # resume from; neither changes a draw
+        options = {}
+        if name in ("gauss_fused", "logreg_fused"):
+            stamps, ckpts = Stamps(), []
+            options = dict(log=stamps, warmup_checkpoint_sink=ckpts.append)
+        res, seconds, counts = run_path(model, C, N_DRAWS, SEED, config, dev,
+                                        **options)
         check(tuple(res.positions.shape) == (C, N_DRAWS, model.dim),
               f"{name}: positions shape {tuple(res.positions.shape)}")
         check(counts["gaussian_leapfrog"] == 0,
@@ -2082,6 +2437,13 @@ def run_phases(dev, smi, profile=()):
                         "adapted_eps_range": [float(res.eps.min()),
                                               float(res.eps.max())],
                         "gpu": smi})
+        if options:
+            metrics.update(sync_twin_metrics(res, seconds, counts, stamps))
+            twins[name] = dict(metrics, checkpoint=ckpts[-1],
+                               eps_sha=sha256(res.eps),
+                               m_inv_sha=sha256(res.metric.m_inv),
+                               summary=summaries.get(name))
+            del ckpts
         log(f"[4 path] {json.dumps(metrics)}")
         if name == "gauss_fused":  # the batched stepwise path starts here
             fused_state = (res.metric, res.eps, res.positions[:, -1].clone())
@@ -2123,6 +2485,8 @@ def run_phases(dev, smi, profile=()):
     run_slice15_paths(gauss, fun, normal, main, dev, smi)
     mesh_ref = {k: main[k] for k in ("positions_sha", "eps_sha", "m_inv_sha",
                                       "model", "wall_s", "min_bulk_ess")}
+    twins["main"] = mesh_ref
+    twins["logreg_tree_summary"] = summaries["logreg_tree"]
     del main
     log_phase_done(4)
 
@@ -2213,6 +2577,11 @@ def run_phases(dev, smi, profile=()):
     run_mesh_phase(dev, smi, mesh_ref)
     log_phase_done(7)
 
+    # --- phase 8: the wavefront, epoch and stratified schedulers ---------
+    sched_launches = run_scheduler_phase(dev, smi, twins, normal, gauss,
+                                         lr_fused)
+    log_phase_done(8)
+
     entries = [  # name, phase-3/5 key, path, replaces, source
         ("tree_transition", "gaussian", "main", "dynamichmc_tpu/ops/pallas_tree.py:93",
          "tree_kernel.cu"),
@@ -2232,7 +2601,7 @@ def run_phases(dev, smi, profile=()):
         "route": "cuda",
         "source": f"dynamichmc_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": launches[path],
+        "launches": launches[path] + sched_launches.get(name, 0),
         "max_abs_err": max_abs[key],
         "ms": times[key][0],
         "plain_ms": times[key][1],

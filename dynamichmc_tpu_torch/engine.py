@@ -48,6 +48,7 @@ from .metric import (
 from .nuts import NUTS, TreeStatistics, sample_tree
 from .stepsize import (
     InitialStepsizeSearch,
+    PooledStepsize,
     find_initial_stepsize,
     local_log_acceptance_ratio,
 )
@@ -428,6 +429,47 @@ def run_block(generator, ld: LogDensity, algorithm: NUTS, stage: TuningNUTS,
     return Q, metric, eps, None if trace is None else trace.results()
 
 
+def run_block_wavefront(generator, ld: LogDensity, algorithm: NUTS,
+                        stage: TuningNUTS, Q: EvaluatedPoint, metric, eps,
+                        depth_clamp: Optional[int] = None,
+                        clamp_steps: int = 0, mesh=None):
+    """One TuningNUTS block of a (C, K) batch through the aligned
+    wavefront (tree_wavefront.py), with :func:`run_block`'s semantics:
+    every lane completes ``stage.N`` transitions under the stage's
+    stepsize adaptation, its Welford moments folded at each completion,
+    and the metric re-estimated at the end (pooled over the ranks of
+    ``mesh`` for a pooled stage). ``depth_clamp`` caps the doublings of
+    each lane's first ``clamp_steps`` transitions. Returns (Q', metric',
+    eps')."""
+    from .tree_wavefront import make_wavefront_stage_driver, wavefront_init
+
+    adaptation = stage.stepsize_adaptation
+    kind = stage.metric_kind
+    update = kind != "none"
+    metric = promote_metric(metric, kind)
+    pooled_eps = isinstance(adaptation, PooledStepsize)
+    da = adaptation.init(eps)  # a pooled eps starts from every rank's chains
+    wf = batched_ops(stage.pooled).welford_zero(Q.q, kind == "dense")
+    driver = make_wavefront_stage_driver(
+        ld, algorithm,
+        # the driver pools the acceptance accumulators over the mesh itself
+        dataclasses.replace(adaptation, mesh=None) if pooled_eps
+        else adaptation,
+        pooled_welford=stage.pooled, use_welford=update,
+        pooled_eps=pooled_eps, mesh=mesh)
+    carry = wavefront_init(Q, metric, da, wf, algorithm.max_depth)
+    carry, _done = driver(
+        generator, metric, carry, stage.N, depth_limit=depth_clamp,
+        tail_steps=clamp_steps if depth_clamp is not None else None)
+    eps = adaptation.final(carry["da"])
+    if update:
+        wf = carry["wf"]
+        if stage.pooled:
+            wf = pool_welford_over_group(wf, mesh)
+        metric = estimate_metric(wf, kind, stage.shrinkage)
+    return carry["Q"], metric, eps
+
+
 def stack_statistics(per_draw, lead=(), dtype=torch.float32,
                      device=None) -> TreeStatistics:
     """Per-draw statistics -> one TreeStatistics with the draws on the last
@@ -456,7 +498,9 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                  ops: Optional[ChainOps] = None, reporter=None,
                  sample_chunk: Optional[int] = None, draw_sink=None,
                  ess_target: Optional[float] = None, ess_check_start: int = 0,
-                 ess_check_factor: float = 2.0, log=None, mesh=None):
+                 ess_check_factor: float = 2.0, log=None, mesh=None,
+                 sampling_driver: str = "sync", epoch_ring: int = 8,
+                 stratify_sampling: int = 0):
     """n_samples transitions at fixed (metric, eps), in chunks of
     ``sample_chunk`` draws (None: one chunk). Returns (Q', positions
     (C, N, K) or (N, K), logdensities (C, N) or (N,), stats). ``ops``: the
@@ -480,9 +524,35 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
 
     ``mesh`` (a ``parallel.mesh.ChainMesh``): the batch is this rank's
     chains, and the ESS at a check is over every rank's draws, computed on
-    rank 0 and broadcast, so that every rank stops at the same chunk."""
+    rank 0 and broadcast, so that every rank stops at the same chunk.
+
+    Two schedulers of a (C, K) batch, as in the JAX package:
+    ``sampling_driver="epoch"`` takes every draw through the epoch
+    wavefront (tree_wavefront_epoch.py; ``epoch_ring`` its ring; one
+    ``draw_sink`` call with every draw; no ``ess_target``), and
+    ``stratify_sampling=G`` with a per-chain eps sorts the chains by eps,
+    then samples G groups of C/G one after the other, each with a stream
+    of its own drawn from ``generator`` (group-serial,
+    :func:`_sample_stratified`; no ``ess_target``); over a mesh, the
+    sort is over every rank's chains and each rank samples one eps band
+    (:func:`_sample_band`). The draws come back in the caller's order."""
     if ops is None:
         ops = chain_ops(algorithm, Q.q.ndim == 2)
+    per_chain_eps = torch.is_tensor(eps) and eps.ndim == 1
+    if sampling_driver == "epoch" and Q.q.ndim == 2:
+        return _sample_epoch(generator, ld, algorithm, Q, metric, eps,
+                             n_samples, epoch_ring, draw_sink, log)
+    if stratify_sampling and per_chain_eps and mesh is not None:
+        return _sample_band(
+            generator, ld, algorithm, Q, metric, eps, n_samples, mesh,
+            ops=ops, reporter=reporter, sample_chunk=sample_chunk,
+            draw_sink=draw_sink, ess_target=ess_target,
+            ess_check_start=ess_check_start,
+            ess_check_factor=ess_check_factor, log=log)
+    if stratify_sampling > 1 and per_chain_eps and mesh is None:
+        return _sample_stratified(generator, ld, algorithm, Q, metric, eps,
+                                  n_samples, ops, int(stratify_sampling),
+                                  sample_chunk, draw_sink, reporter, log)
     chunk = n_samples if sample_chunk is None else int(sample_chunk)
     if chunk < 1 and n_samples > 0:
         raise ValueError("sample_chunk must be >= 1")
@@ -533,6 +603,155 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                                                device=Q.q.device)
     return (Q, trace.positions[..., :done, :], trace.lds[..., :done],
             trace.statistics())
+
+
+def _sample_epoch(generator, ld, algorithm, Q, metric, eps, n_samples,
+                  ring, draw_sink, log):
+    """Every draw through the epoch wavefront; one ``draw_sink`` call."""
+    from .tree_wavefront_epoch import (epoch_sampling_finish,
+                                       epoch_sampling_init,
+                                       make_epoch_sampling_driver)
+
+    t0 = time.perf_counter()
+    stage = make_epoch_sampling_driver(ld, algorithm, n_samples, ring=ring)
+    carry = epoch_sampling_init(Q, metric, n_samples, algorithm.max_depth,
+                                ring=ring)
+    carry, _done = stage(generator, metric, eps, carry)
+    Q, positions, lds, stats = epoch_sampling_finish(carry, n_samples)
+    if log is not None:
+        _synchronize(Q.q)
+        log(f"sampling[epoch]: {n_samples} draws in {carry['g']} slots "
+            f"({time.perf_counter() - t0:.1f}s)")
+    if draw_sink is not None:
+        draw_sink(0, positions, lds, stats)
+        return Q, None, None, stats
+    return Q, positions, lds, stats
+
+
+def _take_chains(x, index):
+    """Rows ``index`` of a (C, ...) tensor, EvaluatedPoint or per-chain
+    metric."""
+    if torch.is_tensor(x):
+        return x[index]
+    return dataclasses.replace(x, **{
+        f.name: (None if getattr(x, f.name) is None
+                 else getattr(x, f.name)[index])
+        for f in dataclasses.fields(x)})
+
+
+def _sample_stratified(generator, ld, algorithm, Q, metric, eps, n_samples,
+                       ops, G, sample_chunk, draw_sink, reporter, log):
+    """Group-serial stratified sampling: the chains sorted by eps, G groups
+    of C/G, each chunk group by group, so that a group's lockstep loop ends
+    with its own deepest tree. Each group draws from its own generator,
+    seeded from ``generator``, so the draws are the same for every chunk
+    size; positions, log densities and statistics are written in the
+    caller's chain order."""
+    C = Q.q.shape[0]
+    if C % G:
+        raise ValueError(f"n_chains={C} not divisible by "
+                         f"stratify_sampling={G}")
+    groups = torch.argsort(eps, stable=True).reshape(G, C // G)
+    inverse = torch.argsort(groups.reshape(-1))
+    device = Q.q.device
+    seeds = torch.randint(0, 1 << 62, (G,), generator=generator,
+                          device=generator.device).tolist()
+    gens = [torch.Generator(device=device).manual_seed(int(s))
+            for s in seeds]
+    states = [_take_chains(Q, idx) for idx in groups]
+    metrics = [_take_chains(metric, idx) if metric_is_batched(metric)
+               else metric for idx in groups]
+    group_eps = [eps[idx] for idx in groups]
+    chunk = n_samples if sample_chunk is None else int(sample_chunk)
+    trace = _Trace(Q, n_samples) if draw_sink is None else None
+    per_draw = []
+    stage_reporter = (None if reporter is None else
+                      reporter.make_stage_reporter(n_samples,
+                                                   currently_warmup=False))
+    done, t0 = 0, time.perf_counter()
+    while done < n_samples:
+        m = min(chunk, n_samples - done)
+        part, offset = ((trace, done) if trace is not None
+                        else (_Trace(Q, m), 0))
+        by_group = []
+        for g, idx in enumerate(groups):
+            Qg, stats_g = states[g], []
+            for j in range(m):
+                Qg, stats = ops.transition(gens[g], algorithm, ld, metrics[g],
+                                           Qg, group_eps[g], depth_limit=None)
+                part.positions[idx, offset + j] = Qg.q
+                part.lds[idx, offset + j] = Qg.logdensity
+                stats_g.append(stats)
+            states[g] = Qg
+            by_group.append(stats_g)
+        for j in range(m):
+            part.per_draw.append(TreeStatistics(**{
+                f.name: (None if getattr(by_group[0][j], f.name) is None
+                         else torch.cat([getattr(s[j], f.name)
+                                         for s in by_group])[inverse])
+                for f in dataclasses.fields(TreeStatistics)}))
+            if stage_reporter is not None:
+                stage_reporter.report_step(done + j)
+        if draw_sink is not None:
+            draw_sink(done, part.positions, part.lds, part.statistics())
+            per_draw += part.per_draw
+        done += m
+        if log is not None:
+            _synchronize(Q.q)
+            elapsed = time.perf_counter() - t0
+            log(f"sampling[stratified x{G}]: {done}/{n_samples} "
+                f"({elapsed:.1f}s, {done / max(elapsed, 1e-9):.1f} draws/s)")
+    Q = EvaluatedPoint(*(torch.cat([getattr(P, name) for P in states])[inverse]
+                         for name in ("q", "logdensity", "grad")))
+    if trace is None:
+        return Q, None, None, stack_statistics(per_draw, (C,), dtype=Q.q.dtype,
+                                               device=device)
+    return Q, trace.positions, trace.lds, trace.statistics()
+
+
+def _sample_band(generator, ld, algorithm, Q, metric, eps, n_samples, mesh,
+                 draw_sink=None, log=None, **sampling):
+    """Stratified sampling over a mesh, a permutation only: every rank's
+    chains sorted by eps, rank r samples the r-th band of C / size chains
+    (so each rank's lockstep loop ends with its own band's deepest tree),
+    and every chunk's draws go back to their chains' home ranks. Both
+    moves are ``all_gather_chains``: the chains' states in, and per chunk
+    every rank's band draws out, so each rank receives the global chunk
+    (C x chunk x K values) to keep its own C / size chains."""
+    from .parallel.mesh import all_gather_chains
+
+    n_local = Q.q.shape[0]
+    order = torch.argsort(all_gather_chains(eps, mesh), stable=True)
+    mine = slice(mesh.rank * n_local, (mesh.rank + 1) * n_local)
+    band, home = order[mine], torch.argsort(order)[mine]
+
+    def to_band(x):
+        return all_gather_chains(x, mesh)[band]
+
+    def to_home(x):
+        return None if x is None else all_gather_chains(x, mesh)[home]
+
+    def stats_home(stats):
+        return TreeStatistics(**{f.name: to_home(getattr(stats, f.name))
+                                 for f in dataclasses.fields(TreeStatistics)})
+
+    Qb = EvaluatedPoint(*(to_band(getattr(Q, name))
+                          for name in ("q", "logdensity", "grad")))
+    if metric_is_batched(metric):
+        metric = dataclasses.replace(metric, **{
+            f.name: to_band(getattr(metric, f.name))
+            for f in dataclasses.fields(metric)})
+    if log is not None:
+        log("sampling: lanes eps-sorted (mesh stratification)")
+    sink = None if draw_sink is None else (
+        lambda start, qs, lds, stats: draw_sink(
+            start, to_home(qs), to_home(lds), stats_home(stats)))
+    Qb, positions, lds, stats = run_sampling(
+        generator, ld, algorithm, Qb, metric, to_band(eps), n_samples,
+        draw_sink=sink, log=log, mesh=mesh, **sampling)
+    return (EvaluatedPoint(*(to_home(getattr(Qb, name))
+                             for name in ("q", "logdensity", "grad"))),
+            to_home(positions), to_home(lds), stats_home(stats))
 
 
 def _min_bulk_ess(drawn: torch.Tensor, mesh) -> torch.Tensor:

@@ -175,11 +175,24 @@ def run_chains(
     The warmup depth clamp, ``draw_sink``, ``ess_target`` and
     checkpointing need an optional stepsize search followed by TuningNUTS
     blocks sharing one metric kind, adaptation and pooling, as in the JAX
-    package. ``warmup_driver``, ``sampling_driver``, ``stratify_sampling``
-    and ``epoch_ring`` are the JAX package's keywords; only their defaults
-    (the lockstep drivers) are ported, and any other value raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 17), on one device or
-    over a mesh. Returns positions of shape (n_chains, n_samples, K).
+    package. Returns positions of shape (n_chains, n_samples, K).
+
+    The schedulers, with the JAX package's keywords and refusals:
+    ``warmup_driver="wavefront"`` runs every TuningNUTS stage through the
+    aligned wavefront (tree_wavefront.py: each lane its own transitions,
+    no lockstep barrier; the stepsize search stays lockstep; the clamp per
+    lane; no checkpoint or resume); over a mesh a per-chain eps makes no
+    collective in the slot loop, and a pooled one runs epoch-lockstep, one
+    ``all_reduce`` every 16 slots. ``sampling_driver="epoch"`` takes the
+    draws through the epoch wavefront (tree_wavefront_epoch.py, no
+    collective over a mesh; ``epoch_ring`` bounds how many draws a chain
+    may run ahead of the slowest; no ``ess_target``).
+    ``stratify_sampling=G`` (a per-chain eps) sorts the chains by their
+    adapted eps and samples G groups of C/G one after the other, each
+    bounded by its own deepest tree (no ``ess_target``); over a mesh the
+    sort is a permutation over the ranks, each rank sampling one eps band.
+    The draws come back in the caller's chain order, and the warmup is
+    untouched.
 
     ``mesh`` (a ``parallel.mesh.ChainMesh``, not a ``jax.sharding.Mesh``):
     run the chains over a ``torch.distributed`` process group, one rank per
@@ -212,8 +225,10 @@ def run_chains(
         log = stage_log(default_reporter() if reporter is None else reporter)
     if tune not in ("auto", "reference"):
         raise ValueError("tune must be 'auto' or 'reference'")
-    _check_schedulers(warmup_driver, sampling_driver, stratify_sampling,
-                      epoch_ring)
+    if warmup_driver not in ("sync", "wavefront"):
+        raise ValueError("warmup_driver must be 'sync' or 'wavefront'")
+    if sampling_driver not in ("sync", "epoch"):
+        raise ValueError("sampling_driver must be 'sync' or 'epoch'")
     n_local = _local_chains(n_chains, mesh)
     # warmup_depth_clamp=0 means "no clamp", which auto does not fill in
     explicit_no_clamp = warmup_depth_clamp == 0
@@ -233,6 +248,9 @@ def run_chains(
     schedule = WarmupSchedule.from_stages(stages)
     if warmup_depth_clamp_tail and warmup_depth_clamp is None:
         raise ValueError("warmup_depth_clamp_tail requires warmup_depth_clamp")
+    _check_schedulers(schedule, algorithm, n_chains, mesh, warmup_driver,
+                      sampling_driver, stratify_sampling, ess_target,
+                      warmup_checkpoint_sink, warmup_resume)
     uses = [name for name, value in (
         ("warmup_depth_clamp", warmup_depth_clamp), ("draw_sink", draw_sink),
         ("ess_target", ess_target),
@@ -284,13 +302,15 @@ def run_chains(
         log=log, depth_clamp=warmup_depth_clamp,
         depth_clamp_tail=warmup_depth_clamp_tail,
         checkpoint_sink=warmup_checkpoint_sink, resume=warmup_resume,
-        mesh=mesh)
+        mesh=mesh, warmup_driver=warmup_driver)
     _check_stepsize_search(history, mesh)
     _q, positions, lds, stats = run_sampling(
         generator, ld, algorithm, state.Q, state.metric, state.eps,
         n_samples, sample_chunk=sample_chunk, draw_sink=draw_sink,
         ess_target=ess_target, ess_check_start=ess_check_start,
-        ess_check_factor=ess_check_factor, log=log, mesh=mesh)
+        ess_check_factor=ess_check_factor, log=log, mesh=mesh,
+        sampling_driver=sampling_driver, epoch_ring=epoch_ring,
+        stratify_sampling=stratify_sampling)
     _warn_auto_cap(stats, auto_cap, log, mesh)
     return MCMCResult(
         positions=positions,
@@ -301,26 +321,65 @@ def run_chains(
     )
 
 
-def _check_schedulers(warmup_driver, sampling_driver, stratify_sampling,
-                      epoch_ring) -> None:
-    """Raise on the JAX package's scheduling keywords beyond their
-    defaults: ``ValueError`` for a value the JAX package refuses too,
-    ``NotImplementedError`` for one it runs and the port does not yet."""
-    if warmup_driver not in ("sync", "wavefront"):
-        raise ValueError("warmup_driver must be 'sync' or 'wavefront'")
-    if sampling_driver not in ("sync", "epoch"):
-        raise ValueError("sampling_driver must be 'sync' or 'epoch'")
-    for name, value, default in (
-            ("warmup_driver", warmup_driver, "sync"),
-            ("sampling_driver", sampling_driver, "sync"),
-            ("stratify_sampling", stratify_sampling, 0),
-            ("epoch_ring", epoch_ring, 8)):
-        if value != default:
+def _check_schedulers(schedule, algorithm, n_chains, mesh, warmup_driver,
+                      sampling_driver, stratify_sampling, ess_target,
+                      checkpoint_sink, resume) -> None:
+    """The JAX package's refusals of the scheduling keywords, with its
+    exception types and messages (``parallel/chains.py`` and its
+    ``_run_chains_fast``)."""
+    custom = algorithm.turn_statistic_configuration != "generalized"
+    if sampling_driver == "epoch":
+        if stratify_sampling:
+            raise ValueError(
+                "stratify_sampling is a scheduler for the synchronized "
+                "sampler; the epoch driver already desynchronizes lanes")
+        if custom:
             raise NotImplementedError(
-                f"{name}={value!r}: the wavefront, epoch and stratified "
-                "schedulers are not ported (ROADMAP Queue 1 item 17); the "
-                "port runs the lockstep drivers, on one device or over a "
-                "mesh")
+                "epoch sampling requires the batch-native drivers "
+                "(generalized turn statistic)")
+        if schedule is None:
+            raise NotImplementedError(
+                "epoch sampling requires a fast-engine-expressible warmup "
+                "schedule (homogeneous TuningNUTS blocks)")
+    if ((checkpoint_sink is not None or resume is not None)
+            and warmup_driver != "sync"):
+        raise NotImplementedError(
+            "warmup checkpoint/resume requires the sync (monolithic) "
+            "warmup driver")
+    if schedule is None and stratify_sampling:
+        raise NotImplementedError(
+            "draw_sink / stratify_sampling require a fast-engine-"
+            "expressible warmup schedule (homogeneous TuningNUTS blocks)")
+    if ess_target is not None and schedule is not None:
+        if sampling_driver != "sync":
+            raise NotImplementedError(
+                "ess_target requires the sync sampling driver")
+        if stratify_sampling and mesh is None:
+            raise NotImplementedError(
+                "ess_target is incompatible with group-serial "
+                "stratify_sampling (mesh stratification by permutation "
+                "is supported)")
+    if warmup_driver == "wavefront":
+        if schedule is None:
+            raise NotImplementedError(
+                "wavefront warmup requires a fast-engine-expressible warmup "
+                "schedule (homogeneous TuningNUTS blocks)")
+        if custom:
+            raise NotImplementedError(
+                "wavefront warmup requires the batch-native drivers "
+                "(generalized turn statistic)")
+    if stratify_sampling:
+        if custom:
+            raise NotImplementedError(
+                "stratify_sampling requires the batch-native path")
+        if isinstance(schedule.adaptation, PooledStepsize):
+            raise ValueError(
+                "stratify_sampling requires per-chain stepsize adaptation "
+                "(pooled_stepsize=False)")
+        if mesh is None and n_chains % int(stratify_sampling):
+            raise ValueError(
+                f"n_chains={n_chains} not divisible by stratify_sampling="
+                f"{stratify_sampling}")
 
 
 def _local_chains(n_chains: int, mesh: Optional[ChainMesh]) -> int:

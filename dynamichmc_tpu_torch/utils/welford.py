@@ -81,6 +81,49 @@ def welford_update_pooled_b(state: WelfordState, x: torch.Tensor
     return WelfordState(count=count_new, mean=mean, m2=m2)
 
 
+def welford_update_masked(state: WelfordState, x: torch.Tensor,
+                          mask: torch.Tensor) -> WelfordState:
+    """Per-chain update applied to the ``mask`` lanes only (the wavefront
+    warmup, whose lanes finish their transitions at different slots): x
+    (C, K); m2 (C, K) or (C, K, K)."""
+    count = state.count + mask.to(state.count.dtype)
+    delta = x - state.mean
+    m = mask[:, None]
+    mean = state.mean + torch.where(
+        m, delta / torch.clamp(count, min=1)[:, None], 0.0)
+    delta2 = x - mean
+    if state.m2.ndim == 3:
+        upd = torch.einsum("ci,cj->cij", delta, delta2)
+        m2 = state.m2 + torch.where(m[:, :, None], upd, 0.0)
+    else:
+        m2 = state.m2 + torch.where(m, delta * delta2, 0.0)
+    return WelfordState(count=count, mean=mean, m2=m2)
+
+
+def welford_update_pooled_masked(state: WelfordState, x: torch.Tensor,
+                                 mask: torch.Tensor) -> WelfordState:
+    """SHARED update over the ``mask`` rows of a (C, K) batch: Chan's exact
+    two-sample combine with the masked rows as sample B; no row leaves the
+    state as it was."""
+    m = mask.to(x.dtype).sum()
+    safe_m = torch.clamp(m, min=1)
+    mc = mask[:, None]
+    batch_mean = torch.where(mc, x, 0.0).sum(0) / safe_m
+    xc = torch.where(mc, x - batch_mean, 0.0)
+    count_new = state.count + m
+    delta = batch_mean - state.mean
+    mean = state.mean + (m / torch.clamp(count_new, min=1)) * delta
+    corr = state.count * m / torch.clamp(count_new, min=1)
+    if state.m2.ndim == 2:
+        m2 = state.m2 + xc.mT @ xc + corr * torch.outer(delta, delta)
+    else:
+        m2 = state.m2 + (xc * xc).sum(0) + corr * delta * delta
+    none = m == 0
+    return WelfordState(count=torch.where(none, state.count, count_new),
+                        mean=torch.where(none, state.mean, mean),
+                        m2=torch.where(none, state.m2, m2))
+
+
 def welford_zero_shared(dim: int, dense: bool, dtype,
                         device=None) -> WelfordState:
     return WelfordState(

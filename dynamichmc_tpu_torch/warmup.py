@@ -195,7 +195,7 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
                  collect_positions: bool = False, collect_stats: bool = True,
                  log=None, reporter=None, metric_kind: Optional[str] = None,
                  depth_clamp: Optional[int] = None, clamp_steps: int = 0,
-                 mesh=None):
+                 mesh=None, warmup_driver: str = "sync"):
     """Run one warmup stage on one (K,) chain or a (C, K) batch, as the
     state's positions say; returns (results, state').
 
@@ -214,8 +214,12 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
     stage's first ``clamp_steps`` transitions (a batch only). ``mesh`` (a
     ``parallel.mesh.ChainMesh``, a batch only): a pooled stage pools its
     moments, and a ``PooledStepsize`` its stepsize, over every rank's
-    chains."""
-    from .engine import chain_ops, promote_metric, run_block, stepsize_message
+    chains. ``warmup_driver="wavefront"`` (a batch only) runs a TuningNUTS
+    stage through the aligned wavefront (engine.run_block_wavefront; the
+    clamp per lane, no per-step results or reporter); a stepsize search
+    runs the lockstep driver either way."""
+    from .engine import (chain_ops, promote_metric, run_block,
+                         run_block_wavefront, stepsize_message)
 
     if stage is None:
         return None, state
@@ -244,6 +248,14 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
         stage = dataclasses.replace(
             stage, stepsize_adaptation=dataclasses.replace(adaptation,
                                                            mesh=mesh))
+    if warmup_driver == "wavefront":
+        if not batched or collect:
+            raise ValueError("the wavefront warmup runs a (C, K) batch and "
+                             "records no per-step results")
+        Q, metric, eps = run_block_wavefront(
+            generator, ld, algorithm, stage, state.Q, metric, state.eps,
+            depth_clamp=depth_clamp, clamp_steps=clamp_steps, mesh=mesh)
+        return {}, WarmupState(Q=Q, metric=metric, eps=eps)
     Q, metric, eps, results = run_block(
         generator, ld, algorithm, stage, state.Q, metric, state.eps,
         ops=chain_ops(algorithm, batched, stage.pooled),
@@ -291,7 +303,7 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
                collect_positions: bool = False, collect_stats: bool = True,
                log=None, reporter=None, depth_clamp: Optional[int] = None,
                depth_clamp_tail: int = 0, checkpoint_sink=None,
-               resume=None, mesh=None):
+               resume=None, mesh=None, warmup_driver: str = "sync"):
     """Left fold of warmup stages (mcmc.jl:450-457) over one chain or a
     batch, every random number from ``generator`` in stage order. Returns
     (history, final state), ``history`` a list of (stage, results,
@@ -321,7 +333,13 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
     ``mesh`` (a ``parallel.mesh.ChainMesh``, a batch only): the batch is
     this rank's chains, and every pooled stage pools over the ranks
     (:func:`warmup_stage`); each rank checkpoints and resumes its own
-    chains and generator."""
+    chains and generator.
+
+    ``warmup_driver="wavefront"`` (a batch only) runs every TuningNUTS
+    stage through the aligned wavefront, the clamp applied per lane to
+    each lane's first transitions of a stage: all of them but in the last
+    stage, ``depth_clamp_tail`` of them there (the JAX package's per-lane
+    tail clamp, not capped at N - 1)."""
     from .engine import WarmupCheckpoint
 
     stages = tuple(stages)
@@ -343,14 +361,17 @@ def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
         adapting = first_adapting_stage(stages, s)
         clamp_steps = 0
         if depth_clamp is not None and s in tuning:
+            tail = int(depth_clamp_tail)
             clamp_steps = (stage.N if s != tuning[-1] else
-                           min(int(depth_clamp_tail), stage.N - 1))
+                           tail if warmup_driver == "wavefront" else
+                           min(tail, stage.N - 1))
         results, state = warmup_stage(
             generator, ld, algorithm, stage, state,
             collect_positions=collect_positions, collect_stats=collect_stats,
             log=log, reporter=reporter,
             metric_kind=None if adapting is None else adapting.metric_kind,
-            depth_clamp=depth_clamp, clamp_steps=clamp_steps, mesh=mesh)
+            depth_clamp=depth_clamp, clamp_steps=clamp_steps, mesh=mesh,
+            warmup_driver=warmup_driver)
         history.append((stage, results, state))
         if isinstance(stage, InitialStepsizeSearch):
             search = results

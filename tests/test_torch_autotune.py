@@ -371,17 +371,40 @@ def test_signature_is_the_jax_packages():
             assert mine[name].default == ref[name].default, name
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"mesh": ChainMesh(None, 0, 1, torch.device("cpu")),
-      "warmup_driver": "wavefront"}, "item 17"),
-    ({"warmup_driver": "wavefront"}, "item 17"),
-    ({"sampling_driver": "epoch"}, "item 17"),
-    ({"stratify_sampling": 4}, "item 17"),
-    ({"epoch_ring": 4}, "item 17"),
-])
-def test_unported_schedulers_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _run(n_chains=4, n_samples=4, **kw)
+SCHEDULER_CALLS = [
+    {"mesh": ChainMesh(None, 0, 1, torch.device("cpu")),
+     "warmup_driver": "wavefront"},
+    {"warmup_driver": "wavefront"},
+    {"sampling_driver": "epoch"},
+    {"stratify_sampling": 4},
+    {"epoch_ring": 4},
+]
+
+
+@pytest.mark.parametrize("kw", SCHEDULER_CALLS, ids=[
+    "mesh_wavefront", "wavefront", "epoch", "stratify", "epoch_ring"])
+def test_schedulers_do_what_jax_does(kw):
+    """The scheduling keywords in the plain call: the port runs where JAX
+    run_chains runs (finite draws of the call's shape) and raises the same
+    exception type where it raises (a one-device JAX mesh for the port's
+    one-rank ChainMesh)."""
+    from dynamichmc_tpu.parallel import chain_mesh as j_chain_mesh
+
+    def outcome(call):
+        try:
+            return call(), None
+        except Exception as err:  # noqa: BLE001 - the type is the outcome
+            return None, type(err)
+
+    j_kw = dict(kw, mesh=j_chain_mesh(1)) if "mesh" in kw else kw
+    theirs, their_error = outcome(lambda: j_run_chains(
+        jax.random.PRNGKey(0), j_std_normal(DIM), 4, 4, **j_kw))
+    mine, my_error = outcome(lambda: _run(n_chains=4, n_samples=4, **kw))
+    assert my_error is their_error
+    if my_error is None:
+        assert tuple(mine[0].positions.shape) == np.asarray(
+            theirs.positions).shape == (4, 4, DIM)
+        assert bool(torch.isfinite(mine[0].positions).all())
 
 
 @pytest.mark.parametrize("kw", [{"warmup_driver": "async"},

@@ -1151,3 +1151,116 @@ def test_cuda_custom_statistic_batch_launches_k4_per_leapfrog():
         == counts["logreg_fused_leaf"] == 0
     assert tuple(res.positions.shape) == (4, 16, 25)
     assert bool(torch.isfinite(res.positions).all())
+
+
+# --- the wavefront and epoch drivers with K2 --------------------------------
+
+SCHED_C, SCHED_K, SCHED_T, SCHED_MD = 256, 25, 24, 6
+
+
+def _sched_noise(cls, dev, seed):
+    """Per-lane injected draws for SCHED_T transitions (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    T, md, C, K = SCHED_T, SCHED_MD, SCHED_C, SCHED_K
+    dirs = rng.integers(0, 2**32, size=(T, C), dtype=np.uint64)
+    return cls(
+        p=torch.tensor(rng.normal(size=(T, C, K)), dtype=F32, device=dev),
+        dirs=torch.tensor(dirs.astype(np.uint32).view(np.int32), device=dev),
+        gumbel=torch.tensor(rng.gumbel(size=(T, md, 1 << (md - 1), C)),
+                            dtype=F32, device=dev),
+        expo=torch.tensor(rng.exponential(size=(T, md, C)), dtype=F32,
+                          device=dev))
+
+
+def _sched_models(dev):
+    """N(0, I_25) through K2 and through the plain leaf, a per-chain
+    diagonal M^-1 near I and per-chain eps, and the start."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    fused, plain = (mvnormal(np.zeros(SCHED_K), np.eye(SCHED_K), dtype=F32,
+                             device=dev, fused=f) for f in (True, False))
+    m_inv = 0.8 + 0.4 * torch.rand((SCHED_C, SCHED_K), generator=gen,
+                                   device=dev)
+    eps = 0.3 + 0.6 * torch.rand((SCHED_C,), generator=gen, device=dev)
+    q0 = torch.randn((SCHED_C, SCHED_K), generator=gen, device=dev)
+    return fused, plain, diagonal_metric(m_inv), eps, q0
+
+
+def _agreeing_lanes(q_a, q_b, counts_a, counts_b):
+    """Lanes whose integer counts agree and whose positions agree to
+    float32's rounding (a lane whose trajectory flips a decision on a
+    rounding difference leaves the comparison: float32 only)."""
+    same = torch.ones(q_a.shape[0], dtype=torch.bool, device=q_a.device)
+    for a, b in zip(counts_a, counts_b):
+        same &= (a == b).reshape(a.shape[0], -1).all(-1)
+    close = ((q_a - q_b).abs() <= 1e-3 * (1 + q_b.abs())).reshape(
+        q_a.shape[0], -1).all(-1)
+    return same & close
+
+
+@pytest.mark.gpu
+def test_cuda_wavefront_with_k2_matches_the_plain_leaf():
+    """The wavefront stage through K2 (one launch per slot) against the
+    same stage through the plain float32 leaf, on the same injected noise:
+    at least 95% of 256 lanes end with the same step, divergence and
+    max-depth counts and the same position."""
+    from dynamichmc_tpu_torch.hamiltonian import evaluate
+    from dynamichmc_tpu_torch.nuts import NUTS
+    from dynamichmc_tpu_torch.stepsize import FixedStepsize
+    from dynamichmc_tpu_torch.tree_wavefront import (
+        WavefrontNoise, make_wavefront_stage_driver, wavefront_init)
+
+    dev = _device()
+    fused, plain, metric, eps, q0 = _sched_models(dev)
+    nz = _sched_noise(WavefrontNoise, dev, 5)
+    out = {}
+    for name, model in (("k2", fused), ("plain", plain)):
+        stage = make_wavefront_stage_driver(
+            model, NUTS(max_depth=SCHED_MD), FixedStepsize(),
+            use_welford=False, noise=nz)
+        carry = wavefront_init(evaluate(model, q0), metric, eps, None,
+                               SCHED_MD)
+        gaussian_leaf.reset_launches()
+        carry, done = stage(None, metric, carry, SCHED_T)
+        assert done
+        out[name] = (carry, gaussian_leaf.launches)
+    (k2, launches), (ref, plain_launches) = out["k2"], out["plain"]
+    assert plain_launches == 0 and launches >= k2["g"] > 0
+    agree = _agreeing_lanes(
+        k2["Q"].q, ref["Q"].q,
+        [k2[f] for f in ("steps_total", "div", "maxd")],
+        [ref[f] for f in ("steps_total", "div", "maxd")])
+    assert float(agree.float().mean()) >= 0.95
+
+
+@pytest.mark.gpu
+def test_cuda_epoch_with_k2_matches_the_plain_leaf():
+    """The epoch sampler through K2 against the plain float32 leaf on the
+    same injected noise: at least 95% of 256 lanes take the same draws
+    (depth, steps, termination per draw; positions to rounding)."""
+    from dynamichmc_tpu_torch.hamiltonian import evaluate
+    from dynamichmc_tpu_torch.nuts import NUTS
+    from dynamichmc_tpu_torch.tree_wavefront_epoch import (
+        EpochNoise, epoch_sampling_finish, epoch_sampling_init,
+        make_epoch_sampling_driver)
+
+    dev = _device()
+    fused, plain, metric, eps, q0 = _sched_models(dev)
+    nz = _sched_noise(EpochNoise, dev, 6)
+    out = {}
+    for name, model in (("k2", fused), ("plain", plain)):
+        stage = make_epoch_sampling_driver(model, NUTS(max_depth=SCHED_MD),
+                                           SCHED_T, noise=nz)
+        carry = epoch_sampling_init(evaluate(model, q0), metric, SCHED_T,
+                                    SCHED_MD)
+        gaussian_leaf.reset_launches()
+        carry, done = stage(None, metric, eps, carry)
+        assert done
+        out[name] = (epoch_sampling_finish(carry, SCHED_T),
+                     gaussian_leaf.launches, carry["g"])
+    (k2, launches, slots), (ref, plain_launches, _s) = out["k2"], out["plain"]
+    assert plain_launches == 0 and launches >= slots > 0
+    fields = ("depth", "steps", "term_left", "term_right")
+    agree = _agreeing_lanes(k2[1], ref[1],
+                            [getattr(k2[3], f) for f in fields],
+                            [getattr(ref[3], f) for f in fields])
+    assert float(agree.float().mean()) >= 0.95

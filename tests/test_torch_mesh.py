@@ -16,8 +16,8 @@ spawn killed at its timeout), float64 unless stated:
   every rank the same metric and eps, bit for bit, and other chains;
 - generators seeded alike, and a check that fails on one rank only (the
   initial point, the stepsize search), raise on every rank;
-- the mesh passes of JAX ``__graft_entry__.dryrun_multichip`` (1-3, 7, 8)
-  at float32.
+- the mesh passes of JAX ``__graft_entry__.dryrun_multichip`` (1-8) at
+  float32.
 """
 
 import jax
@@ -255,7 +255,7 @@ def test_failed_stepsize_search_on_one_rank_raises_on_every_rank(ranks):
     assert outs[0]["stepsize_search"] == outs[1]["stepsize_search"]
 
 
-# --- JAX __graft_entry__.dryrun_multichip, passes 1-3, 7 and 8 --------------
+# --- JAX __graft_entry__.dryrun_multichip, passes 1-8 ----------------------
 
 
 def test_dryrun_pass1_mixed_stages(ranks):
@@ -284,6 +284,38 @@ def test_dryrun_pass3_pooled_stepsize(ranks):
     assert outs[0]["pass3"]["eps"].ndim == 0
     assert not torch.equal(outs[0]["pass3"]["positions"],
                            outs[1]["pass3"]["positions"])
+
+
+def test_dryrun_pass4_stratified(ranks):
+    """Per-chain eps, stratification over the mesh (a permutation) and a
+    warmup clamp: finite draws and a per-chain eps on every rank."""
+    outs = ranks("dryrun", 2)
+    for out in outs:
+        assert out["pass4"]["positions"].shape == (4, 8, 4)
+        assert torch.isfinite(out["pass4"]["positions"]).all()
+        assert out["pass4"]["eps"].shape == (4,)
+    _same_on_every_rank(outs, "pass4", "m_inv")
+
+
+def test_dryrun_pass5_wavefront_pooled_eps(ranks):
+    """The wavefront warmup with a pooled stepsize, epoch-lockstep over
+    the ranks: one eps, bitwise the same on both ranks."""
+    outs = ranks("dryrun", 2)
+    _same_on_every_rank(outs, "pass5", "eps")
+    _same_on_every_rank(outs, "pass5", "m_inv")
+    assert outs[0]["pass5"]["eps"].ndim == 0
+    for out in outs:
+        assert torch.isfinite(out["pass5"]["positions"]).all()
+
+
+def test_dryrun_pass6_epoch(ranks):
+    """Epoch sampling over the mesh (no collective in its loop)."""
+    outs = ranks("dryrun", 2)
+    for out in outs:
+        assert out["pass6"]["positions"].shape == (4, 8, 4)
+        assert torch.isfinite(out["pass6"]["positions"]).all()
+    assert not torch.equal(outs[0]["pass6"]["positions"],
+                           outs[1]["pass6"]["positions"])
 
 
 def test_dryrun_pass7_resume_is_bitwise(ranks):

@@ -274,8 +274,10 @@ def case_errors(mesh):
 
 
 def case_dryrun(mesh):
-    """Passes 1-3, 7 and 8 of the JAX package's dryrun_multichip (its mesh
-    path; 4-6 are the schedulers, not ported), float32, 4 chains a rank."""
+    """Passes 1-8 of the JAX package's dryrun_multichip (its mesh path),
+    float32, 4 chains a rank: 4-6 are the schedulers (stratification with
+    a warmup clamp, the wavefront with a pooled stepsize, epoch
+    sampling)."""
     import torch
 
     from dynamichmc_tpu_torch import (
@@ -305,6 +307,11 @@ def case_dryrun(mesh):
         TuningNUTS(N=20, stepsize_adaptation=DualAveraging()))))
     out["pass2"] = _result(run(1, stages()))
     out["pass3"] = _result(run(2, stages(pooled_stepsize=True)))
+    out["pass4"] = _result(run(3, stages(), stratify_sampling=mesh.size,
+                               warmup_depth_clamp=3))
+    out["pass5"] = _result(run(4, stages(pooled_stepsize=True),
+                               warmup_driver="wavefront"))
+    out["pass6"] = _result(run(5, stages(), sampling_driver="epoch"))
     checkpoints = []
     out["pass7_ref"] = _result(run(6, stages(),
                                    warmup_checkpoint_sink=checkpoints.append))
@@ -317,6 +324,60 @@ def case_dryrun(mesh):
     # ranks resuming from different stages raise on every rank
     out["resume_mismatch"] = _error(lambda: run(
         6, stages(), warmup_resume=checkpoints[1 + mesh.rank]))
+    return out
+
+
+def stratified_target(dim=5, seed=0):
+    """JAX tests/test_stratified.py's target covariance."""
+    import numpy as np
+
+    a = np.random.default_rng(seed).normal(size=(dim, dim))
+    return a @ a.T + 0.5 * np.eye(dim)
+
+
+def case_stratified(mesh):
+    """JAX tests/test_stratified.py's mesh case (32 chains over the ranks,
+    200 draws, stratify_sampling=8, the half schedule) beside the same run
+    unstratified; then chains a unit apart at a tiny per-chain eps, falling
+    over the global chains, so that the sort sends every rank's chains to
+    the other rank's band: how far each chain's last draw lies from its
+    start."""
+    import numpy as np
+    import torch
+
+    from dynamichmc_tpu_torch import NUTS, FixedStepsize, TuningNUTS, run_chains
+    from dynamichmc_tpu_torch.models import mvnormal
+    from dynamichmc_tpu_torch.parallel.mesh import all_gather_chains
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    ld = mvnormal(np.zeros(5), stratified_target(), dtype=torch.float64,
+                  device="cpu")
+    kw = dict(dtype=torch.float64, mesh=mesh, tune="reference",
+              warmup_stages=default_warmup_stages(
+                  metric_kind="dense", init_steps=40, middle_steps=20,
+                  doubling_stages=3, terminating_steps=25))
+
+    def gen(seed):
+        return torch.Generator().manual_seed(100 * seed + mesh.rank)
+
+    out = {"stratified": _result(run_chains(gen(3), ld, 32, 200,
+                                            stratify_sampling=8, **kw)),
+           "plain": _result(run_chains(gen(3), ld, 32, 8, **kw))}
+    n = 8
+    first = mesh.rank * n
+    q0 = (torch.arange(first, first + n, dtype=torch.float64)[:, None]
+          * torch.ones(5, dtype=torch.float64))
+    eps = torch.linspace(2e-3, 1e-3, n * mesh.size,
+                         dtype=torch.float64)[first:first + n]
+    kw.update(warmup_stages=(TuningNUTS(
+        N=20, stepsize_adaptation=FixedStepsize()),),
+        algorithm=NUTS(max_depth=2))
+    res = run_chains(gen(4), ld, n * mesh.size, 4, stratify_sampling=2,
+                     initialization={"q": q0, "eps": eps}, **kw)
+    band = torch.argsort(all_gather_chains(eps, mesh))[first:first + n]
+    out["still"] = {
+        "max_move": float((res.positions[:, -1] - q0).abs().max()),
+        "band_moved": bool((band // n != mesh.rank).all())}
     return out
 
 
