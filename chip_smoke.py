@@ -202,6 +202,21 @@ Phases (each one that fails ends the script with a non-zero exit code):
      - wavefront_logreg: logreg_fused's configuration with the wavefront
        warmup, 64 draws (cut from 512): K3 on every slot, every posterior
        mean within 5 MCSE of logreg_tree's.
+  9. Surface: logistic_regression(4000, 128, fused="auto",
+     tree_kernel="auto") attaches the route the measured rule names
+     (ops/logreg_leaf.fused_leaf_pays, ops/tree_kernel.tree_kernel_pays),
+     and one transition through it launches that route's kernel;
+     profiling.transition_throughput on main's model at 1024 chains
+     (its grad evals/s, K1 on each of its 7 transitions);
+     profiling.trace around one K1 call writes a trace whose kernels
+     include the tree kernel, in a process of its own (``--trace-worker``,
+     killed after TRACE_SPAWN_SECONDS; in this process, where
+     torch.profiler has recorded no kernel after phases 4-8, the same
+     trace is reported after phases 5-9, ``[trace probe]`` lines, not
+     gated); the native ESS engine (native/fastdiag.cpp,
+     built with the host compiler) loads, and stats.ess_rhat over main's
+     draws of its first 8 coordinates agrees with the numpy path to 1e-7
+     (both times printed). Its launches are not in the kernels line.
 With --profile, each path's timed run is repeated under torch.profiler
 after phase 5 and the device split is printed; --profile=main,funnel
 profiles the paths named only.
@@ -1508,8 +1523,9 @@ def tree_kernel_bound(args):
     executed on these inputs (the kernel's ``work``) times the leaf's
     operations, and every input and output once. Operations per leaf:
     Gaussian 8 K^2 + 30 K dense (drift M^-1 p, gradient, value, M^-1 p'),
-    4 K^2 + 30 K diagonal; funnel 30 K; logreg 4 n K + 10 n + 30 K (the
-    two products with X, the softplus and sigmoid terms)."""
+    4 K^2 + 30 K diagonal; funnel 30 K, and 4 K^2 more with a dense M^-1
+    (its two products); logreg 4 n K + 10 n + 30 K (the two products with
+    X, the softplus and sigmoid terms)."""
     from dynamichmc_tpu_torch.ops import tree_kernel
 
     out = tree_kernel.tree_transition(*args)
@@ -1520,7 +1536,7 @@ def tree_kernel_bound(args):
     if leaf.kind == tree_kernel.GAUSSIAN:
         per_leaf = (8 if args[8].ndim == 2 else 4) * K * K + 30 * K
     elif leaf.kind == tree_kernel.FUNNEL:
-        per_leaf = 30 * K
+        per_leaf = 30 * K + (4 * K * K if args[8].ndim == 2 else 0)
     else:
         per_leaf = 4 * leaf.n_obs * K + 10 * leaf.n_obs + 30 * K
     outputs = [v for v in out.values() if torch.is_tensor(v)]
@@ -2233,9 +2249,192 @@ def run_scheduler_phase(dev, smi, twins, normal, gauss, lr_fused):
             "gaussian_fused_leaf": sched["gaussian_fused_leaf"]}
 
 
+N_THROUGHPUT = 1024  # chains of phase 9's transition_throughput
+N_ESS_PARAMS = 8  # main's coordinates whose draws phase 9's ESS engines read
+TRACE_SPAWN_SECONDS = 240  # phase 9's trace worker, killed after it
+
+
+def read_trace(log_dir):
+    """The one Chrome trace in ``log_dir``: the names of the tree kernels
+    it recorded on the card, its events and its kernel events."""
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    check(len(files) == 1, f"trace: {len(files)} files in {log_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"names": sorted({e["name"] for e in kernels
+                             if "tree_transition" in e.get("name", "")}),
+            "events": len(events), "kernel_events": len(kernels)}
+
+
+def trace_probe_args(gauss, dev):
+    """One main-shape K1 call's inputs, from a generator of their own (the
+    phases' draws stay as they are), the kernel warmed on them."""
+    from dynamichmc_tpu_torch.ops import tree_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    args = kernel_inputs(gauss, C_MAIN, MD_MAIN, "dense", MD_MAIN, gen)
+    tree_kernel.tree_transition(*args)
+    torch.cuda.synchronize()
+    return args
+
+
+def trace_probe(after_phase, args):
+    """profiling.trace around one K1 call in this process: read_trace's
+    result, or the error of a trace that recorded no kernel. Reported
+    after phases 5-9 (after phase 5's profiler sessions), not gated:
+    torch.profiler has recorded no kernel here after phases 4-8 (PERF.md
+    §7), and the probes say from which phase on."""
+    import tempfile
+
+    from dynamichmc_tpu_torch import profiling
+    from dynamichmc_tpu_torch.ops import tree_kernel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            with profiling.trace(tmp) as log_dir:
+                tree_kernel.tree_transition(*args)
+            res = read_trace(log_dir)
+        except RuntimeError as err:
+            res = {"error": str(err)[:120]}
+        res["seconds"] = time.perf_counter() - t0
+    log(f"[trace probe] {json.dumps({'after_phase': after_phase, **res})}")
+    return res
+
+
+def trace_worker(argv):
+    """``chip_smoke.py --trace-worker OUT``: in a process of its own,
+    profiling.trace around one K1 call at main's shape, with the library
+    phase 2 built; writes read_trace's result to OUT as JSON."""
+    import tempfile
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamichmc_tpu_torch import profiling
+    from dynamichmc_tpu_torch.models import correlated_gaussian
+    from dynamichmc_tpu_torch.ops import tree_kernel
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    so = tree_kernel.library.library_path()
+    check(os.path.exists(so), f"the kernel library {so} was not built")
+    gauss = correlated_gaussian(K_MAIN, dtype=torch.float32, device=dev,
+                                tree_kernel=True)
+    args = trace_probe_args(gauss, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as log_dir:
+            tree_kernel.tree_transition(*args)
+        result = read_trace(log_dir)
+    with open(argv[0], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def auto_route(n_obs, dim):
+    """The route logistic_regression(fused="auto", tree_kernel="auto")
+    takes by the port's measured rule: "k1", "k3" or "plain"."""
+    from dynamichmc_tpu_torch.ops.logreg_leaf import fused_leaf_pays
+    from dynamichmc_tpu_torch.ops.tree_kernel import tree_kernel_pays
+
+    fused = fused_leaf_pays(n_obs, dim)
+    if tree_kernel_pays(n_obs, dim, fused=fused):
+        return "k1"
+    return "k3" if fused else "plain"
+
+
+def run_surface_phase(dev, smi, gauss, lr_tree, main_draws):
+    """Phase 9: the rest of the package's surface on the card. Fails on a
+    gate."""
+    import tempfile
+
+    from dynamichmc_tpu_torch import native, profiling, stats
+    from dynamichmc_tpu_torch.hamiltonian import evaluate
+    from dynamichmc_tpu_torch.metric import diagonal_metric
+    from dynamichmc_tpu_torch.models import logistic_regression
+    from dynamichmc_tpu_torch.nuts import NUTS
+    from dynamichmc_tpu_torch.ops import (
+        launch_counts, reset_launch_counts, tree_kernel)
+    from dynamichmc_tpu_torch.tree_batched import sample_tree_batched
+
+    # the auto rule at logreg_tree's shape: the route it names, and one
+    # transition through that route's kernel
+    t0 = time.perf_counter()
+    route = auto_route(N_OBS, K_LOGREG)
+    model = logistic_regression(N_OBS, K_LOGREG, dtype=torch.float32,
+                                device=dev, fused="auto", tree_kernel="auto")
+    attached = ("k1" if model.tree_transition_fn is not None else
+                "k3" if model.fused_leaf_batched_fn is not None else "plain")
+    check(attached == route, f"auto: the model attached {attached}, the rule "
+                             f"names {route}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, minv = start_point(lr_tree, C_LOGREG, gen)
+    Q = evaluate(model, q)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    _q, st = sample_tree_batched(gen, NUTS(max_depth=MD_LOGREG), model,
+                                 diagonal_metric(torch.diagonal(minv).contiguous()),
+                                 Q, 0.2)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if route == "k1":
+        check(counts["tree_transition"] == 1 and counts["logreg_fused_leaf"] == 0,
+              f"auto k1: launches {counts}")
+    elif route == "k3":
+        check(counts["tree_transition"] == 0 and counts["logreg_fused_leaf"]
+              == counts["driver_fused_leaves"] > 0, f"auto k3: launches {counts}")
+    else:
+        check(counts["tree_transition"] == counts["logreg_fused_leaf"] == 0,
+              f"auto plain: launches {counts}")
+    check(bool(torch.isfinite(_q.q).all()), "auto: non-finite positions")
+    log(f"[9 surface] {json.dumps({'auto': [N_OBS, K_LOGREG], 'route': route, 'launch_counts': counts, 'mean_steps': float(st.steps.double().mean()), 'seconds': time.perf_counter() - t0, 'gpu': smi})}")
+
+    # transition_throughput on main's model
+    reset_launch_counts()
+    res = profiling.transition_throughput(
+        gauss, n_chains=N_THROUGHPUT, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+    counts = launch_counts()
+    check(counts["tree_transition"] == 2 + 5 and res["grad_evals_per_second"] > 0,
+          f"transition_throughput: {counts}, {res}")
+    log(f"[9 surface] {json.dumps({'transition_throughput': [N_THROUGHPUT, K_MAIN], **res, 'launch_counts': counts, 'gpu': smi})}")
+
+    # a trace of one K1 call names the tree kernel: in this process after
+    # phases 4-8 (reported), and in a fresh process (the gate)
+    here = trace_probe(9, trace_probe_args(gauss, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fresh.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--trace-worker", out],
+            capture_output=True, text=True, timeout=TRACE_SPAWN_SECONDS)
+        check(proc.returncode == 0, f"trace worker failed:\n{proc.stdout[-3000:]}"
+                                    f"\n{proc.stderr[-3000:]}")
+        with open(out) as f:
+            fresh = dict(json.load(f), seconds=time.perf_counter() - t0)
+    log(f"[9 surface] {json.dumps({'trace': {'after_phases_4_8': here, 'fresh_process': fresh}, 'gpu': smi})}")
+    check(fresh["names"], "trace: no tree kernel on the card")
+
+    # the native ESS engine against numpy on main's draws
+    t0 = time.perf_counter()
+    check(native.load() is not None,
+          f"native: fastdiag did not load: {native.build_log}")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = stats.ess_rhat(main_draws, use_native=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = stats.ess_rhat(main_draws, use_native=False)
+    numpy_s = time.perf_counter() - t0
+    worst = max(float(np.max(np.abs(fast[k] / slow[k] - 1))) for k in fast)
+    check(worst <= 1e-7, f"native: {worst} from numpy")
+    log(f"[9 surface] {json.dumps({'native_ess': list(main_draws.shape), 'build_and_load_s': build_s, 'native_s': native_s, 'numpy_s': numpy_s, 'max_rel_diff': worst, 'min_bulk_ess': float(fast['ess_bulk'].min()), 'gpu': smi})}")
+
+
 def main():
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--trace-worker"]:
+        return trace_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -2487,6 +2686,7 @@ def run_phases(dev, smi, profile=()):
                                       "model", "wall_s", "min_bulk_ess")}
     twins["main"] = mesh_ref
     twins["logreg_tree_summary"] = summaries["logreg_tree"]
+    main_draws = main["positions"][:, :, :N_ESS_PARAMS].double().numpy()
     del main
     log_phase_done(4)
 
@@ -2563,6 +2763,8 @@ def run_phases(dev, smi, profile=()):
         log(f"[5 kernel time] {json.dumps(line)}")
 
     log_phase_done(5)
+    probe_args = trace_probe_args(gauss, dev)
+    trace_probe(5, probe_args)
     for name, (model, C, config) in paths.items():
         if name in profile:
             log(f"[profile] {json.dumps(profile_run(name, lambda: run_path(model, C, N_DRAWS, SEED, config, dev)))}")
@@ -2572,15 +2774,22 @@ def run_phases(dev, smi, profile=()):
     # --- phase 6: the reference's statistical protocol through K1 and K2 --
     run_protocol(dev, smi)
     log_phase_done(6)
+    trace_probe(6, probe_args)
 
     # --- phase 7: main's configuration over a mesh of ranks ---------------
     run_mesh_phase(dev, smi, mesh_ref)
     log_phase_done(7)
+    trace_probe(7, probe_args)
 
     # --- phase 8: the wavefront, epoch and stratified schedulers ---------
     sched_launches = run_scheduler_phase(dev, smi, twins, normal, gauss,
                                          lr_fused)
     log_phase_done(8)
+    trace_probe(8, probe_args)
+
+    # --- phase 9: the auto rule, profiling and the native ESS engine -----
+    run_surface_phase(dev, smi, gauss, lr_tree, main_draws)
+    log_phase_done(9)
 
     entries = [  # name, phase-3/5 key, path, replaces, source
         ("tree_transition", "gaussian", "main", "dynamichmc_tpu/ops/pallas_tree.py:93",

@@ -113,6 +113,48 @@ def mcmc(generator: torch.Generator, ld: LogDensity, algorithm: NUTS, state,
                               tree_statistics=stats)
 
 
+def make_runner(ld: LogDensity, algorithm: NUTS, stages, n_samples: int,
+                collect_warmup_positions: bool = False,
+                collect_warmup_stats: bool = True,
+                keep_warmup_states: bool = True, chain_axis=None,
+                reporter=None):
+    """The (warmup fold + sampling) runner ``(generator, state) ->
+    (history, final_state, inference)`` of one chain or a (C, K) batch:
+    the stage fold (warmup.run_warmup) over ``stages`` from ``state``,
+    then ``n_samples`` draws (:func:`mcmc`), every random number from
+    ``generator`` in that order. From the generator and initial state of
+    :func:`mcmc_keep_warmup` its draws and states are that call's bit for
+    bit.
+
+    ``history`` holds one (results, state after the stage) per stage,
+    aligned with ``stages`` (the caller's tuple holds the stages); the
+    state is None with ``keep_warmup_states=False``. Large batches can
+    set ``collect_warmup_stats=False`` to keep only the stepsize search's
+    results. The search is not checked here (:func:`mcmc_with_warmup`
+    does that). ``chain_axis`` is accepted for the JAX package's
+    signature, where it names the vmap axis of the pooled statistics; the
+    port runs a batch as one (C, K) tensor, with no such axis, and
+    ignores it."""
+    stages = tuple(stages)
+
+    def run(generator: torch.Generator, state):
+        from .warmup import run_warmup
+
+        log, step_reporter = _reporting(reporter)
+        history, state = run_warmup(
+            generator, ld, algorithm, stages, state,
+            collect_positions=collect_warmup_positions,
+            collect_stats=collect_warmup_stats, log=log,
+            reporter=step_reporter)
+        kept = [(results, st if keep_warmup_states else None)
+                for _stage, results, st in history]
+        _q, inference = mcmc(generator, ld, algorithm, state, n_samples,
+                             reporter=step_reporter)
+        return kept, state, inference
+
+    return run
+
+
 def _keep_warmup(generator, ld, n_samples, initial_state, stages, algorithm,
                  collect_positions: bool, collect_stats: bool, reporter):
     """The stage fold, its search check, then the draws: (history, final

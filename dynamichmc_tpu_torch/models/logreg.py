@@ -39,18 +39,29 @@ def logistic_regression_from_data(x, y, prior_scale: float = 10.0,
     batch driver then runs every leaf (leapfrog, both products with X, the
     joint energy) as one kernel. ``tree_kernel=True`` attaches the
     whole-transition kernel with the logreg leaf (ops/tree_kernel.py); when
-    both are set it takes precedence, as in the JAX package. ``"auto"`` for
-    either raises NotImplementedError: the JAX package's rule is a TPU
-    lane-padding and VMEM rule, and no H100 rule is measured yet."""
-    if fused == "auto" or tree_kernel == "auto":
-        raise NotImplementedError(
-            "fused='auto' / tree_kernel='auto': the dispatch rule is TPU-"
-            "specific and not ported; pass True or False"
-        )
+    both are set it takes precedence, as in the JAX package.
+
+    ``"auto"`` attaches a kernel only where it was measured to win on the
+    H100 (scripts/torch_logreg_auto_sweep.py): ``fused="auto"`` the fused
+    leaf where ``logreg_leaf.fused_leaf_pays(n_obs, dim)``,
+    ``tree_kernel="auto"`` the whole-transition kernel where
+    ``tree_kernel.tree_kernel_pays(n_obs, dim, fused)`` (where the fused
+    leaf is attached, by True or by "auto", it must also beat that leaf).
+    Neither attaches
+    past what its kernel takes. On the CPU an attached hook computes its
+    plain version, as every hook there does."""
     device = resolve_device(device)
     x_np = np.asarray(x, np.float64)
     y_np = np.asarray(y, np.float64)
     n_obs, dim = x_np.shape
+    if fused == "auto":
+        from ..ops.logreg_leaf import fused_leaf_pays
+
+        fused = fused_leaf_pays(n_obs, dim)
+    if tree_kernel == "auto":
+        from ..ops.tree_kernel import tree_kernel_pays
+
+        tree_kernel = tree_kernel_pays(n_obs, dim, fused=bool(fused))
 
     fused_leaf_batched_fn = None
     if fused:

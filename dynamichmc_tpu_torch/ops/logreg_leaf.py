@@ -68,6 +68,31 @@ MAX_K = ((MAX_SMEM_BYTES - smem_bytes(0, _T))
          // ((smem_bytes(4, _T) - smem_bytes(0, _T)) // 4) // 4 * 4)
 
 
+def gradient_chunks(K: int) -> int:
+    """CTAs of the slice kernel over the gradient's coordinates, each of
+    which streams all of X: 128 coordinates each up to K = 128, 256 past
+    it."""
+    return -(-K // (128 if K <= 128 else 256))
+
+
+# fused_leaf_pays: the fused leaf beats the plain driver's autograd leaf
+# where it streams at most this many elements of X a leaf (n_obs * dim *
+# gradient_chunks(dim)), and loses past it (scripts/torch_logreg_auto_sweep.py
+# at 2048 chains, NUTS(max_depth=4), each shape's state from a short
+# adapted warmup, on an NVIDIA H100 80GB HBM3 at 700 W: it won or tied at
+# 4,096,000 and lost from 16,384,000).
+FUSED_MAX_X_READS = 4_096_000
+
+
+def fused_leaf_pays(n_obs: int, dim: int) -> bool:
+    """The rule of ``logistic_regression(fused="auto")``: attach the fused
+    leaf where it was measured to beat the plain driver on the H100, and
+    never past the widest K it takes (MAX_K). A pure function of the
+    shape, as the JAX package's is."""
+    return (1 <= dim <= MAX_K
+            and n_obs * dim * gradient_chunks(dim) <= FUSED_MAX_X_READS)
+
+
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """The grid of one launch: ``tile`` rows of X per tile, ``smem`` bytes
@@ -97,7 +122,7 @@ def launch_plan(C: int, K: int, n_obs: int, sm_count: int,
     if not (C >= 1 and 1 <= K and tile and n_obs >= 1):
         raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K}, "
                          f"or no chains or observations")
-    chunks = -(-K // (128 if K <= 128 else 256))
+    chunks = gradient_chunks(K)
     blocks = -(-C // CHAINS) * chunks
     n_tiles = -(-n_obs // tile)
     slices = max(1, min(sm_count * blocks_per_sm // blocks, n_tiles // 2))

@@ -225,6 +225,37 @@ def kernel_fits(K: int, max_depth: int, logreg: bool = False) -> bool:
     return smem_bytes(K, max_depth) <= MAX_SMEM_BYTES
 
 
+# tree_kernel_pays: the whole-transition kernel with the logreg leaf, in
+# which every chain streams all of X at every leaf, beats the plain driver
+# (autograd) where X's elements weighted by its 256-wide column blocks
+# (n_obs * dim * ceil(dim / 256): its time an element grew about 1.5x at
+# dim 512 and 3x at 1024 over dims 64-256) are at most TREE_MAX_X_WORK,
+# and the fused leaf where X holds at most TREE_MAX_X_ELEMENTS_VS_FUSED
+# elements (n_obs * dim). scripts/torch_logreg_auto_sweep.py at 2048
+# chains, NUTS(max_depth=4), each shape's state from a short adapted
+# warmup (15 leapfrog steps a chain at most shapes), on an NVIDIA H100
+# 80GB HBM3 at 700 W: it beat the plain driver up to a weighted 1,024,000,
+# tied at 2,048,000 and lost from 4,096,000; it beat the fused leaf up to
+# 512,000 elements and lost from 1,024,000.
+TREE_MAX_X_WORK = 2_048_000
+TREE_MAX_X_ELEMENTS_VS_FUSED = 512_000
+AUTO_MAX_DEPTH = 4  # the max_depth of the sweep behind the rule
+
+
+def tree_kernel_pays(n_obs: int, dim: int, fused: bool = False) -> bool:
+    """The rule of ``logistic_regression(tree_kernel="auto")``: attach the
+    whole-transition kernel where it was measured to beat the plain driver
+    on the H100 and, with ``fused`` (the fused leaf is attached), the
+    fused leaf too; never where its CTA does not fit at
+    AUTO_MAX_DEPTH (:func:`kernel_fits`; at a deeper max_depth the hook
+    may still decline at run time). A pure function of the shape."""
+    if not kernel_fits(dim, AUTO_MAX_DEPTH, logreg=True):
+        return False
+    if fused:
+        return n_obs * dim <= TREE_MAX_X_ELEMENTS_VS_FUSED
+    return n_obs * dim * -(-dim // 256) <= TREE_MAX_X_WORK
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Leaf:
     """The model inside the kernel: ``kind`` (GAUSSIAN, FUNNEL or LOGREG),

@@ -1,0 +1,176 @@
+"""Performance tracing and transition benchmarks (port of
+``dynamichmc_tpu.profiling``).
+
+``trace`` records a ``torch.profiler`` trace (the host's operators and,
+on a GPU, every kernel the card ran) and writes it as a Chrome trace,
+which ``chrome://tracing``, Perfetto or TensorBoard open. ``benchmark``
+times a callable with its first call apart from the steady state.
+``transition_throughput`` measures leapfrog gradient evaluations per
+second of one NUTS transition over a batch of chains: the package's own
+measure of its hot path. The numerical trajectory tracers live in
+diagnostics.py.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Callable, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Capture a trace of everything inside the context; yields
+    ``log_dir``, into which ``trace-<pid>-<ns>.json`` is written when the
+    context closes. The CUDA activity is recorded where a GPU is present:
+    the device is synchronised as the context opens and before it closes,
+    and one small kernel of the trace's own runs before the body, so that
+    a trace that recorded no kernel at all is known to have lost the
+    card's activity: it raises then, after writing the file (torch.profiler
+    can do so in a long-running process, PERF.md §7). ``log_dir``
+    defaults to ``dynamichmc_tpu_torch_trace`` under the temporary
+    directory::
+
+        with profiling.trace("traces") as d:
+            run_chains(...)
+    """
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(),
+                               "dynamichmc_tpu_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()  # earlier work stays out of the trace
+    with torch.profiler.profile(activities=activities) as prof:
+        if cuda:
+            torch.zeros(1, device="cuda")  # a kernel every trace holds
+        yield log_dir
+        if cuda:
+            torch.cuda.synchronize()  # the context's kernels end inside it
+    path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    if cuda and not any(e.device_type() == torch.autograd.DeviceType.CUDA
+                        for e in prof.profiler.kineto_results.events()):
+        raise RuntimeError(f"torch.profiler recorded no kernel on the card "
+                           f"in {path}, not even the trace's own")
+
+
+def _devices(out, found):
+    """The CUDA devices of every tensor in ``out`` (tuples, lists, dicts
+    and dataclasses searched)."""
+    if torch.is_tensor(out):
+        if out.device.type == "cuda":
+            found.add(out.device)
+    elif isinstance(out, (tuple, list)):
+        for x in out:
+            _devices(x, found)
+    elif isinstance(out, dict):
+        for x in out.values():
+            _devices(x, found)
+    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
+        for f in dataclasses.fields(out):
+            _devices(getattr(out, f.name), found)
+    return found
+
+
+def _block(out):
+    """Wait for the work that produced ``out``: a synchronisation of each
+    CUDA device its tensors lie on (the JAX package blocks on every output
+    leaf). CPU tensors are ready when returned."""
+    for device in _devices(out, set()):
+        torch.cuda.synchronize(device)
+    return out
+
+
+def benchmark(
+    fn: Callable,
+    *args,
+    iters: int = 10,
+    warmup: int = 2,
+    name: Optional[str] = None,
+    **kwargs,
+):
+    """Wall-clock ``fn(*args, **kwargs)`` with its first call apart from
+    the steady state.
+
+    Returns a dict: ``name``; ``first_call_seconds``, the first call; on
+    the port that call also builds and loads each CUDA kernel it reaches
+    for the first time in the process (nvcc and the library load), where
+    the JAX package traces and compiles; ``compile_seconds``, the first
+    call less one steady-state iteration; ``seconds_per_iteration``, the
+    mean of ``iters`` calls after ``warmup`` in all; ``output``, the last
+    call's output. Each timed region ends with a synchronisation of the
+    CUDA devices the outputs lie on."""
+    t0 = time.perf_counter()
+    out = _block(fn(*args, **kwargs))
+    first_call_s = time.perf_counter() - t0
+    for _ in range(max(warmup - 1, 0)):
+        _block(fn(*args, **kwargs))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args, **kwargs)
+    _block(out)
+    per_iter = (time.perf_counter() - t0) / iters
+    return {
+        "name": name or getattr(fn, "__name__", "fn"),
+        "compile_seconds": max(first_call_s - per_iter, 0.0),
+        "first_call_seconds": first_call_s,
+        "seconds_per_iteration": per_iter,
+        "output": out,
+    }
+
+
+def transition_throughput(
+    ld,
+    n_chains: int = 1024,
+    eps: float = 0.2,
+    iters: int = 5,
+    dtype=None,
+    generator: Optional[torch.Generator] = None,
+):
+    """NUTS transition throughput of a model at a chain batch: leapfrog
+    gradient evaluations per second, the sum of the last transition's
+    steps over the chains divided by the seconds a transition takes.
+
+    The chains start at q ~ 0.1 N(0, I) with an identity metric and
+    ``NUTS()``, as in the JAX package; each transition is one
+    ``tree_batched.sample_tree_batched`` call, so a model's
+    whole-transition kernel runs where it has one. ``generator`` draws the
+    start and every transition's randomness, on its own device; the
+    model's tensors must lie there. Without one, a generator seeded 0 is
+    made on the model's device, or on ``"cuda"`` for a model that names
+    none (a CPU measurement takes a CPU generator). Returns :func:`benchmark`'s dict without ``output``, plus
+    ``grad_evals_per_second``."""
+    from .hamiltonian import evaluate
+    from .logdensity import check_device, resolve_device
+    from .metric import identity_metric
+    from .nuts import NUTS
+    from .tree_batched import sample_tree_batched
+
+    dtype = dtype or torch.float32
+    if generator is None:
+        device = resolve_device(ld.device if ld.device is not None else "cuda")
+        generator = torch.Generator(device=device).manual_seed(0)
+    device = generator.device
+    check_device(ld, device)
+    metric = identity_metric(ld.dim, dtype=dtype, device=device)
+    q = torch.randn((n_chains, ld.dim), generator=generator, dtype=dtype,
+                    device=device) * 0.1
+    Q = evaluate(ld, q)
+    algorithm = NUTS()
+
+    def nuts_transition():
+        return sample_tree_batched(generator, algorithm, ld, metric, Q, eps)
+
+    res = benchmark(nuts_transition, iters=iters, name="nuts_transition")
+    steps = int(res["output"][1].steps.to(torch.int64).sum())
+    res["grad_evals_per_second"] = steps / res["seconds_per_iteration"]
+    del res["output"]
+    return res

@@ -129,13 +129,28 @@ def ess_tail(x: np.ndarray) -> float:
     return min(lo, hi)
 
 
-def ess_rhat(positions: np.ndarray) -> dict:
+def ess_rhat(positions: np.ndarray, use_native: bool = True) -> dict:
     """Per-parameter bulk/tail ESS and R-hat of (chains, draws, params)
-    draws; a (draws, params) array is one chain."""
+    draws; a (draws, params) array is one chain. :func:`ess_rhat_from_stacked`
+    takes the reference's stack_posterior_matrices orientation (draws,
+    chains, params).
+
+    Uses the native OpenMP ``fastdiag`` engine (native/, built at first use
+    from native/fastdiag.cpp; the same algorithm, tested against this
+    module) when ``use_native`` and it loads, else numpy.
+
+    Returns a dict of arrays with keys ``ess_bulk``, ``ess_tail``,
+    ``rhat``."""
     positions = np.asarray(positions, np.float64)
     if positions.ndim == 2:
         positions = positions[None]
     k = positions.shape[2]
+    if use_native:
+        from . import native
+
+        out = native.ess_rhat_batch(positions)
+        if out is not None:
+            return out
     out = {"ess_bulk": np.empty(k), "ess_tail": np.empty(k), "rhat": np.empty(k)}
     for j in range(k):
         x = positions[:, :, j]
@@ -143,3 +158,9 @@ def ess_rhat(positions: np.ndarray) -> dict:
         out["ess_tail"][j] = ess_tail(x)
         out["rhat"][j] = rhat(x)
     return out
+
+
+def ess_rhat_from_stacked(stacked: np.ndarray) -> dict:
+    """:func:`ess_rhat` of [draw, chain, param] arrays
+    (stack_posterior_matrices)."""
+    return ess_rhat(np.swapaxes(np.asarray(stacked), 0, 1))

@@ -3,6 +3,7 @@
 seeds, for the package of any checkout.
 
     python3 scripts/torch_tree_funnel_compare.py [--root DIR] [--seeds N] [--K 25,129]
+        [--md 7]
 
 ``--root`` names the checkout whose ``dynamichmc_tpu_torch`` is imported
 (default: this one), so that one call can hold this tree's kernel beside
@@ -13,7 +14,8 @@ line per measurement.
 
 1. ``time``: ms per call of ``tree_kernel.tree_transition`` (CUDA events,
    20 calls after a warm-up call, as in chip_smoke's phase 5) on 4096
-   chains of funnel(K), max_depth 7, from chip_smoke's phase-3 inputs, for
+   chains of funnel(K), max_depth ``--md`` (default 7), from chip_smoke's
+   phase-3 inputs, for
    each K of ``--K`` (default 25, the funnel path, and 129, past the warp
    variant) with a diagonal and a dense metric; beside it the fp32 bound
    of the leaves the chains executed, the plain version's ms per call (3
@@ -24,7 +26,11 @@ line per measurement.
    differ between the kernel and the plain float32 version (phase 3's
    match counts them against 0.1% of the chains), and between the plain
    float32 and float64 versions (the ties that float32 rounding alone
-   breaks either way).
+   breaks either way); and, on the chains where all three agree, the
+   largest and the 99th-percentile per-chain error of log_sum, q' and
+   grad' against float64, the kernel's beside the plain float32
+   version's (the GPU tests' rule: the kernel's within twice the plain
+   version's plus 1e-5).
 """
 
 import argparse
@@ -36,7 +42,8 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-C, MD, N_TIME, N_PLAIN = 4096, 7, 20, 3
+C, N_TIME, N_PLAIN = 4096, 20, 3
+MD = 7  # max_depth, set by --md
 
 
 def load(name, path):
@@ -68,12 +75,32 @@ def mismatches(a, b, leaf_a, leaf_b):
     return int(differ.sum())
 
 
+def errors(out, ref, ref64, same):
+    """Per output, [max, 99th percentile] of the per-chain error
+    |x - x64| / (1 + |x64|) on the ``same`` chains, for the kernel and for
+    the plain float32 version."""
+    res = {}
+    for name in ("log_sum", "prop_q", "prop_grad"):
+        row = {}
+        for who, x in (("kernel", out[name]), ("plain", ref[name])):
+            a, b = x[same].double(), ref64[name][same].double()
+            err = torch.where(a == b, 0.0, (a - b).abs() / (1 + b.abs()))
+            per_chain = err.reshape(err.shape[0], -1).amax(-1)
+            row[who] = [float(per_chain.max()),
+                        float(torch.quantile(per_chain, 0.99))]
+        res[name] = row
+    return res
+
+
 def main():
+    global MD
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--seeds", type=int, default=4)
     parser.add_argument("--K", default="25,129")
+    parser.add_argument("--md", type=int, default=MD)
     opts = parser.parse_args()
+    MD = opts.md
     root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
     chip = load("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -113,8 +140,13 @@ def main():
                 leaf_k, leaf_32, leaf_64 = proposal.proposal_offsets(
                     *args[:5], args[8], args[9].value_and_grad, dcap,
                     [out["prop_q"], ref["prop_q"], ref64["prop_q"]])
+                same = leaf_k == leaf_32
+                same &= leaf_32 == leaf_64
+                for stat in ("depth", "steps", "term_left", "term_right"):
+                    same &= (out[stat] == ref[stat]) & (ref[stat] == ref64[stat])
                 print(json.dumps({
-                    "seed": seed, "config": [K, kind, dcap],
+                    "seed": seed, "config": [K, kind, dcap, MD],
+                    "errors_vs_f64": errors(out, ref, ref64, same),
                     "kernel_vs_f32": mismatches(out, ref, leaf_k, leaf_32),
                     "f32_vs_f64": mismatches(ref, ref64, leaf_32, leaf_64),
                     "kernel_vs_f64": mismatches(out, ref64, leaf_k, leaf_64),

@@ -372,6 +372,24 @@ def test_cuda_cta_funnel_kernel_matches_plain(K, kind, md, dcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+def test_cuda_cta_funnel_kernel_at_k_1024(kind):
+    """The CTA variant at its widest funnel, K = 1024 (1024 threads a
+    chain, block sums over 32 warps) and max_depth 10 (a merge stack of
+    11 levels in shared memory): against the plain version, by the rule
+    of _check_transition, on 4096 chains."""
+    dev = _device()
+    K, md = 1024, 10
+    assert tree_kernel.kernel_variant(tree_kernel.FUNNEL, K, md,
+                                      kind == "diag") == "cta"
+    model = funnel(K, dtype=F32, device=dev, tree_kernel=True)
+    _check_transition(_kernel_args(model, FUNNEL_CHAINS, md, kind, md,
+                                   (0.02, 0.12)), FUNNEL_CHAINS, md, 0.99,
+                      FUNNEL_QUANTILE)
+    assert tree_kernel.warp_launches == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("md", [4, 7])
 @pytest.mark.parametrize("kind", ["dense", "diag"])
 @pytest.mark.parametrize("K,warp", [(128, True), (129, False)])
@@ -1264,3 +1282,30 @@ def test_cuda_epoch_with_k2_matches_the_plain_leaf():
                             [getattr(k2[3], f) for f in fields],
                             [getattr(ref[3], f) for f in fields])
     assert float(agree.float().mean()) >= 0.95
+
+
+@pytest.mark.gpu
+def test_cuda_trace_records_a_lone_kernel_after_another_session(tmp_path):
+    """profiling.trace around one bare tree-kernel call, after a CUDA-only
+    torch.profiler session in the same process, writes a trace that holds
+    that kernel."""
+    import json
+    import os
+
+    from dynamichmc_tpu_torch import profiling
+
+    _device()
+    model = correlated_gaussian(100, dtype=F32, tree_kernel=True)
+    args = _kernel_args(model, 1024, 10, "dense", 10, (0.2, 0.6))
+    tree_kernel.tree_transition(*args)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        tree_kernel.tree_transition(*args)
+        torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)) as log_dir:
+        tree_kernel.tree_transition(*args)
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("tree_transition" in e.get("name", "") for e in events
+               if e.get("cat") == "kernel")

@@ -146,10 +146,26 @@ def test_logreg_value_and_gradient_match_jax(n_obs, K, seed):
     np.testing.assert_allclose(ga.numpy(), gj, rtol=1e-4, atol=1e-3)
 
 
-def test_logreg_auto_dispatch_is_not_ported():
-    for kw in ({"fused": "auto"}, {"tree_kernel": "auto"}):
-        with pytest.raises(NotImplementedError, match="auto"):
-            tm.logistic_regression(20, 3, device="cpu", **kw)
+@pytest.mark.parametrize("n_obs,K", [(20, 3), (16000, 512), (1, 1201)])
+def test_logreg_auto_attaches_the_measured_route(n_obs, K):
+    """``"auto"`` no longer raises: each hook is attached exactly where
+    the port's measured rule says it pays (ops/logreg_leaf.fused_leaf_pays,
+    ops/tree_kernel.tree_kernel_pays), the same data either way."""
+    from dynamichmc_tpu_torch.ops.logreg_leaf import fused_leaf_pays
+    from dynamichmc_tpu_torch.ops.tree_kernel import tree_kernel_pays
+
+    plain = tm.logistic_regression(n_obs, K, device="cpu")
+    fused = tm.logistic_regression(n_obs, K, device="cpu", fused="auto")
+    assert (fused.fused_leaf_batched_fn is not None) == fused_leaf_pays(n_obs, K)
+    assert fused.tree_transition_fn is None
+    tree = tm.logistic_regression(n_obs, K, device="cpu", tree_kernel="auto")
+    assert (tree.tree_transition_fn is not None) == tree_kernel_pays(n_obs, K)
+    assert tree.fused_leaf_batched_fn is None
+    q = torch.as_tensor(np.random.default_rng(0).normal(size=(2, K)))
+    for model in (fused, tree):
+        for a, b in zip(model.logdensity_and_gradient(q),
+                        plain.logdensity_and_gradient(q)):
+            assert torch.equal(a, b)
 
 
 def _protocol_pair(name):
