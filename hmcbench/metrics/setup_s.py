@@ -1,0 +1,5 @@
+"""Set-up seconds: from the process's start to the first timed call."""
+
+
+def read(run):
+    return run.setup_s
