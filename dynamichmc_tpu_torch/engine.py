@@ -46,6 +46,7 @@ from .metric import (
     rand_p,
 )
 from .nuts import NUTS, TreeStatistics, sample_tree
+from .profiling import count_transition, host_bool, host_read, span, spanned
 from .stepsize import (
     InitialStepsizeSearch,
     PooledStepsize,
@@ -162,7 +163,8 @@ def make_search_driver_batched(ld: LogDensity, params: InitialStepsizeSearch):
         double = A(eps) > thr
         found = torch.zeros((c,), dtype=torch.bool, device=device)
         it = 0
-        while bool((~found).any()) and it < params.maxiter_crossing:
+        while (host_bool("search_loop", (~found).any())
+               and it < params.maxiter_crossing):
             eps_new = torch.where(double, eps * 2, eps / 2)
             eps_new = torch.where(found, eps, eps_new)
             a_new = A(eps_new)
@@ -407,25 +409,29 @@ def run_block(generator, ld: LogDensity, algorithm: NUTS, stage: TuningNUTS,
         stage_reporter = reporter.make_stage_reporter(
             stage.N, currently_warmup=True, tuning=tuning)
     for j in range(stage.N):
-        dl = None
-        if depth_clamp is not None:
-            dl = depth_clamp if j < clamp_steps else algorithm.max_depth
-        eps_now = adaptation.current(da)
-        Q, stats = ops.transition(
-            generator, algorithm, ld, metric, Q, eps_now, depth_limit=dl,
-        )
-        if trace is not None:
-            trace.add(j, Q, stats, eps_now)
-        if stage_reporter is not None:
-            stage_reporter.report_step(j, eps=eps_now)
-        da = adaptation.update(da, stats.acceptance_rate)
+        with span("dhmc.transition"):
+            dl = None
+            if depth_clamp is not None:
+                dl = depth_clamp if j < clamp_steps else algorithm.max_depth
+            eps_now = adaptation.current(da)
+            Q, stats = ops.transition(
+                generator, algorithm, ld, metric, Q, eps_now, depth_limit=dl,
+            )
+            count_transition("warmup", stats.steps)
+            with span("dhmc.adapt"):
+                if trace is not None:
+                    trace.add(j, Q, stats, eps_now)
+                if stage_reporter is not None:
+                    stage_reporter.report_step(j, eps=eps_now)
+                da = adaptation.update(da, stats.acceptance_rate)
+                if update:
+                    wf = ops.welford_update(wf, Q.q)
+    with span("dhmc.estimate"):
+        eps = adaptation.final(da)
         if update:
-            wf = ops.welford_update(wf, Q.q)
-    eps = adaptation.final(da)
-    if update:
-        if stage.pooled:
-            wf = pool_welford_over_group(wf, mesh)
-        metric = estimate_metric(wf, kind, stage.shrinkage)
+            if stage.pooled:
+                wf = pool_welford_over_group(wf, mesh)
+            metric = estimate_metric(wf, kind, stage.shrinkage)
     return Q, metric, eps, None if trace is None else trace.results()
 
 
@@ -461,12 +467,14 @@ def run_block_wavefront(generator, ld: LogDensity, algorithm: NUTS,
     carry, _done = driver(
         generator, metric, carry, stage.N, depth_limit=depth_clamp,
         tail_steps=clamp_steps if depth_clamp is not None else None)
-    eps = adaptation.final(carry["da"])
-    if update:
-        wf = carry["wf"]
-        if stage.pooled:
-            wf = pool_welford_over_group(wf, mesh)
-        metric = estimate_metric(wf, kind, stage.shrinkage)
+    count_transition("warmup", n=stage.N)
+    with span("dhmc.estimate"):
+        eps = adaptation.final(carry["da"])
+        if update:
+            wf = carry["wf"]
+            if stage.pooled:
+                wf = pool_welford_over_group(wf, mesh)
+            metric = estimate_metric(wf, kind, stage.shrinkage)
     return carry["Q"], metric, eps
 
 
@@ -493,6 +501,7 @@ def stack_statistics(per_draw, lead=(), dtype=torch.float32,
     })
 
 
+@spanned("dhmc.draws")
 def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
                  Q: EvaluatedPoint, metric, eps, n_samples: int,
                  ops: Optional[ChainOps] = None, reporter=None,
@@ -573,30 +582,36 @@ def run_sampling(generator, ld: LogDensity, algorithm: NUTS,
         part, offset = ((trace, done) if trace is not None
                         else (_Trace(Q, m), 0))
         for j in range(m):
-            Q, stats = ops.transition(generator, algorithm, ld, metric, Q,
-                                      eps, depth_limit=None)
-            part.add(offset + j, Q, stats)
-            if stage_reporter is not None:
-                stage_reporter.report_step(done + j)
-        if draw_sink is not None:
-            draw_sink(done, part.positions, part.lds, part.statistics())
-            per_draw += part.per_draw
-        done += m
-        if log is not None:
-            _synchronize(Q.q)
-            elapsed = time.perf_counter() - t0
-            eta = (n_samples - done) * elapsed / max(done, 1)
-            log(f"sampling: {done}/{n_samples} ({elapsed:.1f}s, "
-                f"{done / max(elapsed, 1e-9):.1f} draws/s, ~{eta:.1f}s left)")
-        if next_check is not None and next_check <= done < n_samples:
-            min_ess = float(_min_bulk_ess(trace.positions[..., :done, :],
-                                          mesh))
+            with span("dhmc.transition"):
+                Q, stats = ops.transition(generator, algorithm, ld, metric, Q,
+                                          eps, depth_limit=None)
+                count_transition("draws", stats.steps)
+                with span("dhmc.adapt"):
+                    part.add(offset + j, Q, stats)
+                if stage_reporter is not None:
+                    stage_reporter.report_step(done + j)
+        with span("dhmc.sink"):
+            if draw_sink is not None:
+                draw_sink(done, part.positions, part.lds, part.statistics())
+                per_draw += part.per_draw
+            done += m
             if log is not None:
-                log(f"ess check @ {done} draws: min bulk ESS {min_ess:.0f} "
-                    f"(target {ess_target:g})")
-            if min_ess >= ess_target:
-                break
-            next_check = max(done + 1, int(done * ess_check_factor))
+                _synchronize(Q.q, "sampling_log")
+                elapsed = time.perf_counter() - t0
+                eta = (n_samples - done) * elapsed / max(done, 1)
+                log(f"sampling: {done}/{n_samples} ({elapsed:.1f}s, "
+                    f"{done / max(elapsed, 1e-9):.1f} draws/s, "
+                    f"~{eta:.1f}s left)")
+            if next_check is not None and next_check <= done < n_samples:
+                host_read("ess_check")
+                min_ess = float(_min_bulk_ess(trace.positions[..., :done, :],
+                                              mesh))
+                if log is not None:
+                    log(f"ess check @ {done} draws: min bulk ESS "
+                        f"{min_ess:.0f} (target {ess_target:g})")
+                if min_ess >= ess_target:
+                    break
+                next_check = max(done + 1, int(done * ess_check_factor))
     if trace is None:
         return Q, None, None, stack_statistics(per_draw, tuple(Q.q.shape[:-1]),
                                                dtype=Q.q.dtype,
@@ -617,9 +632,10 @@ def _sample_epoch(generator, ld, algorithm, Q, metric, eps, n_samples,
     carry = epoch_sampling_init(Q, metric, n_samples, algorithm.max_depth,
                                 ring=ring)
     carry, _done = stage(generator, metric, eps, carry)
+    count_transition("draws", n=n_samples)
     Q, positions, lds, stats = epoch_sampling_finish(carry, n_samples)
     if log is not None:
-        _synchronize(Q.q)
+        _synchronize(Q.q, "epoch_log")
         log(f"sampling[epoch]: {n_samples} draws in {carry['g']} slots "
             f"({time.perf_counter() - t0:.1f}s)")
     if draw_sink is not None:
@@ -654,6 +670,7 @@ def _sample_stratified(generator, ld, algorithm, Q, metric, eps, n_samples,
     groups = torch.argsort(eps, stable=True).reshape(G, C // G)
     inverse = torch.argsort(groups.reshape(-1))
     device = Q.q.device
+    host_read("stratified_seeds")
     seeds = torch.randint(0, 1 << 62, (G,), generator=generator,
                           device=generator.device).tolist()
     gens = [torch.Generator(device=device).manual_seed(int(s))
@@ -679,6 +696,7 @@ def _sample_stratified(generator, ld, algorithm, Q, metric, eps, n_samples,
             for j in range(m):
                 Qg, stats = ops.transition(gens[g], algorithm, ld, metrics[g],
                                            Qg, group_eps[g], depth_limit=None)
+                count_transition("draws", stats.steps)
                 part.positions[idx, offset + j] = Qg.q
                 part.lds[idx, offset + j] = Qg.logdensity
                 stats_g.append(stats)
@@ -697,7 +715,7 @@ def _sample_stratified(generator, ld, algorithm, Q, metric, eps, n_samples,
             per_draw += part.per_draw
         done += m
         if log is not None:
-            _synchronize(Q.q)
+            _synchronize(Q.q, "stratified_log")
             elapsed = time.perf_counter() - t0
             log(f"sampling[stratified x{G}]: {done}/{n_samples} "
                 f"({elapsed:.1f}s, {done / max(elapsed, 1e-9):.1f} draws/s)")
@@ -771,8 +789,10 @@ def _min_bulk_ess(drawn: torch.Tensor, mesh) -> torch.Tensor:
     return broadcast_from(value, mesh)
 
 
-def _synchronize(x: torch.Tensor) -> None:
-    """Wait for the device that holds ``x`` (a timed log line)."""
+def _synchronize(x: torch.Tensor, site: str) -> None:
+    """Wait for the device that holds ``x`` (a timed log line), counted as
+    a host read at ``site``."""
+    host_read(site)
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
 
@@ -780,6 +800,7 @@ def _synchronize(x: torch.Tensor) -> None:
 def stepsize_message(eps) -> str:
     """The log line of a finished stepsize search (reads eps from the
     device): one chain's eps, or the range over a batch."""
+    host_read("stepsize_message")
     eps = torch.as_tensor(eps).detach().cpu()
     if eps.numel() == 1:
         return f"found initial stepsize eps={float(eps):.4g}"

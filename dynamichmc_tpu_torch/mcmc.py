@@ -27,6 +27,7 @@ from .hamiltonian import EvaluatedPoint
 from .logdensity import LogDensity, check_device
 from .metric import Metric
 from .nuts import NUTS, TreeStatistics
+from .profiling import host_read
 
 
 @dataclasses.dataclass
@@ -346,6 +347,7 @@ def _check_stepsize_search(history, mesh=None) -> None:
 
             l0, success, eps = (all_gather_chains(x, mesh)
                                 for x in (l0, success, eps))
+        host_read("search_check")
         l0 = l0.cpu()
         bad = torch.nonzero(~torch.isfinite(l0)).flatten()
         if bad.numel():
@@ -354,6 +356,7 @@ def _check_stepsize_search(history, mesh=None) -> None:
                 chains=bad.tolist(),
                 logdensity=l0[bad].tolist(),
             )
+        host_read("search_check")
         success = success.cpu()
         if not bool(success.all()):
             raise DynamicHMCError(

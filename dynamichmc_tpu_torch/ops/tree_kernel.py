@@ -19,7 +19,8 @@ use (ops/cuda_build.py) and called through a plain C entry point with
 batched driver (tree_batched.py) from the same injected noise with the
 leaf's torch value and gradient. A CUDA tensor launches the kernel or
 raises; nothing falls back. ``launches`` counts the kernel launches,
-``warp_launches`` those of the warp variant among them.
+``warp_launches`` those of the warp variant among them, ``declined`` the
+transitions the hook of :func:`make_tree_transition` declined, by reason.
 
 ``work`` differs between the two on purpose: the kernel reports each
 chain's own executed leaf count, the plain driver the lockstep count of the
@@ -39,6 +40,7 @@ from ..hamiltonian import EvaluatedPoint
 from ..logdensity import LogDensity
 from ..metric import DenseMetric, DiagonalMetric, Metric
 from ..nuts import NUTS
+from ..profiling import span
 from ..tree import TreeNoise
 from ..tree_batched import (
     depth_cap,
@@ -70,12 +72,20 @@ library = CudaLibrary("tree_kernel", {
 
 launches = 0  # kernel launches made by tree_transition
 warp_launches = 0  # the launches among them that ran the warp variant
+DECLINE_REASONS = ("dtype", "statistic", "per_chain_metric", "shape")
+declined = dict.fromkeys(DECLINE_REASONS, 0)  # the hooks' declines, by reason
 
 
 def reset_launches() -> None:
     global launches, warp_launches
     launches = 0
     warp_launches = 0
+    declined.update(dict.fromkeys(DECLINE_REASONS, 0))
+
+
+def _decline(reason: str) -> None:
+    """Count one declined transition; None is the hook's answer."""
+    declined[reason] += 1
 
 
 TILE_ROWS, STAGES = 32, 2  # the logreg leaf's tiles of X (kTileRows, kStages)
@@ -477,39 +487,43 @@ def make_tree_transition(leaf: Leaf, dim: int):
     are not float32, a turn statistic other than "generalized", a per-chain
     metric, or a K and max_depth that no variant takes (:func:`kernel_variant`:
     the CTA variant needs at most 1024 threads and 227 KB of shared memory,
-    whatever n_obs). Otherwise it draws
+    whatever n_obs), and counts each decline under its reason in
+    ``declined`` ("dtype", "statistic", "per_chain_metric", "shape").
+    Otherwise it draws
     the momenta, direction bits, Gumbel rows and Exponential rows with the
-    caller's generator on the chains' device and runs
-    :func:`tree_transition`.
+    caller's generator on the chains' device (span ``dhmc.noise``) and runs
+    :func:`tree_transition` (span ``dhmc.kernel``).
     """
     f32 = torch.float32
 
     def transition(generator: Optional[torch.Generator], algorithm: NUTS,
                    metric: Metric, Q: EvaluatedPoint, eps, depth_limit=None):
         if Q.q.dtype != f32:
-            return None
+            return _decline("dtype")
         if algorithm.turn_statistic_configuration != "generalized":
-            return None
+            return _decline("statistic")
         diag = isinstance(metric, DiagonalMetric)
         if metric.m_inv.ndim != (1 if diag else 2):
-            return None  # per-chain metric
+            return _decline("per_chain_metric")
         C, K = Q.q.shape
         md = algorithm.max_depth
         if K != dim or kernel_variant(leaf.kind, K, md, diag) is None:
-            return None
+            return _decline("shape")
         device = Q.q.device
-        p0 = rand_p_b(generator, metric, (C, K), f32)
-        dirs = random_directions(generator, C, device)
-        gum = gumbel_like(generator, ((1 << md) - 1, C), f32, device)
-        expo = exponential_like(generator, (md, C), f32, device)
-        eps_b = torch.as_tensor(eps, dtype=f32, device=device).expand(C)
-        raw = tree_transition(
-            Q.q.contiguous(), p0.contiguous(), Q.grad.contiguous(),
-            Q.logdensity.contiguous(), eps_b.contiguous(), dirs, gum, expo,
-            metric.m_inv.to(f32).contiguous(), leaf.to(device),
-            depth_cap(depth_limit, md), float(algorithm.min_delta), md,
-        )
-        return finish_transition(raw)
+        with span("dhmc.noise"):
+            p0 = rand_p_b(generator, metric, (C, K), f32)
+            dirs = random_directions(generator, C, device)
+            gum = gumbel_like(generator, ((1 << md) - 1, C), f32, device)
+            expo = exponential_like(generator, (md, C), f32, device)
+            eps_b = torch.as_tensor(eps, dtype=f32, device=device).expand(C)
+        with span("dhmc.kernel"):
+            raw = tree_transition(
+                Q.q.contiguous(), p0.contiguous(), Q.grad.contiguous(),
+                Q.logdensity.contiguous(), eps_b.contiguous(), dirs, gum,
+                expo, metric.m_inv.to(f32).contiguous(), leaf.to(device),
+                depth_cap(depth_limit, md), float(algorithm.min_delta), md,
+            )
+            return finish_transition(raw)
 
     transition.leaf = leaf  # the kernel's model
     return transition

@@ -26,6 +26,7 @@ from ..logdensity import LogDensity, check_device
 from ..mcmc import MCMCResult, _check_stepsize_search
 from ..metric import Metric, identity_metric, metric_is_batched
 from ..nuts import NUTS
+from ..profiling import CALL_SPAN, host_read, span, spanned
 from ..stepsize import PooledStepsize
 from .mesh import ChainMesh, all_gather_chains, all_sum, broadcast_from
 from ..warmup import (
@@ -68,17 +69,19 @@ def init_chain_states(
             raise ValueError(
                 f"q must have shape {(n_chains, ld.dim)}, got {tuple(q.shape)}"
             )
-    Q = evaluate(ld, q)
-    lds = Q.logdensity if mesh is None else all_gather_chains(Q.logdensity,
-                                                              mesh)
-    lds = lds.cpu()
-    bad = torch.nonzero(~torch.isfinite(lds)).flatten()
-    if bad.numel():
-        raise DynamicHMCError(
-            "Invalid log posterior at initial positions.",
-            chains=bad.tolist(),
-            logdensities=lds[bad].tolist(),
-        )
+    with span("dhmc.init"):
+        Q = evaluate(ld, q)
+        lds = (Q.logdensity if mesh is None
+               else all_gather_chains(Q.logdensity, mesh))
+        host_read("init_check")
+        lds = lds.cpu()
+        bad = torch.nonzero(~torch.isfinite(lds)).flatten()
+        if bad.numel():
+            raise DynamicHMCError(
+                "Invalid log posterior at initial positions.",
+                chains=bad.tolist(),
+                logdensities=lds[bad].tolist(),
+            )
     if metric is None:
         metric = identity_metric(ld.dim, dtype=dtype, device=device)
     if broadcast_metric and not metric_is_batched(metric):
@@ -93,6 +96,7 @@ def init_chain_states(
     return WarmupState(Q=Q, metric=metric, eps=eps)
 
 
+@spanned(CALL_SPAN)
 def run_chains(
     generator: torch.Generator,
     ld: LogDensity,
@@ -421,6 +425,7 @@ def _check_ranks(generator: torch.Generator, mesh: ChainMesh,
     row = torch.tensor([[_fingerprint(state),
                          -1 if resume is None else resume.stage]],
                        dtype=torch.int64, device=mesh.device)
+    host_read("mesh_ranks")
     rows = all_gather_chains(row, mesh).cpu()
     stages = rows[:, 1].tolist()
     if len(set(stages)) > 1:
@@ -516,6 +521,7 @@ def _warn_auto_cap(stats, auto_cap, log, mesh=None) -> None:
     hits = (stats.depth >= auto_cap).float().mean()
     if mesh is not None:
         hits = all_sum(hits.double(), mesh) / mesh.size
+    host_read("auto_cap")
     frac = float(hits)
     if log is not None and frac > CAP_SATURATION_WARN:
         log(f"autotune WARNING: {100 * frac:.0f}% of draws hit the "

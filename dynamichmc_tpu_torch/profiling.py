@@ -1,33 +1,192 @@
 """Performance tracing and transition benchmarks (port of
 ``dynamichmc_tpu.profiling``).
 
-``trace`` records a ``torch.profiler`` trace (the host's operators and,
-on a GPU, every kernel the card ran) and writes it as a Chrome trace,
-which ``chrome://tracing``, Perfetto or TensorBoard open. ``benchmark``
-times a callable with its first call apart from the steady state.
-``transition_throughput`` measures leapfrog gradient evaluations per
-second of one NUTS transition over a batch of chains: the package's own
-measure of its hot path. The numerical trajectory tracers live in
-diagnostics.py.
+``trace`` records a ``torch.profiler`` trace (the host's operators, the
+``dhmc.*`` spans of ``run_chains`` and, on a GPU, every kernel the card
+ran) and writes it as a Chrome trace, which ``chrome://tracing``,
+Perfetto or TensorBoard open. ``benchmark`` times a callable with its
+first call apart from the steady state. ``transition_throughput``
+measures leapfrog gradient evaluations per second of one NUTS transition
+over a batch of chains: the package's own measure of its hot path. The
+numerical trajectory tracers live in diagnostics.py.
+
+The program's spans and counters (:func:`span`, :func:`count_transition`,
+:func:`host_read`) are read through ``ops.launch_counts()``. With no
+torch.profiler session active a span is one shared no-op context: no
+clock read, no ``record_function``, no device operation and no host read.
+Under any profiler it adds its duration and one count to an aggregate by
+name and phase; only inside :func:`trace` does it also open a
+``record_function``, so that it lies on the profiler's timeline beside
+the kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import tempfile
 import time
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+
+CALL_SPAN = "dhmc.run_chains"
+PHASE_SPANS = {"dhmc.warmup": "warmup", "dhmc.draws": "draws"}
+# steps tensors kept a phase before they are summed into one, on their
+# device: a run's 900 warmup transitions stay far below it
+KEEP_LIMIT = 4096
+
+
+class _Record:
+    """What the program counted since ``ops.reset_launch_counts()``: one
+    per process, as the kernels' launch counts are. ``phase`` is the
+    innermost open phase span's ("call" outside both), ``mirror`` the
+    :func:`trace` contexts open, ``calls`` the ``dhmc.run_chains`` spans
+    drawn on a trace's timeline (their ordinal)."""
+
+    def __init__(self):
+        self.phase = "call"
+        self.mirror = 0
+        self.calls = 0
+        self.reset()
+
+    def reset(self) -> None:
+        self.transitions = {"warmup": 0, "draws": 0}
+        self.host_reads = {}
+        self.spans = {}  # name -> phase -> [count, ns]
+        self.kept = {}  # phase -> steps tensors (under a profiler only)
+
+
+_record = _Record()
+_NOOP = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "outer", "function", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.outer = _record.phase
+        _record.phase = PHASE_SPANS.get(self.name, self.outer)
+        self.function = None
+        if _record.mirror:
+            label = self.name
+            if label == CALL_SPAN:
+                _record.calls += 1
+                label = f"{CALL_SPAN}#{_record.calls}"
+            self.function = torch.profiler.record_function(label)
+            self.function.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.t0
+        if self.function is not None:
+            self.function.__exit__(*exc)
+        entry = _record.spans.setdefault(self.name, {}).setdefault(
+            _record.phase, [0, 0])
+        entry[0] += 1
+        entry[1] += ns
+        _record.phase = self.outer
+        return False
+
+
+def span(name: str):
+    """A context around one piece of the program named ``name``
+    (``dhmc.*``): the shared no-op context while no torch.profiler session
+    is active; else it adds its host-clock duration and one count to
+    ``name``'s aggregate under the enclosing phase (``warmup`` inside
+    ``dhmc.warmup``, ``draws`` inside ``dhmc.draws``, else ``call``), and
+    inside :func:`trace` opens ``torch.profiler.record_function(name)``
+    (``dhmc.run_chains#<n>`` for the n-th call on a trace's timeline)."""
+    if not _profiler_enabled():
+        return _NOOP
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorate a function so that each call runs inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+def count_transition(phase: str, steps: Optional[torch.Tensor] = None,
+                     n: int = 1) -> None:
+    """Count ``n`` batch transitions of ``phase`` ("warmup" or "draws").
+    Under a profiler, keep a reference to ``steps`` (the transition's
+    ``tree_statistics.steps``), summed only when the counts are read, so
+    the call itself adds no device operation and no host read."""
+    _record.transitions[phase] += n
+    if steps is None or not _profiler_enabled():
+        return
+    kept = _record.kept.setdefault(phase, [])
+    kept.append(steps)
+    if len(kept) >= KEEP_LIMIT:
+        kept[:] = [_steps_sum(kept)]
+
+
+def _steps_sum(kept) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in kept]).sum(dtype=torch.int64)
+
+
+def host_read(site: str) -> None:
+    """Count one read of a device value to the host, or one
+    synchronisation, at ``site`` (a short stable name). Counted on every
+    device, so a CPU run counts the reads the card would make."""
+    _record.host_reads[site] = _record.host_reads.get(site, 0) + 1
+
+
+def host_bool(site: str, flag: torch.Tensor) -> bool:
+    """``bool(flag)``, counted as a host read at ``site``."""
+    host_read(site)
+    return bool(flag)
+
+
+def reset_counts() -> None:
+    """Clear the counters, the span aggregates and the kept steps."""
+    _record.reset()
+
+
+def counts() -> dict:
+    """The counters since :func:`reset_counts`: ``transitions_warmup``,
+    ``transitions_draws`` and ``host_reads`` ({site: n}) always; where a
+    profiler was active, ``spans`` ({name: {phase: {"count", "ns"}}}) and
+    ``warmup_steps`` / ``draw_steps`` (the phase's leapfrog steps, summed
+    here: one host read)."""
+    out = {"transitions_warmup": _record.transitions["warmup"],
+           "transitions_draws": _record.transitions["draws"],
+           "host_reads": dict(_record.host_reads)}
+    if _record.spans:
+        out["spans"] = {
+            name: {phase: {"count": c, "ns": ns}
+                   for phase, (c, ns) in by_phase.items()}
+            for name, by_phase in _record.spans.items()}
+    for phase, key in (("warmup", "warmup_steps"), ("draws", "draw_steps")):
+        if _record.kept.get(phase):
+            out[key] = int(_steps_sum(_record.kept[phase]))
+    return out
 
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Capture a trace of everything inside the context; yields
     ``log_dir``, into which ``trace-<pid>-<ns>.json`` is written when the
-    context closes. The CUDA activity is recorded where a GPU is present:
+    context closes. The program's ``dhmc.*`` spans are drawn on its
+    timeline, nested as they ran, on the kernels' clock. The CUDA
+    activity is recorded where a GPU is present:
     the device is synchronised as the context opens and before it closes,
     and one small kernel of the trace's own runs before the body, so that
     a trace that recorded no kernel at all is known to have lost the
@@ -51,7 +210,11 @@ def trace(log_dir: Optional[str] = None):
     with torch.profiler.profile(activities=activities) as prof:
         if cuda:
             torch.zeros(1, device="cuda")  # a kernel every trace holds
-        yield log_dir
+        _record.mirror += 1
+        try:
+            yield log_dir
+        finally:
+            _record.mirror -= 1
         if cuda:
             torch.cuda.synchronize()  # the context's kernels end inside it
     path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")

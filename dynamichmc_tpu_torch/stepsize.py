@@ -18,6 +18,7 @@ import torch
 from .hamiltonian import PhasePoint, joint_logdensity, leapfrog
 from .logdensity import LogDensity
 from .metric import Metric
+from .profiling import host_bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +61,12 @@ def find_initial_stepsize(params: InitialStepsizeSearch, A, dtype=None,
     on the host, as the JAX package does)."""
     eps = torch.tensor(params.initial_eps, dtype=dtype, device=device)
     thr = params.log_threshold
-    double = bool(A(eps) > thr)
+    double = host_bool("chain_search", A(eps) > thr)
     found, it = False, 0
     while not found and it < params.maxiter_crossing:
         eps = eps * 2 if double else eps / 2
         a = A(eps)
-        found = bool(a < thr) if double else bool(a > thr)
+        found = host_bool("chain_search", a < thr if double else a > thr)
         it += 1
     return eps, torch.tensor(found, device=device)
 

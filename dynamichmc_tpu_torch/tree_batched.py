@@ -29,6 +29,7 @@ from .hamiltonian import EvaluatedPoint, evaluate
 from .logdensity import LogDensity
 from .metric import DiagonalMetric, Metric
 from .nuts import NUTS, AcceptanceStatistic, TreeStatistics, acceptance_rate
+from .profiling import host_bool
 from .tree import (
     TreeNoise,
     exponential_like,
@@ -396,7 +397,8 @@ def transition_raw(generator, algorithm: NUTS, ld: LogDensity,
             "inv_right": torch.zeros((C,), dtype=i32, device=device),
         }
         n = 0
-        while n < n_leaves and bool((a["building"] & engaged).any()):
+        while n < n_leaves and host_bool("leaf_loop",
+                                         (a["building"] & engaged).any()):
             z, pi, sp = _leaf(ld, metric, ops, a["z"], eps_signed)
             i_new = i_edge + step * (n + 1)
             delta = pi - pi0
@@ -467,7 +469,8 @@ def transition_raw(generator, algorithm: NUTS, ld: LogDensity,
         "term_right": torch.zeros((C,), dtype=i32, device=device),
     }
     d = 0
-    while d < d_cap and bool((~c["terminated"]).any()):
+    while d < d_cap and host_bool("doubling_loop",
+                                  (~c["terminated"]).any()):
         is_fwd = ((directions >> d) & 1) == 1
         engaged = ~c["terminated"]
         z_edge = _where_edge(is_fwd, c["z_plus"], c["z_minus"])

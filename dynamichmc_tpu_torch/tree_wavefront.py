@@ -49,6 +49,7 @@ from .hamiltonian import EvaluatedPoint
 from .logdensity import LogDensity
 from .metric import Metric
 from .nuts import NUTS, AcceptanceStatistic, acceptance_rate
+from .profiling import host_bool
 from .tree import exponential_like, gumbel_like
 from .tree_batched import (
     _Edge,
@@ -437,7 +438,7 @@ def make_wavefront_stage_driver(
             return any_live
 
         def live() -> bool:
-            return bool((c["t"] < n_steps).any())
+            return host_bool("wavefront_live", (c["t"] < n_steps).any())
 
         def run_slots(g: int, g_end_at: int, g_last):
             """Slots g..g_end_at - 1, stopping early once every lane is

@@ -62,6 +62,7 @@ from .tree_batched import (
     rand_p_b,
     random_directions,
 )
+from .profiling import host_bool
 from .tree_wavefront import _trailing_ones, merge_run
 
 EPOCH = 8
@@ -445,7 +446,7 @@ def make_epoch_sampling_driver(ld: LogDensity, algorithm: NUTS,
         g = int(c["g"])
         g_last = torch.tensor(g, dtype=torch.int64, device=device)
         epochs = 0
-        done = int(c["flushed"]) >= T
+        done = host_bool("epoch_done", c["flushed"] >= T)
         while g < stop and not done:
             live = c["flushed"] < T  # the JAX loop's condition, on the device
             for r in range(EPOCH):
@@ -455,8 +456,8 @@ def make_epoch_sampling_driver(ld: LogDensity, algorithm: NUTS,
             g_last = torch.where(live, g, g_last)
             epochs += 1
             if epochs % CHECK_EPOCHS == 0:
-                done = int(c["flushed"]) >= T
-        done = int(c["flushed"]) >= T
+                done = host_bool("epoch_done", c["flushed"] >= T)
+        done = host_bool("epoch_done", c["flushed"] >= T)
         c["g"] = int(g_last) if done else g
         return c, done
 

@@ -23,6 +23,7 @@ from .errors import DynamicHMCError
 from .hamiltonian import EvaluatedPoint, evaluate, evaluate_strict
 from .logdensity import LogDensity, check_device
 from .metric import Metric, dense_metric, diagonal_metric, identity_metric
+from .profiling import span, spanned
 from .stepsize import (
     DualAveraging,
     FixedStepsize,
@@ -229,11 +230,12 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
             raise DynamicHMCError(
                 "stepsize eps manually specified, won't perform initial search"
             )
-        ops = chain_ops(algorithm, batched)
-        eps, success, l0 = ops.make_search(ld, stage)(generator, state.Q,
-                                                      state.metric)
-        if log is not None:
-            log(stepsize_message(eps))
+        with span("dhmc.search"):
+            ops = chain_ops(algorithm, batched)
+            eps, success, l0 = ops.make_search(ld, stage)(generator, state.Q,
+                                                          state.metric)
+            if log is not None:
+                log(stepsize_message(eps))
         return ({"eps": eps, "success": success, "l0": l0},
                 WarmupState(Q=state.Q, metric=state.metric, eps=eps))
     if not isinstance(stage, TuningNUTS):
@@ -252,16 +254,18 @@ def warmup_stage(generator: torch.Generator, ld: LogDensity, algorithm,
         if not batched or collect:
             raise ValueError("the wavefront warmup runs a (C, K) batch and "
                              "records no per-step results")
-        Q, metric, eps = run_block_wavefront(
-            generator, ld, algorithm, stage, state.Q, metric, state.eps,
-            depth_clamp=depth_clamp, clamp_steps=clamp_steps, mesh=mesh)
+        with span("dhmc.stage"):
+            Q, metric, eps = run_block_wavefront(
+                generator, ld, algorithm, stage, state.Q, metric, state.eps,
+                depth_clamp=depth_clamp, clamp_steps=clamp_steps, mesh=mesh)
         return {}, WarmupState(Q=Q, metric=metric, eps=eps)
-    Q, metric, eps, results = run_block(
-        generator, ld, algorithm, stage, state.Q, metric, state.eps,
-        ops=chain_ops(algorithm, batched, stage.pooled),
-        collect=collect, collect_positions=collect_positions,
-        reporter=reporter, depth_clamp=depth_clamp, clamp_steps=clamp_steps,
-        mesh=mesh)
+    with span("dhmc.stage"):
+        Q, metric, eps, results = run_block(
+            generator, ld, algorithm, stage, state.Q, metric, state.eps,
+            ops=chain_ops(algorithm, batched, stage.pooled),
+            collect=collect, collect_positions=collect_positions,
+            reporter=reporter, depth_clamp=depth_clamp,
+            clamp_steps=clamp_steps, mesh=mesh)
     if not collect:
         results = {}
     elif not collect_stats:
@@ -298,6 +302,7 @@ def _check_resume(stages, starts, resume, state) -> None:
             "not a stage boundary of this schedule")
 
 
+@spanned("dhmc.warmup")
 def run_warmup(generator: torch.Generator, ld: LogDensity, algorithm,
                stages: Tuple[WarmupStage, ...], state: WarmupState,
                collect_positions: bool = False, collect_stats: bool = True,
