@@ -32,7 +32,10 @@ Phases (each one that fails ends the script with a non-zero exit code):
        float64's discrete statistics (compare_kernel_plain's ``ties``);
      - the tree kernel with the logreg leaf: 2048 chains, K = 128,
        n_obs = 4000, max_depth 4, diagonal metric = the Laplace posterior
-       variances, start at draws of the Laplace approximation;
+       variances, start at draws of the Laplace approximation; then at the
+       benchmark's 1000 x 25 on 16,384 chains, diagonal and dense metric,
+       where each launch must take the staged-X variant (X staged once per
+       CTA, one warp per chain);
      - the fused logreg leaf at 2048 x 128 x 4000 with a shared diagonal,
        a per-chain diagonal and a shared dense metric, and the same at
        K = 300 (the gradient in two chunks of coordinates);
@@ -53,6 +56,10 @@ Phases (each one that fails ends the script with a non-zero exit code):
        NUTS(max_depth=7), tree kernel; timed;
      - logreg_tree: logistic_regression(4000, 128), diagonal metric, 2048
        chains, NUTS(max_depth=4), tree kernel; timed;
+     - logreg_xstaged: logistic_regression(1000, 25), the benchmark's
+       logreg_1000x25.fleet16k shape, diagonal metric, 16,384 chains,
+       NUTS(max_depth=4), every launch through the tree kernel's staged-X
+       variant; timed;
      - logreg_fused: the same model with the fused leaf in the plain
        driver; timed.
      Then BASELINE config 1, N(0, I_25) = mvnormal(0, I, fused=True), with
@@ -146,7 +153,8 @@ Phases (each one that fails ends the script with a non-zero exit code):
      slices S, registers, shared memory and CTAs per SM; the Gaussian and
      funnel tree kernels' their variant and plan: warps per CTA,
      registers, shared memory, CTAs per SM and resident warps per SM (the
-     funnel's beside the CTA variant's plan at the same shape).
+     funnel's beside the CTA variant's plan at the same shape); the logreg
+     leaf's staged-X variant at 16,384 x 25 x 1000, md 4, its own.
   6. Protocol: two gates of the reference's statistical protocol
      (tests/torch_correctness_utils.py: split R-hat, ESS per draw,
      Anderson-Darling against exact draws, EBFMI, at the JAX gates'
@@ -243,6 +251,8 @@ C_MAIN, K_MAIN, MD_MAIN, N_DRAWS = 4096, 100, 4, 512
 K_CTA = 129  # the Gaussian and funnel leaves one past the warp variant, phase 3
 C_FUNNEL, K_FUNNEL, MD_FUNNEL = 4096, 25, 7
 C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
+# the logreg leaf's staged-X variant at the benchmark's shape, phases 3, 5
+C_XSTAGED, K_XSTAGED, N_XSTAGED = 16384, 25, 1000
 K_WIDE = 300  # the fused logreg leaf past 256 coordinates, phase 3
 C_GAUSS, K_GAUSS = 4096, 25  # BASELINE config 1 under the fleet
 N_PER_CHAIN, PER_CHAIN_SEEDS = 1000, (0, 1, 2, 3)
@@ -386,8 +396,8 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen, expect,
                          ties=False):
     """Phase 3 for one tree-kernel configuration, on the same injected
     noise:
-    - kernel_variant names ``expect`` ("warp" or "cta") for the shape, and
-      the launch takes it;
+    - kernel_variant names ``expect`` ("warp", "xstaged" or "cta") for the
+      shape, and the launch takes it;
     - depth, steps, term_left, term_right and the proposal's leaf of the
       trajectory (ops/proposal_leaf.py) match on >= 99.9% of chains
       (summation orders differ, so a U-turn or Gumbel decision can flip
@@ -423,10 +433,11 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen, expect,
     from dynamichmc_tpu_torch.ops.proposal_leaf import proposal_offsets
 
     args = kernel_inputs(model, C, md, kind, dcap, gen)
-    warp0 = tree_kernel.warp_launches
+    warp0, xs0 = tree_kernel.warp_launches, tree_kernel.xstaged_launches
     out = tree_kernel.tree_transition(*args)
     again = tree_kernel.tree_transition(*args)
     warp_runs = tree_kernel.warp_launches - warp0
+    xs_runs = tree_kernel.xstaged_launches - xs0
     ref = tree_kernel.tree_transition_plain(*args)
     ref64 = tree_kernel.tree_transition_plain(*_as64(args))
     leaf_k, leaf_32, leaf_64 = proposal_offsets(
@@ -447,18 +458,22 @@ def compare_kernel_plain(name, model, C, md, kind, dcap, gen, expect,
             differ |= out_x[stat] != ref64[stat]
         off64[who] = int(differ.sum())
     variant = tree_kernel.kernel_variant(args[9].kind, model.dim, md,
-                                         kind == "diag")
+                                         kind == "diag", args[9].n_obs)
     result = {"config": f"{name} K={model.dim} {kind} dcap={dcap}", "chains": C,
               "mismatched_chains": mismatch, "matching_fraction": frac,
               "chains_off_float64": off64,
               "divergent_chains": int((ref["prop_pi"] == -torch.inf).sum()),
-              "variant": variant, "warp_variant_launches": warp_runs}
+              "variant": variant, "warp_variant_launches": warp_runs,
+              "xstaged_variant_launches": xs_runs}
     fails = []
     want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
     want(variant == expect, f"{result['config']}: the shape's variant is "
                             f"{variant}, expected {expect}")
     want(warp_runs == (2 if variant == "warp" else 0),
          f"{result['config']}: {warp_runs} of 2 launches took the warp "
+         f"variant, the shape's is {variant}")
+    want(xs_runs == (2 if variant == "xstaged" else 0),
+         f"{result['config']}: {xs_runs} of 2 launches took the staged-X "
          f"variant, the shape's is {variant}")
     if ties:
         allowed = 2 * off64["plain_f32"] + int(0.001 * C)
@@ -1590,6 +1605,13 @@ def build_all(dev):
     spilled = {f"{k}": u["spill"] for k, u in warp.items()
                if "0 bytes spill stores, 0 bytes spill loads" not in u["spill"]}
     check(not spilled, f"the warp variant spills: {spilled}")
+    staged = {k: u for k, u in usage.items() if k[0] == "xstaged"}
+    for key, u in sorted(staged.items()):
+        metric = "diag" if key[1] else "dense"
+        log(f"[2 build] tree_transition_kernel_xstaged {metric} R={key[2]}: "
+            f"{u['usage']}; {u['spill']}")
+    check(len(staged) == 8, f"ptxas reported {len(staged)} staged-X "
+                            "instantiations, expected 8")
     funnel_regs = {
         "cta": {("diag" if k[1] else "dense"): u["registers"]
                 for k, u in usage.items()
@@ -1652,14 +1674,17 @@ def ptxas_usage(build_log, key_of):
 
 def tree_kernel_usage(build_log):
     """ptxas_usage of each instantiation of the tree kernel, keyed ("warp",
-    diag, leaf, R) for the warp variant and ("cta", diag, leaf) for
+    diag, leaf, R) for the warp variant, ("xstaged", diag, R) for the
+    logreg leaf's staged-X variant and ("cta", diag, leaf) for
     tree_transition_kernel (the wide one is not read)."""
     warp_re = re.compile(r"tree_transition_warp_kernelILb([01])ELi(\d+)ELi(\d+)EE")
+    xs_re = re.compile(r"tree_transition_kernel_xstagedILb([01])ELi(\d+)EE")
     cta_re = re.compile(r"tree_transition_kernelILb([01])ELi(\d+)EE")
 
     def key_of(name):
-        m, c = warp_re.search(name), cta_re.search(name)
+        m, x, c = (r.search(name) for r in (warp_re, xs_re, cta_re))
         return (("warp", m[1] == "1", int(m[2]), int(m[3])) if m else
+                ("xstaged", x[1] == "1", int(x[2])) if x else
                 ("cta", c[1] == "1", int(c[2])) if c else None)
 
     return ptxas_usage(build_log, key_of)
@@ -2454,12 +2479,12 @@ def main():
     return 0
 
 
-PATHS = ("main", "funnel", "logreg_tree", "logreg_fused", "gauss_fused",
-         "per_chain")
+PATHS = ("main", "funnel", "logreg_tree", "logreg_xstaged", "logreg_fused",
+         "gauss_fused", "per_chain")
 
 
 def profiled_paths(argv):
-    """The paths --profile names (all six for a bare --profile)."""
+    """The paths --profile names (all seven for a bare --profile)."""
     names = ()
     for arg in argv:
         if arg == "--profile":
@@ -2484,6 +2509,8 @@ def run_phases(dev, smi, profile=()):
     gauss = correlated_gaussian(K_MAIN, dtype=torch.float32, device=dev,
                                 tree_kernel=True)
     fun = funnel(K_FUNNEL, dtype=torch.float32, device=dev, tree_kernel=True)
+    lr_staged = logistic_regression(N_XSTAGED, K_XSTAGED, dtype=torch.float32,
+                                    device=dev, tree_kernel=True)
     lr_tree = logistic_regression(N_OBS, K_LOGREG, dtype=torch.float32,
                                   device=dev, tree_kernel=True)
     lr_fused = logistic_regression(N_OBS, K_LOGREG, dtype=torch.float32,
@@ -2497,7 +2524,8 @@ def run_phases(dev, smi, profile=()):
                                    fused=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     phase3 = {"gaussian": [], "gaussian_cta": [], "funnel": [],
-              "funnel_cta": [], "logreg_tree": [], "logreg_fused": [],
+              "funnel_cta": [], "logreg_tree": [], "logreg_xstaged": [],
+              "logreg_fused": [],
               "gaussian_leaf": [], "gaussian_leapfrog": []}
 
     def phase3_result(key, r):
@@ -2524,6 +2552,13 @@ def run_phases(dev, smi, profile=()):
             ties=True))
     phase3_result("logreg_tree", compare_kernel_plain(
         "logreg", lr_tree, C_LOGREG, MD_LOGREG, "diag", MD_LOGREG, gen, "cta"))
+    # from a generator of their own, so that no later configuration's
+    # inputs depend on them
+    gen_xs = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for kind in ("diag", "dense"):
+        phase3_result("logreg_xstaged", compare_kernel_plain(
+            "logreg", lr_staged, C_XSTAGED, MD_LOGREG, kind, MD_LOGREG, gen_xs,
+            "xstaged"))
     for model in (lr_fused, lr_wide):
         for kind in ("shared_diag", "chain_diag", "shared_dense"):
             phase3_result("logreg_fused",
@@ -2572,6 +2607,10 @@ def run_phases(dev, smi, profile=()):
         "main": (gauss, C_MAIN, main_path_config()),
         "funnel": (fun, C_FUNNEL, path_config("diagonal", MD_FUNNEL)),
         "logreg_tree": (lr_tree, C_LOGREG, path_config("diagonal", MD_LOGREG)),
+        # the benchmark's logreg_1000x25.fleet16k shape, through K1's
+        # staged-X variant
+        "logreg_xstaged": (lr_staged, C_XSTAGED,
+                           path_config("diagonal", MD_LOGREG)),
         "logreg_fused": (lr_fused, C_LOGREG, path_config("diagonal", MD_LOGREG)),
         # BASELINE config 1 under the fleet: the reference-default warmup
         "gauss_fused": (normal, C_GAUSS, {"tune": "reference"}),
@@ -2614,6 +2653,11 @@ def run_phases(dev, smi, profile=()):
         check(counts["tree_transition_warp"] == want_warp,
               f"{name}: the warp variant launched {counts['tree_transition_warp']} "
               f"times, expected {want_warp}")
+        # and the staged-X variant every launch of logreg_xstaged alone
+        want_xs = counts["tree_transition"] if name == "logreg_xstaged" else 0
+        check(counts["tree_transition_xstaged"] == want_xs,
+              f"{name}: the staged-X variant launched "
+              f"{counts['tree_transition_xstaged']} times, expected {want_xs}")
         if name == "main":
             metrics = check_draws(model, res, seconds)
         elif name == "funnel":
@@ -2704,6 +2748,12 @@ def run_phases(dev, smi, profile=()):
     times["logreg_tree"] = (time_call(tree_kernel.tree_transition, args, 5),
                             time_call(tree_kernel.tree_transition_plain, args, 3))
     bounds["logreg_tree"] = tree_kernel_bound(args)
+    args = kernel_inputs(lr_staged, C_XSTAGED, MD_LOGREG, "diag", MD_LOGREG,
+                         gen_xs)
+    times["logreg_xstaged"] = (
+        time_call(tree_kernel.tree_transition, args, 20),
+        time_call(tree_kernel.tree_transition_plain, args, 3))
+    bounds["logreg_xstaged"] = tree_kernel_bound(args)
     args = fused_leaf_inputs(lr_fused, C_LOGREG, "shared_diag", gen)
     times["logreg_fused"] = (time_call(logreg_leaf.logreg_leaf, args, 50),
                              time_call(logreg_leaf.logreg_leaf_plain, args, 50))
@@ -2723,9 +2773,14 @@ def run_phases(dev, smi, profile=()):
         plans[name] = {"variant": variant, **both[variant]}
         if name == "funnel":
             plans[name]["cta_variant_plan"] = both["cta"]
+    plans["logreg_xstaged"] = {"variant": "xstaged", **plan_dict(
+        tree_kernel.xstaged_kernel_info(dev, K_XSTAGED, MD_LOGREG, N_XSTAGED,
+                                        True))}
     shapes = {"gaussian": [C_MAIN, K_MAIN, MD_MAIN, "dense"],
               "funnel": [C_FUNNEL, K_FUNNEL, MD_FUNNEL, "diag"],
               "logreg_tree": [C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG, "diag"],
+              "logreg_xstaged": [C_XSTAGED, K_XSTAGED, N_XSTAGED, MD_LOGREG,
+                                 "diag"],
               "logreg_fused": [C_LOGREG, K_LOGREG, N_OBS, "shared_diag"]}
     device_times = {}
     models = {K_GAUSS: normal, K_MAIN: gauss100,
@@ -2797,6 +2852,8 @@ def run_phases(dev, smi, profile=()):
         ("tree_transition_funnel", "funnel", "funnel",
          "dynamichmc_tpu/ops/pallas_tree.py:707", "tree_kernel.cu"),
         ("tree_transition_logreg", "logreg_tree", "logreg_tree",
+         "dynamichmc_tpu/ops/pallas_tree.py:762", "tree_kernel.cu"),
+        ("tree_transition_logreg_xstaged", "logreg_xstaged", "logreg_xstaged",
          "dynamichmc_tpu/ops/pallas_tree.py:762", "tree_kernel.cu"),
         ("logreg_fused_leaf", "logreg_fused", "logreg_fused",
          "dynamichmc_tpu/ops/pallas_logreg.py:53", "logreg_leaf.cu"),

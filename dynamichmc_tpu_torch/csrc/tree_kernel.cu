@@ -10,11 +10,14 @@
 // delta < min_delta, InvalidTree termination positions, the biased doubling
 // combine with Exponential noise, and the runtime depth cap dcap.
 //
-// Two variants, chosen by shape alone (tree_transition_f32): the Gaussian
+// Three variants, chosen by shape alone (tree_transition_f32): the Gaussian
 // and funnel leaves run tree_transition_warp_kernel, one warp per chain
 // (below, before warp_plan), wherever warp_plan gives them a warp (K <= 128,
-// the staged matrices leaving room for one warp's merge stack); every other
-// launch runs the CTA variant described here.
+// the staged matrices leaving room for one warp's merge stack); the logreg
+// leaf runs tree_transition_kernel_xstaged, the same tree control with all
+// of X staged once per CTA (below, before xstaged_plan), wherever
+// xstaged_plan fits X, y and the per-warp regions of kXsMinWarps warps
+// (K <= 128); every other launch runs the CTA variant described here.
 //
 // Design. One CTA per chain, one thread per coordinate (blockDim =
 // round_up(K, 32)). Thread j keeps coordinate j of every per-chain vector
@@ -135,8 +138,9 @@
 //   tree_transition_kernel_wide, held to 64 registers (the logreg leaf
 //   then spills 72 bytes, 160 with the tiles read in place).
 //   One chain per CTA remains, because the tree control is per chain, so
-//   every chain streams its own copy of X. Several chains per CTA sharing
-//   each tile (lockstep), cluster multicast of the tiles and tensor cores
+//   every chain streams its own copy of X. Where all of X fits in a CTA's
+//   shared memory the staged-X variant reads it from L2 once per CTA
+//   instead; for a wider X, cluster multicast of the tiles and tensor cores
 //   with an fp32-exact split are later work.
 // Tensor cores (wgmma) and reuse of one matrix load across several chains
 // (lockstep) are left to later work. Products are plain fp32 FMAs; no TF32
@@ -737,7 +741,9 @@ __global__ void __launch_bounds__(1024, 1) tree_transition_kernel_wide(
 // takes d/dv. Each doubling loads its Exponential as it starts and each
 // leaf the Gumbel of the next one, so that no noise load waits on the
 // leaf's serial path. At K <= 32 every sum runs in the CTA variant's order,
-// so the funnel's two variants give bitwise the same transition there.
+// so the funnel's two variants give bitwise the same transition there. The
+// kernel's body (warp_tree_transitions) also runs the logreg leaf's
+// staged-X variant, tree_transition_kernel_xstaged (below).
 
 constexpr int kWarpMaxR = 4;  // K <= 128
 
@@ -880,9 +886,205 @@ __device__ __forceinline__ void stage_matrix(float* dst, const float* __restrict
 // starts 16 bytes aligned.
 __host__ __device__ __forceinline__ int padded_kk(int K) { return (K * K + 3) & ~3; }
 
+// --- The logreg leaf with X staged once per CTA, one warp per chain --------
+//
+// tree_transition_kernel_xstaged<DIAG, R> runs the logreg leaf's transition
+// for K <= 32 R coordinates with the warp variant's body
+// (warp_tree_transitions: one chain per warp from the queue, lane l keeping
+// coordinates l + 32 s) wherever xstaged_plan fits all of X in the CTA's
+// shared memory; every other logreg launch runs the CTA variant. X is the
+// same for every chain, so the CTA copies X, y and the dense M^-1 into
+// shared memory once and crosses its only barrier: at n_obs 1000, K 25 the
+// CTAs of a launch read 15 MB of X from L2, where the CTA variant reads X
+// once per chain-leaf (13.3 GB a 16,384-chain draws launch). X and y lie
+// after the per-warp regions, so that the body's other pointers are the
+// warp variant's.
+// The leaf (xstaged_logreg_leaf) gives rows to lanes: G = xs_lanes(R)
+// lanes per row (1 at K <= 32), 32 / G rows a warp step. Lane g of a row
+// reads its float4 chunks c G + g of the staged row once, forms the row's
+// partial logit against q (those columns of q, in registers) in four
+// interleaved partial sums and adds the G partials by xor shuffles. Then
+// one exponential e = exp(-|l|) (expf, as the CTA leaf's softplus) gives
+// both y l - softplus(l) = y l - max(l, 0) - log1p(e) (lane g = 0 only)
+// and the residual r = y - sigmoid(l), sigmoid(l) = (l >= 0 ? 1 : e) /
+// (1 + e) (stable at both tails, as the CTA leaf's tanh form), and the
+// lane adds r x into its own gradient partials. The division is
+// __fdividef, within 2 ulp for a divisor in [2^-126, 2^126], and 1 + e
+// lies in [1, 2]. expf and
+// log1pf stay the accurate ones: the fast exponential's error grows with
+// |l|, and the card's fast logarithm, summed over 1911 rows, put log_sum
+// 1.19 times the GPU tests' float64 allowance from float64. A lane sums
+// kXsBlockRows of its rows plainly, then adds the block into its running
+// ll and gradient sums compensated (kahan_add). After the last row one xor butterfly per column
+// over the lanes of one part (fixed order) gives the column's sum; lanes
+// 0..G-1 publish the gradient in the warp's staging vector, and lane l
+// reads its coordinates back. A staged row is xs_stride floats long: G
+// chunks more where each lane's chunk count is even, so that the 8 lanes of
+// each quarter-warp phase of a 128-bit load (8 / G rows) read 8 distinct
+// 16-byte bank groups. Products are fp32 FMAs, no TF32; every sum runs in a
+// fixed order, so a launch is deterministic whichever warp takes a chain.
+
+constexpr int kXsWarps = 8;      // warps per CTA at most: its launch bounds, one CTA per SM
+constexpr int kXsMinWarps = 4;   // fewer fit beside X and the launch takes the CTA variant
+constexpr int kXsBlockRows = 16;  // a lane's rows summed plainly before each compensated add
+
+// Lanes per row of X by R, and float4 chunks of a row a lane reads at most:
+// at most 32 columns of q and of each gradient sum a lane.
+__host__ __device__ constexpr int xs_lanes(int R) { return R == 1 ? 1 : R == 4 ? 8 : 4; }
+__host__ __device__ constexpr int xs_max_chunks(int R) { return 8 * R / xs_lanes(R); }
+
+// Chunks of a row each of its G lanes reads: ceil(ceil(K / 4) / G).
+__host__ __device__ __forceinline__ int xs_chunks(int K, int G) {
+  return ((K + 3) / 4 + G - 1) / G;
+}
+
+// Floats between two staged rows: 4 G n for n chunks a lane, n made odd.
+__host__ __device__ __forceinline__ int xs_stride(int K, int G) {
+  return 4 * G * (xs_chunks(K, G) | 1);
+}
+
+// Copy the chunks of X's rows that lanes read (zero past X's KX columns)
+// to s_x at xs_stride, and y after them, with every thread of the CTA.
+template <int R>
+__device__ __forceinline__ void stage_xy(float* s_x, const Model& model, int K) {
+  constexpr int G = xs_lanes(R);
+  const int n_obs = model.n_obs;
+  const int KS = xs_stride(K, G);
+  float* s_y = s_x + n_obs * KS;
+  const int row4 = G * xs_chunks(K, G), kx4 = (K + 3) >> 2;
+  const float4* X4 = reinterpret_cast<const float4*>(model.m0);
+  for (int t = threadIdx.x; t < n_obs * row4; t += blockDim.x) {
+    const int i = t / row4, k = t - i * row4;
+    reinterpret_cast<float4*>(s_x + i * KS)[k] =
+        k < kx4 ? __ldg(X4 + i * kx4 + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < n_obs; i += blockDim.x) s_y[i] = __ldg(model.m1 + i);
+}
+
+// logreg: where X's rows begin, after the dense M^-1 and every warp's region
+// of merge stack and staging vector; y follows X.
+template <bool DIAG, int R>
+__device__ __forceinline__ float* xs_rows(float* smem, int K, int S) {
+  return smem + warp_matrices(kLogreg, DIAG) * padded_kk(K) +
+         (blockDim.x >> 5) * (kNumStats * S + 1) * 32 * R;
+}
+
+// The logreg leaf's value and gradient at q_new (lane l's coordinates
+// l + 32 s, 0 past K) from X staged at s_x and y after it, for one warp;
+// see above. g_new: the lane's gradient coordinates; bad: set where one is
+// not finite.
+template <int R>
+__device__ __forceinline__ void xstaged_logreg_leaf(const float (&q_new)[R], float (&g_new)[R],
+                                                    float& ld_new, bool& bad, const float* s_x,
+                                                    float* xbuf, const Model& model, int K,
+                                                    int lane, bool own_last) {
+  constexpr int G = xs_lanes(R);
+  constexpr int NCH = xs_max_chunks(R);
+  constexpr int kStepRows = 32 / G;
+  const int n_obs = model.n_obs;
+  const int nch = xs_chunks(K, G);
+  const int KS = xs_stride(K, G);
+  const float* s_y = s_x + n_obs * KS;
+  const int g = lane % G;      // the lane's part of its row
+  const int rlane = lane / G;  // the lane's row in a step
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncwarp();  // earlier readers of xbuf are done
+#pragma unroll
+  for (int s = 0; s < R; ++s) xbuf[lane + 32 * s] = q_new[s];
+  __syncwarp();
+  const float4* xbuf4 = reinterpret_cast<const float4*>(xbuf);
+  float4 q[NCH], gs[NCH], gc[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    q[c] = c < nch ? xbuf4[c * G + g] : zero4;
+    gs[c] = gc[c] = zero4;
+  }
+  // Running sums, compensated: a plain float32 running sum of the
+  // likelihood terms lost enough of ld to flip proposals at 60,001 rows
+  // (measured on the H100)
+  float ll = 0.f, ll_c = 0.f;
+  for (int i0 = 0; i0 < n_obs; i0 += kXsBlockRows * kStepRows) {
+    float bl = 0.f;
+    float4 gb[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) gb[c] = zero4;
+    for (int b = 0; b < kXsBlockRows && i0 + b * kStepRows < n_obs; ++b) {
+      const int i = i0 + b * kStepRows + rlane;
+      const bool valid = i < n_obs;
+      const float4* row = reinterpret_cast<const float4*>(s_x + i * KS) + g;
+      // the row's chunks, all loads ahead of the products (zero past nch)
+      float4 x[NCH];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) x[c] = valid && c < nch ? row[c * G] : zero4;
+      float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        l0 = fmaf(x[c].x, q[c].x, l0);
+        l1 = fmaf(x[c].y, q[c].y, l1);
+        l2 = fmaf(x[c].z, q[c].z, l2);
+        l3 = fmaf(x[c].w, q[c].w, l3);
+      }
+      float l = (l0 + l1) + (l2 + l3);
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      const float yi = valid ? s_y[i] : 0.f;
+      const float e = expf(-fabsf(l));
+      if (valid && g == 0) bl += yi * l - (fmaxf(l, 0.f) + log1pf(e));
+      const float r = valid ? yi - __fdividef(l >= 0.f ? 1.f : e, 1.f + e) : 0.f;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        gb[c].x = fmaf(x[c].x, r, gb[c].x);
+        gb[c].y = fmaf(x[c].y, r, gb[c].y);
+        gb[c].z = fmaf(x[c].z, r, gb[c].z);
+        gb[c].w = fmaf(x[c].w, r, gb[c].w);
+      }
+    }
+    kahan_add(ll, ll_c, bl);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      kahan_add(gs[c].x, gc[c].x, gb[c].x);
+      kahan_add(gs[c].y, gc[c].y, gb[c].y);
+      kahan_add(gs[c].z, gc[c].z, gb[c].z);
+      kahan_add(gs[c].w, gc[c].w, gb[c].w);
+    }
+  }
+  // each column's sum over the lanes of its part, the likelihood's over the
+  // warp: xor butterflies, so every lane holds the same bits
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int o = G; o < 32; o <<= 1) {
+      gs[c].x += __shfl_xor_sync(0xffffffffu, gs[c].x, o);
+      gs[c].y += __shfl_xor_sync(0xffffffffu, gs[c].y, o);
+      gs[c].z += __shfl_xor_sync(0xffffffffu, gs[c].z, o);
+      gs[c].w += __shfl_xor_sync(0xffffffffu, gs[c].w, o);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ll += __shfl_xor_sync(0xffffffffu, ll, o);
+  __syncwarp();  // every lane has read q from xbuf
+  if (rlane == 0) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      if (c < nch) reinterpret_cast<float4*>(xbuf)[c * G + g] = gs[c];
+    }
+  }
+  __syncwarp();
+  float sq[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const bool own = s < R - 1 || own_last;
+    g_new[s] = own ? xbuf[lane + 32 * s] - model.s0 * q_new[s] : 0.f;
+    sq[s] = q_new[s] * q_new[s];
+    bad |= !isfinite(g_new[s]);
+  }
+  ld_new = ll + (-0.5f * model.s0 * warp_sum<R>(sq));
+}
+
+// The body of tree_transition_warp_kernel (LEAF kGaussian or kFunnel) and
+// of tree_transition_kernel_xstaged (kLogreg).
 template <bool DIAG, int LEAF, int R>
-__global__ void __launch_bounds__(32 * warp_max_warps(LEAF, R), warp_min_ctas(LEAF, R))
-    tree_transition_warp_kernel(
+__device__ __forceinline__ void warp_tree_transitions(
     const float* __restrict__ q0_, const float* __restrict__ p0_,
     const float* __restrict__ g0_, const float* __restrict__ ld0_,
     const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
@@ -908,7 +1110,8 @@ __global__ void __launch_bounds__(32 * warp_max_warps(LEAF, R), warp_min_ctas(LE
     stage_matrix(s_prec, model.m0, K * K);
     stage_matrix(s_chol, model.m1, K * K);
   }
-  if constexpr (warp_matrices(LEAF, DIAG) > 0) {
+  if constexpr (LEAF == kLogreg) stage_xy<R>(xs_rows<DIAG, R>(smem, K, S), model, K);
+  if constexpr (warp_matrices(LEAF, DIAG) > 0 || LEAF == kLogreg) {
     if (!DIAG) stage_matrix(s_minv, minv, K * K);
     __syncthreads();  // the CTA's only barrier
   }
@@ -1062,7 +1265,7 @@ __global__ void __launch_bounds__(32 * warp_max_warps(LEAF, R), warp_min_ctas(LE
             bad |= !isfinite(g_new[s]);
           }
           ld_new = -0.5f * warp_sum<R>(ww);
-        } else {
+        } else if constexpr (LEAF == kFunnel) {
           // v = q[0], ld = -1/2 v^2 / s0 - s1 v - 1/2 e^-v sum_{i>0} q_i^2
           float sq[R];
 #pragma unroll
@@ -1078,6 +1281,9 @@ __global__ void __launch_bounds__(32 * warp_max_warps(LEAF, R), warp_min_ctas(LE
             g_new[s] = own(s) ? ((s == 0 && lane == 0) ? gv : -emv * q_new[s]) : 0.f;
             bad |= !isfinite(g_new[s]);
           }
+        } else {
+          xstaged_logreg_leaf<R>(q_new, g_new, ld_new, bad, xs_rows<DIAG, R>(smem, K, S), xbuf,
+                                 model, K, lane, own_last);
         }
         const bool grad_ok = !__any_sync(0xffffffffu, bad);
         // -inf poisoning, as the plain driver's evaluate
@@ -1235,6 +1441,42 @@ __global__ void __launch_bounds__(32 * warp_max_warps(LEAF, R), warp_min_ctas(LE
   }
 }
 
+template <bool DIAG, int LEAF, int R>
+__global__ void __launch_bounds__(32 * warp_max_warps(LEAF, R), warp_min_ctas(LEAF, R))
+    tree_transition_warp_kernel(
+    const float* __restrict__ q0_, const float* __restrict__ p0_,
+    const float* __restrict__ g0_, const float* __restrict__ ld0_,
+    const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
+    const float* __restrict__ gum, const float* __restrict__ expo,
+    const float* __restrict__ minv, const Model model,
+    float* __restrict__ qn, float* __restrict__ gn, float* __restrict__ ldn,
+    float* __restrict__ pin, int* __restrict__ depth_o, int* __restrict__ tl_o,
+    int* __restrict__ tr_o, float* __restrict__ logsum_o, int* __restrict__ steps_o,
+    int* __restrict__ work_o, int* __restrict__ queue, int C, int K, int S, int dcap,
+    float min_delta) {
+  warp_tree_transitions<DIAG, LEAF, R>(q0_, p0_, g0_, ld0_, eps_, dirs_, gum, expo, minv, model,
+                                       qn, gn, ldn, pin, depth_o, tl_o, tr_o, logsum_o,
+                                       steps_o, work_o, queue, C, K, S, dcap, min_delta);
+}
+
+template <bool DIAG, int R>
+__global__ void __launch_bounds__(32 * kXsWarps, 1) tree_transition_kernel_xstaged(
+    const float* __restrict__ q0_, const float* __restrict__ p0_,
+    const float* __restrict__ g0_, const float* __restrict__ ld0_,
+    const float* __restrict__ eps_, const uint32_t* __restrict__ dirs_,
+    const float* __restrict__ gum, const float* __restrict__ expo,
+    const float* __restrict__ minv, const Model model,
+    float* __restrict__ qn, float* __restrict__ gn, float* __restrict__ ldn,
+    float* __restrict__ pin, int* __restrict__ depth_o, int* __restrict__ tl_o,
+    int* __restrict__ tr_o, float* __restrict__ logsum_o, int* __restrict__ steps_o,
+    int* __restrict__ work_o, int* __restrict__ queue, int C, int K, int S, int dcap,
+    float min_delta) {
+  warp_tree_transitions<DIAG, kLogreg, R>(q0_, p0_, g0_, ld0_, eps_, dirs_, gum, expo, minv,
+                                          model, qn, gn, ldn, pin, depth_o, tl_o, tr_o,
+                                          logsum_o, steps_o, work_o, queue, C, K, S, dcap,
+                                          min_delta);
+}
+
 // Warps per CTA of tree_transition_warp_kernel for the leaf, K coordinates
 // and max_depth S (0 when it does not take the shape) and its dynamic shared
 // memory: the leaf's staged matrices (warp_matrices) and W per-warp regions
@@ -1281,19 +1523,62 @@ WarpKernel warp_kernel(int leaf, bool diag, int R) {
   return nullptr;
 }
 
+// Warps per CTA of tree_transition_kernel_xstaged for K coordinates,
+// max_depth S, n_obs rows and the metric (0 where the launch takes the CTA
+// variant), and its dynamic shared memory: the dense M^-1 (padded_kk), W
+// per-warp regions of merge stack and staging vector, X's rows at
+// xs_stride and y rounded up to 4 floats, W as many as fit in kMaxSmem, at
+// most kXsWarps and at least kXsMinWarps.
+int xstaged_plan(int K, int S, int n_obs, bool diag, size_t& smem) {
+  smem = 0;
+  const int R = (K + 31) / 32;
+  if (K < 1 || R > kWarpMaxR || S < 1 || n_obs < 1) return 0;
+  const size_t fixed =
+      sizeof(float) * ((size_t)n_obs * xs_stride(K, xs_lanes(R)) + (((size_t)n_obs + 3) & ~3) +
+                       (diag ? 0 : (size_t)padded_kk(K)));
+  const size_t per_warp = sizeof(float) * (size_t)(kNumStats * S + 1) * 32 * R;
+  if (fixed >= kMaxSmem) return 0;
+  size_t w = (kMaxSmem - fixed) / per_warp;
+  if (w > (size_t)kXsWarps) w = kXsWarps;
+  if (w < (size_t)kXsMinWarps) return 0;
+  smem = fixed + w * per_warp;
+  return (int)w;
+}
+
+WarpKernel xstaged_kernel(bool diag, int R) {
+  switch (R) {
+    case 1:
+      return diag ? &tree_transition_kernel_xstaged<true, 1>
+                  : &tree_transition_kernel_xstaged<false, 1>;
+    case 2:
+      return diag ? &tree_transition_kernel_xstaged<true, 2>
+                  : &tree_transition_kernel_xstaged<false, 2>;
+    case 3:
+      return diag ? &tree_transition_kernel_xstaged<true, 3>
+                  : &tree_transition_kernel_xstaged<false, 3>;
+    case 4:
+      return diag ? &tree_transition_kernel_xstaged<true, 4>
+                  : &tree_transition_kernel_xstaged<false, 4>;
+    default: return nullptr;
+  }
+}
+
 // The warp kernel of (leaf, K, S, diag) with its warps per CTA and its CTAs
-// per SM; nullptr where the plan takes no warp. The kernel may take all of
-// kMaxSmem: the attribute belongs to the function, which every (K, S) of
-// one R shares, so it is not set to one plan's bytes. The carveout asks for
-// the most shared memory, so that the occupancy query and the launch see
-// the same SM.
-WarpKernel prepared_warp_kernel(int leaf, int K, int S, bool diag, int& warps, size_t& smem,
-                                int& per_sm, cudaError_t& err) {
+// per SM; nullptr where the plan takes no warp. For the logreg leaf (n_obs
+// rows) that is tree_transition_kernel_xstaged under xstaged_plan. The
+// kernel may take all of kMaxSmem: the attribute belongs to the function,
+// which every (K, S) of one R shares, so it is not set to one plan's bytes.
+// The carveout asks for the most shared memory, so that the occupancy query
+// and the launch see the same SM.
+WarpKernel prepared_warp_kernel(int leaf, int K, int S, bool diag, int n_obs, int& warps,
+                                size_t& smem, int& per_sm, cudaError_t& err) {
   per_sm = 0;
   err = cudaSuccess;
-  warps = warp_plan(leaf, K, S, diag, smem);
+  const bool xs = leaf == kLogreg;
+  warps = xs ? xstaged_plan(K, S, n_obs, diag, smem) : warp_plan(leaf, K, S, diag, smem);
   if (warps < 1) return nullptr;
-  WarpKernel kernel = warp_kernel(leaf, diag, (K + 31) / 32);
+  WarpKernel kernel =
+      xs ? xstaged_kernel(diag, (K + 31) / 32) : warp_kernel(leaf, diag, (K + 31) / 32);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -1304,20 +1589,22 @@ WarpKernel prepared_warp_kernel(int leaf, int K, int S, bool diag, int& warps, s
   return kernel;
 }
 
-// A warp-kernel launch of (device, leaf, K, S, diag): the kernel (nullptr
-// where the plan takes no warp), its plan, CTAs per SM and the device's SMs.
+// A warp-kernel launch of (device, leaf, K, S, diag, n_obs; n_obs 0 but for
+// the logreg leaf): the kernel (nullptr where the plan takes no warp), its
+// plan, CTAs per SM and the device's SMs.
 struct WarpLaunch {
   int dev, leaf, K, S;
   bool diag;
+  int n_obs;
   WarpKernel kernel;
   int warps, per_sm, sms;
   size_t smem;
 };
 
-// The WarpLaunch of (current device, leaf, K, S, diag), prepared on its
-// first launch and kept: the function attributes, the occupancy query and
-// the SM count are host calls that every launch would otherwise repeat.
-cudaError_t warp_launch_for(int leaf, int K, int S, bool diag, WarpLaunch& out) {
+// The WarpLaunch of (current device, leaf, K, S, diag, n_obs), prepared on
+// its first launch and kept: the function attributes, the occupancy query
+// and the SM count are host calls that every launch would otherwise repeat.
+cudaError_t warp_launch_for(int leaf, int K, int S, bool diag, int n_obs, WarpLaunch& out) {
   static std::mutex mutex;
   static std::vector<WarpLaunch> cache;
   int dev = 0;
@@ -1325,13 +1612,14 @@ cudaError_t warp_launch_for(int leaf, int K, int S, bool diag, WarpLaunch& out) 
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mutex);
   for (const WarpLaunch& w : cache) {
-    if (w.dev == dev && w.leaf == leaf && w.K == K && w.S == S && w.diag == diag) {
+    if (w.dev == dev && w.leaf == leaf && w.K == K && w.S == S && w.diag == diag &&
+        w.n_obs == n_obs) {
       out = w;
       return cudaSuccess;
     }
   }
-  WarpLaunch w{dev, leaf, K, S, diag, nullptr, 0, 0, 0, 0};
-  w.kernel = prepared_warp_kernel(leaf, K, S, diag, w.warps, w.smem, w.per_sm, err);
+  WarpLaunch w{dev, leaf, K, S, diag, n_obs, nullptr, 0, 0, 0, 0};
+  w.kernel = prepared_warp_kernel(leaf, K, S, diag, n_obs, w.warps, w.smem, w.per_sm, err);
   if (err == cudaSuccess && w.kernel != nullptr)
     err = cudaDeviceGetAttribute(&w.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -1410,6 +1698,24 @@ CtaKernel cta_kernel(int leaf, bool diag, int K, int S, int tile, bool ring, siz
   }
 }
 
+// What tree_warp_plan and tree_xstaged_plan report of prepared_warp_kernel.
+int reported_plan(int leaf, int K, int max_depth, bool diag, int n_obs, int* warps, int* smem,
+                  int* regs, int* ctas_per_sm) {
+  size_t bytes = 0;
+  int per_sm = 0;
+  cudaError_t err;
+  WarpKernel kernel =
+      prepared_warp_kernel(leaf, K, max_depth, diag, n_obs, *warps, bytes, per_sm, err);
+  *smem = (int)bytes;
+  *regs = 0;
+  *ctas_per_sm = per_sm;
+  if (kernel == nullptr || err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  *regs = attr.numRegs;
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1420,19 +1726,14 @@ extern "C" {
 // Returns a CUDA error code (0 on success).
 int tree_warp_plan(int leaf, int K, int max_depth, int diag, int* warps, int* smem, int* regs,
                    int* ctas_per_sm) {
-  size_t bytes = 0;
-  int per_sm = 0;
-  cudaError_t err;
-  WarpKernel kernel =
-      prepared_warp_kernel(leaf, K, max_depth, diag != 0, *warps, bytes, per_sm, err);
-  *smem = (int)bytes;
-  *regs = 0;
-  *ctas_per_sm = per_sm;
-  if (kernel == nullptr || err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  *regs = attr.numRegs;
-  return (int)err;
+  return reported_plan(leaf, K, max_depth, diag != 0, 0, warps, smem, regs, ctas_per_sm);
+}
+
+// The same for the logreg leaf's staged-X kernel with n_obs rows.
+int tree_xstaged_plan(int K, int max_depth, int n_obs, int diag, int* warps, int* smem,
+                      int* regs, int* ctas_per_sm) {
+  return reported_plan(kLogreg, K, max_depth, diag != 0, n_obs, warps, smem, regs,
+                       ctas_per_sm);
 }
 
 // The CTA kernel's plan for (leaf, K, max_depth, diag): threads per CTA,
@@ -1462,9 +1763,10 @@ int tree_cta_plan(int leaf, int K, int max_depth, int diag, int* threads, int* s
 // Launches one transition for C chains on `stream`. `leaf` selects the
 // model (0 Gaussian, 1 funnel, 2 logreg; see the header for m0..m2, n_obs,
 // s0, s1). The Gaussian and funnel leaves take tree_transition_warp_kernel
-// wherever warp_plan gives them a warp, with `queue` two zeroed int32s the
-// caller keeps for the stream (the kernel leaves them zeroed again); every
-// other launch takes the CTA kernel, with queue null.
+// wherever warp_plan gives them a warp, the logreg leaf
+// tree_transition_kernel_xstaged wherever xstaged_plan does, with `queue`
+// two zeroed int32s the caller keeps for the stream (the kernel leaves them
+// zeroed again); every other launch takes the CTA kernel, with queue null.
 // Returns the cudaGetLastError() of the launch (0 on success), or
 // cudaErrorInvalidValue for a CTA that does not fit, a queue given or
 // missing against the plan, or a logreg leaf with no observation or an X
@@ -1485,8 +1787,9 @@ int tree_transition_f32(const float* q0, const float* p0, const float* g0, const
   const Model model{m0, m1, m2, n_obs, tile, s0, s1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WarpLaunch w{};
-  if (leaf == kGaussian || leaf == kFunnel) {
-    const cudaError_t err = warp_launch_for(leaf, K, max_depth, diag != 0, w);
+  if (leaf == kGaussian || leaf == kFunnel || leaf == kLogreg) {
+    const cudaError_t err =
+        warp_launch_for(leaf, K, max_depth, diag != 0, leaf == kLogreg ? n_obs : 0, w);
     if (err != cudaSuccess) return (int)err;
   }
   if ((w.kernel != nullptr) != (queue != nullptr)) return (int)cudaErrorInvalidValue;

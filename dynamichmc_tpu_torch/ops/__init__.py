@@ -20,10 +20,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """The counts since :func:`reset_launch_counts`: each kernel's
-    launches (the tree kernel's warp variant apart), the tree kernel's
-    hook's declines by reason (``tree_transition_declined``: ``dtype``,
-    ``statistic``, ``per_chain_metric``, ``shape``; the plain driver ran
-    those transitions), the leaves the plain driver handed to a fused
+    launches (the tree kernel's warp and staged-X variants apart), the
+    tree kernel's hook's declines by reason (``tree_transition_declined``:
+    ``dtype``, ``statistic``, ``per_chain_metric``, ``shape``; the plain
+    driver ran those transitions), the leaves the plain driver handed to a fused
     leaf, the ``hamiltonian.leapfrog`` calls, and ``profiling.counts()``:
     the step loops' batch transitions (``transitions_warmup``,
     ``transitions_draws``), the host reads by site (``host_reads``) and,
@@ -35,6 +35,7 @@ def launch_counts() -> dict:
 
     return {"tree_transition": tree_kernel.launches,
             "tree_transition_warp": tree_kernel.warp_launches,
+            "tree_transition_xstaged": tree_kernel.xstaged_launches,
             "logreg_fused_leaf": logreg_leaf.launches,
             "gaussian_fused_leaf": gaussian_leaf.launches,
             "gaussian_leapfrog": gaussian_leapfrog.launches,

@@ -4,13 +4,15 @@ the ``LogDensity.tree_transition_fn`` hooks.
 The kernel (csrc/tree_kernel.cu, CUDA C++ for sm_90a) replaces the Pallas
 kernel ``dynamichmc_tpu/ops/pallas_tree.py::_build_kernel`` with each of its
 leaves (``_gaussian_leaf``, ``funnel_leaf``, ``logreg_leaf``): one complete
-NUTS transition per chain. It comes in two variants, chosen by shape alone
+NUTS transition per chain. It comes in three variants, chosen by shape alone
 (:func:`kernel_variant`): the Gaussian and funnel leaves run one warp per
 chain, with the leaf's matrices staged once per CTA in shared memory,
-wherever :func:`warp_plan` gives them a warp (K <= 128); every other launch
-runs one CTA per chain. A :class:`Leaf` names the model: its id in the CUDA
-source, its float32 arrays and scalars, and the same value and gradient in
-torch for the plain version. The library is built with ``nvcc`` at first
+wherever :func:`warp_plan` gives them a warp (K <= 128); the logreg leaf
+runs the same tree control with all of X staged once per CTA wherever
+:func:`xstaged_plan` fits X (K <= 128); every other launch runs one CTA
+per chain. A :class:`Leaf` names the model: its id in the CUDA source, its
+float32 arrays and scalars, and the same value and gradient in torch for
+the plain version. The library is built with ``nvcc`` at first
 use (ops/cuda_build.py) and called through a plain C entry point with
 ``ctypes``, on PyTorch's current stream.
 
@@ -19,8 +21,9 @@ use (ops/cuda_build.py) and called through a plain C entry point with
 batched driver (tree_batched.py) from the same injected noise with the
 leaf's torch value and gradient. A CUDA tensor launches the kernel or
 raises; nothing falls back. ``launches`` counts the kernel launches,
-``warp_launches`` those of the warp variant among them, ``declined`` the
-transitions the hook of :func:`make_tree_transition` declined, by reason.
+``warp_launches`` and ``xstaged_launches`` those of the warp and staged-X
+variants among them, ``declined`` the transitions the hook of
+:func:`make_tree_transition` declined, by reason.
 
 ``work`` differs between the two on purpose: the kernel reports each
 chain's own executed leaf count, the plain driver the lockstep count of the
@@ -67,19 +70,22 @@ library = CudaLibrary("tree_kernel", {
         _ci,
     ),
     "tree_warp_plan": ([_ci] * 4 + [_vp] * 4, _ci),
+    "tree_xstaged_plan": ([_ci] * 4 + [_vp] * 4, _ci),
     "tree_cta_plan": ([_ci] * 4 + [_vp] * 4, _ci),
 })
 
 launches = 0  # kernel launches made by tree_transition
 warp_launches = 0  # the launches among them that ran the warp variant
+xstaged_launches = 0  # and those that ran the staged-X logreg variant
 DECLINE_REASONS = ("dtype", "statistic", "per_chain_metric", "shape")
 declined = dict.fromkeys(DECLINE_REASONS, 0)  # the hooks' declines, by reason
 
 
 def reset_launches() -> None:
-    global launches, warp_launches
+    global launches, warp_launches, xstaged_launches
     launches = 0
     warp_launches = 0
+    xstaged_launches = 0
     declined.update(dict.fromkeys(DECLINE_REASONS, 0))
 
 
@@ -164,13 +170,60 @@ def warp_plan(kind: int, K: int, max_depth: int, diag: bool) -> tuple:
     return (warps, mats + warps * per_warp) if warps else (0, 0)
 
 
-def kernel_variant(kind: int, K: int, max_depth: int, diag: bool):
+XS_MAX_WARPS = 8  # warps per CTA of the staged-X variant at most (kXsWarps)
+XS_MIN_WARPS = 4  # fewer fit beside X and the launch takes the CTA variant
+
+
+def xs_lanes(r: int) -> int:
+    """Lanes per row of X in the staged-X variant by R = ceil(K / 32)
+    (xs_lanes in the CUDA source): at most 32 columns a lane."""
+    return 1 if r == 1 else 8 if r == 4 else 4
+
+
+def xs_stride(K: int) -> int:
+    """Floats between two rows of X staged by the staged-X variant
+    (xs_stride in the CUDA source): each of the row's G lanes reads n
+    float4 chunks, n = ceil(ceil(K / 4) / G), and the stride is 4 G n with
+    n made odd, so that a quarter warp's 128-bit loads of 8 / G rows fall
+    in 8 distinct 16-byte bank groups."""
+    g = xs_lanes(-(-K // 32))
+    n = -(-(-(-K // 4)) // g)
+    return 4 * g * (n | 1)
+
+
+def xstaged_plan(K: int, max_depth: int, n_obs: int, diag: bool) -> tuple:
+    """``(warps_per_cta, smem_bytes)`` of the logreg leaf's staged-X
+    variant (xstaged_plan in the CUDA source): X's n_obs rows at
+    :func:`xs_stride`, y rounded up to 4 floats, the dense M^-1 unless
+    ``diag`` (K^2 floats rounded up to 4), and one region per warp of merge
+    stack and staging vector, (5 max_depth + 1) x 32 R floats, with as many
+    warps as MAX_SMEM_BYTES holds, at most XS_MAX_WARPS. ``(0, 0)`` where
+    it takes the CTA variant: past K = 128, without observations, or where
+    fewer than XS_MIN_WARPS warps fit beside X."""
+    r = -(-K // 32)
+    if not (K >= 1 and r <= WARP_MAX_R and max_depth >= 1 and n_obs >= 1):
+        return 0, 0
+    fixed = 4 * (n_obs * xs_stride(K) + (n_obs + 3) // 4 * 4
+                 + (0 if diag else (K * K + 3) // 4 * 4))
+    per_warp = 4 * (5 * max_depth + 1) * 32 * r
+    warps = min(XS_MAX_WARPS, max(0, MAX_SMEM_BYTES - fixed) // per_warp)
+    if warps < XS_MIN_WARPS:
+        return 0, 0
+    return warps, fixed + warps * per_warp
+
+
+def kernel_variant(kind: int, K: int, max_depth: int, diag: bool,
+                   n_obs: int = 0):
     """The kernel a launch of leaf ``kind`` takes, by shape only: "warp"
     wherever :func:`warp_plan` gives the leaf a warp (Gaussian and funnel,
-    K <= 128), else "cta" where one chain's CTA fits (:func:`kernel_fits`),
-    else None (the launch raises, the hook declines)."""
+    K <= 128), "xstaged" wherever :func:`xstaged_plan` fits the logreg
+    leaf's ``n_obs`` rows of X, else "cta" where one chain's CTA fits
+    (:func:`kernel_fits`), else None (the launch raises, the hook
+    declines)."""
     if warp_plan(kind, K, max_depth, diag)[0]:
         return "warp"
+    if kind == LOGREG and xstaged_plan(K, max_depth, n_obs, diag)[0]:
+        return "xstaged"
     return "cta" if kernel_fits(K, max_depth, kind == LOGREG) else None
 
 
@@ -193,16 +246,18 @@ class KernelInfo:
         return self.warps * self.ctas_per_sm
 
 
-def _plan(fn: str, device, kind: int, K: int, max_depth: int, diag: bool):
+def _plan(fn: str, device, **shape):
+    """The four ints the source's ``fn`` reports for ``shape`` (its
+    arguments, in order), and the card's SMs."""
     lib = library.load()
     out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device):
-        err = getattr(lib, fn)(kind, K, max_depth, int(diag),
+        err = getattr(lib, fn)(*(int(v) for v in shape.values()),
                                *(ctypes.byref(x) for x in out))
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     if err != 0:
-        raise RuntimeError(f"tree kernel: {fn} failed for leaf {kind}, "
-                           f"K = {K}, max_depth {max_depth} (CUDA error {err})")
+        raise RuntimeError(f"tree kernel: {fn} failed for {shape} "
+                           f"(CUDA error {err})")
     return [x.value for x in out], sms
 
 
@@ -210,7 +265,18 @@ def warp_kernel_info(device, kind: int, K: int, max_depth: int,
                      diag: bool) -> KernelInfo:
     """:class:`KernelInfo` of the warp variant's launch on ``device``, from
     the built library (all zero where the plan takes no warp)."""
-    values, sms = _plan("tree_warp_plan", device, kind, K, max_depth, diag)
+    values, sms = _plan("tree_warp_plan", device, leaf=kind, K=K,
+                        max_depth=max_depth, diag=diag)
+    return KernelInfo(*values, sms)
+
+
+def xstaged_kernel_info(device, K: int, max_depth: int, n_obs: int,
+                        diag: bool) -> KernelInfo:
+    """:class:`KernelInfo` of the staged-X variant's launch on ``device``
+    for the logreg leaf with ``n_obs`` rows, from the built library (all
+    zero where the plan takes the CTA variant)."""
+    values, sms = _plan("tree_xstaged_plan", device, K=K, max_depth=max_depth,
+                        n_obs=n_obs, diag=diag)
     return KernelInfo(*values, sms)
 
 
@@ -220,7 +286,8 @@ def cta_kernel_info(device, kind: int, K: int, max_depth: int,
     CTA of round_up(K, 32) threads per chain), from the built library;
     raises where no CTA fits."""
     (threads, smem, regs, per_sm), sms = _plan(
-        "tree_cta_plan", device, kind, K, max_depth, diag)
+        "tree_cta_plan", device, leaf=kind, K=K, max_depth=max_depth,
+        diag=diag)
     return KernelInfo(threads // 32, smem, regs, per_sm, sms)
 
 
@@ -378,13 +445,13 @@ def _operand_shapes(leaf: Leaf, K: int) -> tuple:
     raise ValueError(f"tree kernel: unknown leaf kind {leaf.kind}")
 
 
-_queues: dict = {}  # (device, stream) -> the warp variant's chain queue
+_queues: dict = {}  # (device, stream) -> the warp variants' chain queue
 
 
 def _queue(device, stream: int) -> torch.Tensor:
-    """The warp variant's chain queue for launches on ``stream``: the next
-    chain a warp takes and the warps done, two int32s that each launch
-    leaves zeroed for the next one on the stream."""
+    """The chain queue of the warp and staged-X variants for launches on
+    ``stream``: the next chain a warp takes and the warps done, two int32s
+    that each launch leaves zeroed for the next one on the stream."""
     key = (device, stream)
     if key not in _queues:
         _queues[key] = torch.zeros((2,), dtype=torch.int32, device=device)
@@ -406,7 +473,7 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
     Returns the raw fields prop_q, prop_grad, prop_ld, prop_pi, depth,
     term_left, term_right, log_sum, steps, work, directions.
     """
-    global launches, warp_launches
+    global launches, warp_launches, xstaged_launches
     if q0.device.type == "cpu":
         return tree_transition_plain(q0, p0, g0, ld0, eps, dirs, gum, expo,
                                      minv, leaf, dcap, min_delta, max_depth)
@@ -438,7 +505,8 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
                              f"{tuple(t.shape)}, expected {shape}")
     if tuple(minv.shape) not in ((K,), (K, K)):
         raise ValueError("tree kernel: minv must be (K,) or (K, K)")
-    variant = kernel_variant(leaf.kind, K, max_depth, minv.ndim == 1)
+    variant = kernel_variant(leaf.kind, K, max_depth, minv.ndim == 1,
+                             leaf.n_obs)
     if not (1 <= dcap <= max_depth) or variant is None:
         raise ValueError("tree kernel: dcap or shape outside the kernel")
     if leaf.kind == LOGREG and (leaf.n_obs < 1 or operands[0].data_ptr() % 16):
@@ -454,7 +522,7 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
             for n in ("depth", "term_left", "term_right", "steps", "work")}
     ptrs = [t.data_ptr() for t in operands] + [None] * (3 - len(operands))
     stream = torch.cuda.current_stream(q0.device).cuda_stream
-    queue = _queue(q0.device, stream) if variant == "warp" else None
+    queue = _queue(q0.device, stream) if variant != "cta" else None
     err = lib.tree_transition_f32(
         q0.data_ptr(), p0.data_ptr(), g0.data_ptr(), ld0.data_ptr(),
         eps.data_ptr(), dirs.data_ptr(), gum.data_ptr(), expo.data_ptr(),
@@ -473,6 +541,8 @@ def tree_transition(q0, p0, g0, ld0, eps, dirs, gum, expo, minv,
     launches += 1
     if variant == "warp":
         warp_launches += 1
+    elif variant == "xstaged":
+        xstaged_launches += 1
     return {"prop_q": qn, "prop_grad": gn, **rows, **ints, "directions": dirs}
 
 
@@ -507,7 +577,8 @@ def make_tree_transition(leaf: Leaf, dim: int):
             return _decline("per_chain_metric")
         C, K = Q.q.shape
         md = algorithm.max_depth
-        if K != dim or kernel_variant(leaf.kind, K, md, diag) is None:
+        if K != dim or kernel_variant(leaf.kind, K, md, diag,
+                                      leaf.n_obs) is None:
             return _decline("shape")
         device = Q.q.device
         with span("dhmc.noise"):

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's funnel tree kernel and count its discrete flips over
-seeds, for the package of any checkout.
+seeds, or time its logreg tree kernel, for the package of any checkout.
 
     python3 scripts/torch_tree_funnel_compare.py [--root DIR] [--seeds N] [--K 25,129]
         [--md 7]
+    python3 scripts/torch_tree_funnel_compare.py --leaf logreg [--root DIR]
+        [--shapes 16384x25x1000,2048x128x4000] [--kinds diag,dense]
+        [--md 4] [--reps 20]
 
 ``--root`` names the checkout whose ``dynamichmc_tpu_torch`` is imported
 (default: this one), so that one call can hold this tree's kernel beside
@@ -13,11 +16,11 @@ proposal from its ``ops/proposal_leaf.py``. Needs CUDA. Prints one JSON
 line per measurement.
 
 1. ``time``: ms per call of ``tree_kernel.tree_transition`` (CUDA events,
-   20 calls after a warm-up call, as in chip_smoke's phase 5) on 4096
-   chains of funnel(K), max_depth ``--md`` (default 7), from chip_smoke's
-   phase-3 inputs, for
-   each K of ``--K`` (default 25, the funnel path, and 129, past the warp
-   variant) with a diagonal and a dense metric; beside it the fp32 bound
+   ``--reps`` calls, 20 by default, after a warm-up call, as in
+   chip_smoke's phase 5) on 4096 chains of funnel(K), max_depth ``--md``
+   (default 7), from chip_smoke's phase-3 inputs, for each K of ``--K``
+   (default 25, the funnel path, and 129, past the warp variant) with a
+   diagonal and a dense metric; beside it the fp32 bound
    of the leaves the chains executed, the plain version's ms per call (3
    calls after a warm-up call), the variant the shape takes and its
    launch plan where the imported package reports one.
@@ -31,6 +34,17 @@ line per measurement.
    grad' against float64, the kernel's beside the plain float32
    version's (the GPU tests' rule: the kernel's within twice the plain
    version's plus 1e-5).
+
+With ``--leaf logreg``, one ``time`` line per shape ``CxKxN`` of
+``--shapes`` (chains, coordinates, observations) and metric kind of
+``--kinds``, from phase 3's logreg inputs (a start at draws of the Laplace
+approximation, its covariance as M^-1 or that covariance's diagonal):
+ms per call (CUDA events around ``--reps`` calls after a warm-up call),
+the kernel's device ms per launch (torch.profiler), the leaves the chains
+executed (the kernel's ``work``), device us per thousand chain-leaves, the
+fp32 bound of those leaves and its share, and the variant and launch plan
+the imported package reports (a package without the staged-X variant
+takes the CTA one). ``--md`` defaults to 4 there.
 """
 
 import argparse
@@ -53,18 +67,25 @@ def load(name, path):
     return module
 
 
-def plan_of(tree_kernel, dev, K, diag):
-    """The variant and launch plan of funnel(K) at md 7, where the imported
-    package reports them."""
-    kind = tree_kernel.FUNNEL
-    variant = tree_kernel.kernel_variant(kind, K, MD, diag)
+def plan_of(tree_kernel, dev, kind, K, diag, n_obs=0):
+    """The variant and launch plan of leaf ``kind`` at K coordinates (and
+    n_obs rows of X) at max_depth MD, where the imported package reports
+    them."""
+    if hasattr(tree_kernel, "xstaged_plan"):
+        variant = tree_kernel.kernel_variant(kind, K, MD, diag, n_obs)
+    else:
+        variant = tree_kernel.kernel_variant(kind, K, MD, diag)
     plan = {"variant": variant}
     name = f"{variant}_kernel_info"
-    if hasattr(tree_kernel, "cta_kernel_info") and hasattr(tree_kernel, name):
+    if not (hasattr(tree_kernel, "cta_kernel_info") and hasattr(tree_kernel, name)):
+        return plan
+    if variant == "xstaged":
+        info = tree_kernel.xstaged_kernel_info(dev, K, MD, n_obs, diag)
+    else:
         info = getattr(tree_kernel, name)(dev, kind, K, MD, diag)
-        plan.update({"warps_per_cta": info.warps, "registers": info.registers,
-                     "smem_bytes": info.smem, "ctas_per_sm": info.ctas_per_sm,
-                     "resident_warps_per_sm": info.resident_warps})
+    plan.update({"warps_per_cta": info.warps, "registers": info.registers,
+                 "smem_bytes": info.smem, "ctas_per_sm": info.ctas_per_sm,
+                 "resident_warps_per_sm": info.resident_warps})
     return plan
 
 
@@ -92,15 +113,46 @@ def errors(out, ref, ref64, same):
     return res
 
 
+def time_logreg(chip, tree_kernel, dev, opts, tag):
+    """``--leaf logreg``: the time lines (see above)."""
+    from dynamichmc_tpu_torch.models import logistic_regression
+
+    for shape in opts.shapes.split(","):
+        C_, K, n_obs = (int(x) for x in shape.split("x"))
+        model = logistic_regression(n_obs, K, dtype=torch.float32,
+                                    device=dev, tree_kernel=True)
+        for kind in opts.kinds.split(","):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            args = chip.kernel_inputs(model, C_, MD, kind, MD, gen)
+            ms = chip.time_call(tree_kernel.tree_transition, args, opts.reps)
+            device_ms = chip.device_ms(tree_kernel.tree_transition, args,
+                                       opts.reps, "tree_transition_kernel")
+            leaves = int(tree_kernel.tree_transition(*args)["work"].sum())
+            bound_ms, bound_by = chip.tree_kernel_bound(args)
+            print(json.dumps({
+                "time": [C_, K, n_obs, MD, kind], "ms": ms,
+                "device_ms": device_ms, "chain_leaves": leaves,
+                "device_us_per_1k_chain_leaves": 1e6 * device_ms / leaves,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "roofline_pct": 100 * bound_ms / device_ms,
+                "plan": plan_of(tree_kernel, dev, tree_kernel.LOGREG, K,
+                                kind == "diag", n_obs), **tag}), flush=True)
+
+
 def main():
     global MD
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=HERE)
+    parser.add_argument("--leaf", choices=("funnel", "logreg"),
+                        default="funnel")
     parser.add_argument("--seeds", type=int, default=4)
     parser.add_argument("--K", default="25,129")
-    parser.add_argument("--md", type=int, default=MD)
+    parser.add_argument("--md", type=int)
+    parser.add_argument("--shapes", default="16384x25x1000")
+    parser.add_argument("--kinds", default="diag,dense")
+    parser.add_argument("--reps", type=int, default=N_TIME)
     opts = parser.parse_args()
-    MD = opts.md
+    MD = opts.md or (MD if opts.leaf == "funnel" else 4)
     root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
     chip = load("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -113,20 +165,24 @@ def main():
     smi = chip.nvidia_smi_line()
     tree_kernel.library.build()
     tag = {"root": os.path.relpath(root, HERE), "gpu": smi}
+    if opts.leaf == "logreg":
+        time_logreg(chip, tree_kernel, dev, opts, tag)
+        return
     models = {K: funnel(K, dtype=torch.float32, device=dev, tree_kernel=True)
               for K in (int(k) for k in opts.K.split(","))}
     gen = torch.Generator(device=dev).manual_seed(0)
     for K, model in models.items():
         for kind in ("diag", "dense"):
             args = chip.kernel_inputs(model, C, MD, kind, MD, gen)
-            ms = chip.time_call(tree_kernel.tree_transition, args, N_TIME)
+            ms = chip.time_call(tree_kernel.tree_transition, args, opts.reps)
             plain_ms = chip.time_call(tree_kernel.tree_transition_plain, args,
                                       N_PLAIN)
             bound_ms, bound_by = chip.tree_kernel_bound(args)
             print(json.dumps({"time": [C, K, MD, kind], "ms": ms,
                               "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by,
-                              "plan": plan_of(tree_kernel, dev, K, kind == "diag"),
+                              "plan": plan_of(tree_kernel, dev, tree_kernel.FUNNEL,
+                                              K, kind == "diag"),
                               **tag}), flush=True)
 
     for seed in range(1, opts.seeds + 1):

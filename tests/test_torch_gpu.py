@@ -143,8 +143,10 @@ def _check_transition(args, C, dcap, min_match, quantile=None):
     torch.cuda.synchronize()
     assert tree_kernel.launches == 1
     K, md, leaf, minv = args[0].shape[1], args[12], args[9], args[8]
-    warp = tree_kernel.kernel_variant(leaf.kind, K, md, minv.ndim == 1) == "warp"
-    assert tree_kernel.warp_launches == int(warp)
+    variant = tree_kernel.kernel_variant(leaf.kind, K, md, minv.ndim == 1,
+                                         leaf.n_obs)
+    assert tree_kernel.warp_launches == int(variant == "warp")
+    assert tree_kernel.xstaged_launches == int(variant == "xstaged")
     ref = tree_kernel.tree_transition_plain(*args)
     ref64 = tree_kernel.tree_transition_plain(*(
         a.double() if torch.is_tensor(a) and a.is_floating_point() else a
@@ -426,25 +428,34 @@ def test_cuda_warp_funnel_is_deterministic(kind):
         assert torch.equal(x, b[name]), name
 
 
+# Logreg shapes of the CTA variant: each n_obs is past the staged-X
+# variant's fit at its K, max_depth and metric (4,263 rows at K = 7 diag,
+# 1,043 at K = 40 dense, 1,076 at K = 33 diag), and ends in a partial tile
+# of 32 rows; the same K at fewer rows runs the staged-X variant
+# (test_cuda_xstaged_logreg_kernel_at_the_cta_cases_shapes).
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_obs,K,C,md,kind,scale,eps", [
-    (53, 7, 64, 4, "diag", 0.3, 0.1), (300, 40, 64, 4, "dense", 0.1, 0.05),
+    (4309, 7, 64, 4, "diag", 0.3, 0.1), (1100, 40, 64, 4, "dense", 0.1, 0.05),
     (4000, 128, 2048, 4, "diag", 0.03, 0.02),
     # K = 33: rows of 36 floats, and one coordinate past a warp
-    (300, 33, 64, 4, "diag", 0.1, 0.05),
+    (1100, 33, 64, 4, "diag", 0.1, 0.05),
     # past the n_obs the residual buffer of the earlier design capped
     # (57,248 at K = 8, md 4), from draws of the Laplace approximation
     (60001, 8, 64, 4, "diag", None, 0.4),
 ])
 def test_cuda_logreg_kernel_matches_plain(n_obs, K, C, md, kind, scale, eps):
-    """Starts at N(0, scale^2), about the posterior's spread, with eps in
-    [eps / 4, eps] on an identity metric (scale None: Laplace draws and
-    covariance). 53 and 300 observations end in a partial tile of X."""
+    """The CTA variant: starts at N(0, scale^2), about the posterior's
+    spread, with eps in [eps / 4, eps] on an identity metric (scale None:
+    Laplace draws and covariance). 4309 and 1100 observations end in a
+    partial tile of X."""
     dev = _device()
+    assert tree_kernel.kernel_variant(tree_kernel.LOGREG, K, md,
+                                      kind == "diag", n_obs) == "cta"
     model = logistic_regression(n_obs, K, dtype=F32, device=dev,
                                 tree_kernel=True)
     _check_transition(_kernel_args(model, C, md, kind, md, (eps / 4, eps),
                                    scale=scale), C, md, 0.99)
+    assert tree_kernel.xstaged_launches == 0
 
 
 @pytest.mark.gpu
@@ -464,19 +475,175 @@ def test_cuda_logreg_kernel_at_the_widest_k(md, tiles):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_obs,K,C", [(53, 7, 64), (4000, 128, 256)])
+@pytest.mark.parametrize("n_obs,K,C", [(4309, 7, 64), (4000, 128, 256)])
 def test_cuda_logreg_kernel_is_deterministic(n_obs, K, C):
-    """Two launches on the same inputs give bitwise the same outputs: every
-    sum runs in a fixed order."""
+    """Two launches of the CTA variant on the same inputs give bitwise the
+    same outputs: every sum runs in a fixed order."""
     dev = _device()
+    assert tree_kernel.kernel_variant(tree_kernel.LOGREG, K, 4, True,
+                                      n_obs) == "cta"
     model = logistic_regression(n_obs, K, dtype=F32, device=dev,
                                 tree_kernel=True)
     args = _kernel_args(model, C, 4, "diag", 4, (0.005, 0.02), scale=0.03)
+    tree_kernel.reset_launches()
     a = tree_kernel.tree_transition(*args)
     b = tree_kernel.tree_transition(*args)
     torch.cuda.synchronize()
+    assert tree_kernel.launches == 2 and tree_kernel.xstaged_launches == 0
     for name, x in a.items():
         assert torch.equal(x, b[name]), name
+
+
+# n_obs of the staged-X cases: 300 rows (a partial block of rows and a
+# partial step) wherever X fits at max_depth 10 with a dense metric; 90 at
+# K = 128, where 96 is the most that fits there
+XSTAGED_N_OBS = {1: 300, 8: 300, 25: 300, 32: 300, 33: 300, 64: 300, 128: 90}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("md,dcap", [(4, 4), (10, 10), (4, 2)])
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("K", sorted(XSTAGED_N_OBS))
+def test_cuda_xstaged_logreg_kernel_matches_plain(K, kind, md, dcap):
+    """The logreg leaf's staged-X variant (X staged once per CTA, one warp
+    per chain, G lanes a row of X) against the plain float32 and float64
+    versions, by the rule of _check_transition, on 256 chains from
+    N(0, 0.1^2) with eps in [0.0125, 0.05]."""
+    dev = _device()
+    n_obs = XSTAGED_N_OBS[K]
+    assert tree_kernel.kernel_variant(tree_kernel.LOGREG, K, md,
+                                      kind == "diag", n_obs) == "xstaged"
+    model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                tree_kernel=True)
+    _check_transition(_kernel_args(model, 256, md, kind, dcap, (0.0125, 0.05),
+                                   scale=0.1), 256, dcap, 0.99)
+    assert tree_kernel.xstaged_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_obs,K,C,md,kind,scale,eps", [
+    (53, 7, 64, 4, "diag", 0.3, 0.1), (300, 40, 64, 4, "dense", 0.1, 0.05),
+    (300, 33, 64, 4, "diag", 0.1, 0.05),
+])
+def test_cuda_xstaged_logreg_kernel_at_the_cta_cases_shapes(n_obs, K, C, md,
+                                                            kind, scale, eps):
+    """The staged-X variant at the small shapes the CTA variant's cases ran
+    before it (test_cuda_logreg_kernel_matches_plain now runs those K past
+    the fit): 53 rows at K = 7 (one partial step of rows), 300 at K = 40
+    with a dense metric and at K = 33 (two lanes' chunks a row past a
+    warp's coordinates), by the rule of _check_transition."""
+    dev = _device()
+    assert tree_kernel.kernel_variant(tree_kernel.LOGREG, K, md,
+                                      kind == "diag", n_obs) == "xstaged"
+    model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                tree_kernel=True)
+    _check_transition(_kernel_args(model, C, md, kind, md, (eps / 4, eps),
+                                   scale=scale), C, md, 0.99)
+    assert tree_kernel.xstaged_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("K", [33, 64, 128])
+def test_cuda_xstaged_logreg_kernel_at_large_logits(K, kind):
+    """The staged-X variant from draws of the Laplace approximation at
+    K >= 33, where |logit| reaches 35-280 (the softplus and sigmoid tails),
+    with the Laplace covariance or its diagonal as M^-1: against the plain
+    float32 and float64 versions by the rule of _check_transition."""
+    dev = _device()
+    n_obs, md = XSTAGED_N_OBS[K], 4
+    assert tree_kernel.kernel_variant(tree_kernel.LOGREG, K, md,
+                                      kind == "diag", n_obs) == "xstaged"
+    model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                tree_kernel=True)
+    args = _kernel_args(model, 256, md, kind, md, (0.05, 0.2), scale=None)
+    X, _ = args[9].logreg_data()
+    assert float((args[0] @ X.T).abs().max()) > 20
+    _check_transition(args, 256, md, 0.99)
+    assert tree_kernel.xstaged_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra,variant", [(0, "xstaged"), (1, "cta")])
+def test_cuda_xstaged_logreg_dispatch_boundary(extra, variant):
+    """The largest n_obs whose X the staged-X plan fits at the benchmark's
+    K = 25, max_depth 4, diagonal metric takes the staged-X variant, and
+    one row more the CTA variant; each against the plain version, from
+    draws of the Laplace approximation."""
+    dev = _device()
+    K, md = 25, 4
+    n_obs = 1
+    while tree_kernel.xstaged_plan(K, md, n_obs + 1, True)[0]:
+        n_obs += 1
+    n_obs += extra
+    assert tree_kernel.kernel_variant(tree_kernel.LOGREG, K, md, True,
+                                      n_obs) == variant
+    model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                tree_kernel=True)
+    _check_transition(_kernel_args(model, 64, md, "diag", md, (0.05, 0.2),
+                                   scale=None), 64, md, 0.99)
+    assert tree_kernel.xstaged_launches == int(variant == "xstaged")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "diag"])
+@pytest.mark.parametrize("n_obs,K,C", [(1000, 25, 4096), (53, 7, 64)])
+def test_cuda_xstaged_logreg_kernel_is_deterministic(n_obs, K, C, kind):
+    """Two launches give bitwise the same outputs, at the benchmark's shape
+    (1000 x 25, max_depth 4, 4096 chains) and at 53 x 7 on 64 chains: a
+    chain's result does not depend on which warp took it from the
+    queue."""
+    dev = _device()
+    model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                tree_kernel=True)
+    args = _kernel_args(model, C, 4, kind, 4, (0.05, 0.2), scale=None)
+    tree_kernel.reset_launches()
+    a = tree_kernel.tree_transition(*args)
+    b = tree_kernel.tree_transition(*args)
+    torch.cuda.synchronize()
+    assert tree_kernel.xstaged_launches == 2
+    for name, x in a.items():
+        assert torch.equal(x, b[name]), name
+
+
+@pytest.mark.gpu
+def test_cuda_xstaged_logreg_kernel_after_a_smaller_plan_of_its_r():
+    """The staged-X launch plan of each (K, max_depth, diag, n_obs) is
+    prepared once and kept, while every plan of one R shares the kernel
+    function: at K = 25, a plan with more shared memory (1,500 rows), then
+    one with less (200 rows), then the first again must each launch and
+    match the plain version."""
+    dev = _device()
+    K, md = 25, 4
+    large, small = (tree_kernel.xstaged_plan(K, md, n, True)
+                    for n in (1500, 200))
+    assert 0 < small[1] < large[1] and small[0] and large[0]
+    for n_obs in (1500, 200, 1500):
+        model = logistic_regression(n_obs, K, dtype=F32, device=dev,
+                                    tree_kernel=True)
+        _check_transition(_kernel_args(model, 64, md, "diag", md, (0.05, 0.2),
+                                       scale=None, seed=n_obs), 64, md, 0.99)
+        assert tree_kernel.xstaged_launches == 1
+
+
+@pytest.mark.gpu
+def test_cuda_xstaged_plan_matches_the_source():
+    """The CUDA source's staged-X plan (warps per CTA, shared memory) is
+    xstaged_plan's over shapes on both sides of the fit boundary, and
+    where it takes warps the runtime fits one CTA per SM."""
+    dev = _device()
+    for K in (1, 8, 25, 28, 32, 33, 64, 100, 128, 129):
+        for md in (4, 10, 13):
+            for diag in (False, True):
+                for n_obs in (0, 90, 1000, 1911, 1912, 10316, 10317):
+                    info = tree_kernel.xstaged_kernel_info(dev, K, md, n_obs,
+                                                           diag)
+                    plan = tree_kernel.xstaged_plan(K, md, n_obs, diag)
+                    assert (info.warps, info.smem) == plan, (K, md, diag, n_obs)
+                    if plan[0]:
+                        assert info.ctas_per_sm >= 1 and info.registers > 0
+                    else:
+                        assert info.ctas_per_sm == info.registers == 0
 
 
 def _leaf_inputs(C, K, n_obs, kind, seed=0):

@@ -438,6 +438,98 @@ def test_logreg_leaf_has_no_warp_plan():
             assert tree_kernel.warp_plan(tree_kernel.LOGREG, K, 4, diag) == (0, 0)
 
 
+# --- the logreg leaf's staged-X variant: plan and dispatch ------------------
+
+@pytest.mark.parametrize("K,md,n_obs,diag,warps,smem", [
+    # the benchmark's shape: rows of 28 floats (7 chunks, odd), 1000 of X
+    # and y in 116,000 bytes, then 8 warps of (5 md + 1) x 32 floats
+    (25, 4, 1000, True, 8, 4 * (1000 * 28 + 1000) + 8 * 2688),
+    (28, 4, 1000, True, 8, 4 * (1000 * 28 + 1000) + 8 * 2688),
+    # dense: M^-1 too, 625 floats rounded up to 628
+    (25, 13, 1000, False, 8, 4 * (1000 * 28 + 1000 + 628) + 8 * 8448),
+    # the largest n_obs at K = 25, md 4, diagonal: 4 warps, and one row past
+    # it none
+    (25, 4, 1911, True, 4, 4 * (1911 * 28 + 1912) + 4 * 2688),
+    (25, 4, 1912, True, 0, 0),
+    # K = 32: 8 chunks a row (even), so a 36-float stride
+    (32, 4, 1000, True, 8, 4 * (1000 * 36 + 1000) + 8 * 2688),
+    (1, 4, 1000, True, 8, 4 * (1000 * 4 + 1000) + 8 * 2688),
+    (1, 10, 10316, False, 4, 4 * (10316 * 4 + 10316 + 4) + 4 * 6528),
+    (1, 10, 10317, False, 0, 0),
+    # R = 2: 4 lanes a row of 3 chunks each (48 floats), 6 warps fit
+    (33, 4, 1000, True, 6, 4 * (1000 * 48 + 1000) + 6 * 5376),
+    (33, 10, 919, True, 4, 4 * (919 * 48 + 920) + 4 * 13056),
+    (33, 10, 920, True, 0, 0),
+    # R = 4: 8 lanes a row of 4 chunks each, made 5 (160 floats)
+    (100, 4, 294, True, 4, 4 * (294 * 160 + 296) + 4 * 10752),
+    (100, 4, 295, True, 0, 0),
+    (128, 10, 96, False, 4, 4 * (96 * 160 + 96 + 16384) + 4 * 26112),
+    (128, 13, 49, False, 4, 4 * (49 * 160 + 52 + 16384) + 4 * 33792),
+    (128, 13, 50, False, 0, 0),
+    # the CTA variant: past K = 128, an X of chip_smoke's logreg_tree, or
+    # no observation
+    (129, 4, 10, True, 0, 0), (128, 4, 4000, True, 0, 0),
+    (8, 4, 60001, True, 0, 0), (25, 4, 0, True, 0, 0),
+])
+def test_logreg_xstaged_plan(K, md, n_obs, diag, warps, smem):
+    """Warps per CTA and shared memory of the staged-X variant: X's rows at
+    xs_stride, y rounded up to 4 floats, the dense M^-1 and one region per
+    warp of (5 max_depth + 1) x 32 R floats, as many as 227 KB holds, at
+    most XS_MAX_WARPS and at least XS_MIN_WARPS."""
+    assert tree_kernel.xstaged_plan(K, md, n_obs, diag) == (warps, smem)
+    assert smem <= tree_kernel.MAX_SMEM_BYTES
+    if warps:
+        per_warp = 4 * (5 * md + 1) * 32 * -(-K // 32)
+        assert (smem + per_warp > tree_kernel.MAX_SMEM_BYTES
+                or warps == tree_kernel.XS_MAX_WARPS)
+
+
+@pytest.mark.parametrize("K", range(1, 129))
+def test_logreg_xstaged_rows_are_bank_conflict_free(K):
+    """Each quarter warp's 128-bit loads (8 lanes: 8 / G rows of G lanes,
+    lane g of a row reading chunk c G + g) fall in 8 distinct 16-byte bank
+    groups, for every chunk c a lane reads; the lanes' chunks cover K
+    columns and fit the warp's 32 R-float staging vector."""
+    r = -(-K // 32)
+    g = tree_kernel.xs_lanes(r)
+    stride4 = tree_kernel.xs_stride(K) // 4
+    nch = -(-(-(-K // 4)) // g)
+    assert K <= 4 * g * nch <= 32 * r and stride4 >= g * nch
+    for quarter in range(4):
+        lanes = range(8 * quarter, 8 * quarter + 8)
+        for c in range(nch):
+            banks = {((lane // g) * stride4 + c * g + lane % g) % 8
+                     for lane in lanes}
+            assert len(banks) == 8, (K, quarter, c)
+
+
+@pytest.mark.parametrize("K,md,diag,n_obs,variant", [
+    (25, 4, True, 1000, "xstaged"), (25, 4, False, 1000, "xstaged"),
+    (25, 2, True, 1000, "xstaged"), (25, 4, True, 1912, "cta"),
+    (128, 4, True, 4000, "cta"), (8, 4, True, 60001, "cta"),
+    (128, 4, True, 0, "cta"), (129, 4, True, 100, "cta"),
+    (1024, 12, True, 100, None),
+])
+def test_logreg_kernel_variant_by_n_obs(K, md, diag, n_obs, variant):
+    """The logreg leaf takes the staged-X variant wherever X fits, the CTA
+    variant elsewhere: the benchmark's 1000 x 25 at max_depth 4 and at the
+    warmup's clamp, against chip_smoke's 4000 x 128 and the GPU tests'
+    60,001 x 8."""
+    assert tree_kernel.kernel_variant(tree_kernel.LOGREG, K, md, diag,
+                                      n_obs) == variant
+
+
+def test_launch_counts_carry_the_xstaged_launches():
+    from dynamichmc_tpu_torch import ops
+
+    tree_kernel.xstaged_launches = 3
+    assert ops.launch_counts()["tree_transition_xstaged"] == 3
+    ops.reset_launch_counts()
+    counts = ops.launch_counts()
+    assert counts["tree_transition_xstaged"] == 0
+    assert counts["tree_transition"] == counts["tree_transition_warp"] == 0
+
+
 @pytest.mark.parametrize("kind,K,md,diag,variant", [
     (tree_kernel.GAUSSIAN, 100, 4, False, "warp"),
     (tree_kernel.GAUSSIAN, 100, 4, True, "warp"),
