@@ -39,6 +39,12 @@ Phases (each one that fails ends the script with a non-zero exit code):
      - the fused logreg leaf at 2048 x 128 x 4000 with a shared diagonal,
        a per-chain diagonal and a shared dense metric, and the same at
        K = 300 (the gradient in two chunks of coordinates);
+     - the fused leaf's hierarchical mode (each chain's prior precision
+       e^-t, t its last coordinate) at the benchmark's logreg_hier_1000x302
+       shape, 16,384 chains x K = 302 x 1000 rows (two gradient chunks),
+       on that cell's seeded data, in the same three metric forms, against
+       its plain version and float64 by the same rule, each call one
+       launch of the hierarchical mode;
      - the fused Gaussian leaf (K2) at 4096 x 25 on N(0, I) with a shared
        and a per-chain diagonal metric, and at 4096 x 100 on
        correlated_gaussian(100) with a per-chain one; the fused Gaussian
@@ -61,7 +67,12 @@ Phases (each one that fails ends the script with a non-zero exit code):
        NUTS(max_depth=4), every launch through the tree kernel's staged-X
        variant; timed;
      - logreg_fused: the same model with the fused leaf in the plain
-       driver; timed.
+       driver; timed;
+     - logreg_hier_fused: hierarchical_logistic_regression_from_data on
+       the benchmark's logreg_hier_1000x302 data (K = 302), 4096 chains,
+       NUTS(max_depth=4), the fused leaf's hierarchical mode on every leaf
+       of the plain driver and no tree-kernel launch; timed, its draws of
+       t reported.
      Then BASELINE config 1, N(0, I_25) = mvnormal(0, I, fused=True), with
      the reference-default warmup (stepsize search, 900 transitions,
      per-chain diagonal metric and dual averaging, NUTS(), no clamp):
@@ -132,11 +143,13 @@ Phases (each one that fails ends the script with a non-zero exit code):
      path's gate: the Gaussian's moments, the funnel's v-marginal (|mean
      v| <= 0.4, sd(v) in [2.7, 3.3]), the two logreg runs' agreement
      (every posterior mean within 5 combined MCSE), N(0, I)'s moments and,
-     per chain, split R-hat and the acceptance rate. Each reports wall
+     per chain, split R-hat and the acceptance rate (logreg_hier_fused:
+     finite draws and ESS; the benchmark's cell holds its moments to its
+     reference). Each reports wall
      time, min and mean bulk ESS/s (device ESS, float64), gradient
      evaluations/s and divergences, and the diagnostics of its draws
      (reported, not gated): EBFMI (min and mean over the chains), the
-     termination and depth counts and, on the five run_chains paths,
+     termination and depth counts and, on the run_chains paths,
      straggler_waste with what its ``work`` counts there (each chain's
      own leaves on the tree-kernel paths, the batch's lockstep slots on
      the plain driver's).
@@ -154,7 +167,9 @@ Phases (each one that fails ends the script with a non-zero exit code):
      funnel tree kernels' their variant and plan: warps per CTA,
      registers, shared memory, CTAs per SM and resident warps per SM (the
      funnel's beside the CTA variant's plan at the same shape); the logreg
-     leaf's staged-X variant at 16,384 x 25 x 1000, md 4, its own.
+     leaf's staged-X variant at 16,384 x 25 x 1000, md 4, its own; the
+     fused leaf's hierarchical mode at 16,384 x 302 x 1000 with a shared
+     diagonal metric, its own line and plan.
   6. Protocol: two gates of the reference's statistical protocol
      (tests/torch_correctness_utils.py: split R-hat, ESS per draw,
      Anderson-Darling against exact draws, EBFMI, at the JAX gates'
@@ -254,6 +269,11 @@ C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
 # the logreg leaf's staged-X variant at the benchmark's shape, phases 3, 5
 C_XSTAGED, K_XSTAGED, N_XSTAGED = 16384, 25, 1000
 K_WIDE = 300  # the fused logreg leaf past 256 coordinates, phase 3
+# the fused leaf's hierarchical mode at the benchmark's logreg_hier_1000x302
+# shape (1000 rows, 24 covariates and their 276 products, an intercept and
+# t: K = 302, two gradient chunks): phases 3 and 5 at its 16,384 chains,
+# phase 4's logreg_hier_fused path at 4096
+C_HIER, N_HIER, D_HIER, C_HIER_PATH = 16384, 1000, 24, 4096
 C_GAUSS, K_GAUSS = 4096, 25  # BASELINE config 1 under the fleet
 N_PER_CHAIN, PER_CHAIN_SEEDS = 1000, (0, 1, 2, 3)
 N_GENERIC, GENERIC_SEEDS = 1000, (0, 1)  # the generic driver's path
@@ -552,24 +572,92 @@ def fused_leaf_inputs(model, C, kind, gen):
     return metric, q, p, g.contiguous(), eps.contiguous(), x32, y32, hook.inv_s2
 
 
+def hier_data():
+    """The data of the benchmark's logreg_hier_1000x302 (its configuration's
+    ``assumed``): from RandomState(0) the covariates, the design of
+    tests/torch_reference_hlr.py, 24 main effects of 0.2 N(0, 1), 276
+    interactions of 0.05 N(0, 1), the intercept -0.8473, then y ~
+    Bernoulli(sigmoid(X' b)). Returns float64 (x, y)."""
+    ref = tests_module("torch_reference_hlr")
+    rng = np.random.RandomState(0)
+    x = ref.design(rng.randn(N_HIER, D_HIER))
+    beta = np.concatenate([[-0.8473], 0.2 * rng.randn(D_HIER),
+                           0.05 * rng.randn(x.shape[1] - 1 - D_HIER)])
+    probs = 1 / (1 + np.exp(-(x @ beta)))
+    return x, (rng.uniform(size=N_HIER) < probs).astype(np.float64)
+
+
+def hier_leaf_inputs(model, C, kind, gen):
+    """Phase-3 inputs of the fused leaf's hierarchical mode (the joint
+    density has no mode to draw around): b ~ 0.1 N(0, 1) and t ~ U[-6, 1]
+    (the posterior's t lies near -5, the warmup's starts near 0); M^-1 a
+    shared diagonal from U[0.5, 2], the same scaled per chain by U[0.8,
+    1.25], or a shared dense A A^T / K + I; momenta from it, the model's
+    gradient, and a signed per-chain eps with |eps| in [0.005, 0.02], the
+    cell's step sizes."""
+    from dynamichmc_tpu_torch.metric import dense_metric, diagonal_metric
+    from dynamichmc_tpu_torch.tree_batched import rand_p_b
+
+    hook = model.fused_leaf_batched_fn
+    x32, y32 = hook.operands
+    dev, K = x32.device, model.dim
+    q = 0.1 * torch.randn((C, K), generator=gen, device=dev)
+    q[:, -1] = torch.empty(C, device=dev).uniform_(-6.0, 1.0, generator=gen)
+    if kind == "shared_dense":
+        a = torch.randn((K, K), generator=gen, device=dev)
+        metric = dense_metric(a @ a.mT / K + torch.eye(K, device=dev))
+    else:
+        m = torch.empty(K, device=dev).uniform_(0.5, 2.0, generator=gen)
+        if kind == "chain_diag":
+            m = (m * torch.empty((C, 1), device=dev).uniform_(
+                0.8, 1.25, generator=gen)).contiguous()
+        metric = diagonal_metric(m)
+    p = rand_p_b(gen, metric, (C, K), torch.float32).contiguous()
+    _v, g = model.logdensity_and_gradient(q)
+    sign = torch.where(torch.rand(C, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    eps = sign * torch.empty(C, device=dev).uniform_(0.005, 0.02, generator=gen)
+    return metric, q, p, g.contiguous(), eps.contiguous(), x32, y32, hook.rate
+
+
+def leaf_of(model):
+    """(kernel, plain version, inputs, label) of the model's fused logreg
+    leaf: the hierarchical mode where the hook carries a rate."""
+    from dynamichmc_tpu_torch.ops import logreg_leaf
+
+    if model.fused_leaf_batched_fn.rate is None:
+        return (logreg_leaf.logreg_leaf, logreg_leaf.logreg_leaf_plain,
+                fused_leaf_inputs, "logreg_fused")
+    return (logreg_leaf.logreg_leaf_hier, logreg_leaf.logreg_leaf_hier_plain,
+            hier_leaf_inputs, "logreg_fused_hier")
+
+
 def compare_fused_leaf(model, C, kind, gen):
-    """Phase 3 for the fused logreg leaf in one metric form:
+    """Phase 3 for the fused logreg leaf in one metric form, in the mode
+    the model's hook takes (:func:`leaf_of`):
     - ld' and pi' agree with the plain float32 version to 1e-4 (1 + |x|);
     - q', p', g', ld' and pi' are no further from the float64 plain leaf
       than twice the plain float32 version's distance, plus 1e-5 (1 + |x|):
-      the plain version sums the 4000 observations in cuBLAS's order, the
+      the plain version sums the observations in cuBLAS's order, the
       kernel in its own tiles;
-    - the -inf pattern of ld' and pi' is the plain version's."""
+    - the -inf pattern of ld' and pi' is the plain version's;
+    - the call is one launch, of the hierarchical mode exactly where the
+      model's prior is hierarchical."""
     from dynamichmc_tpu_torch.ops import logreg_leaf
 
-    args = fused_leaf_inputs(model, C, kind, gen)
-    out = logreg_leaf.logreg_leaf(*args)
-    ref = logreg_leaf.logreg_leaf_plain(*args)
+    kernel, plain, inputs, label = leaf_of(model)
+    args = inputs(model, C, kind, gen)
+    logreg_leaf.reset_launches()
+    out = kernel(*args)
+    hier = label == "logreg_fused_hier"
+    check(logreg_leaf.launches == 1 and logreg_leaf.hier_launches == hier,
+          f"{label}: {logreg_leaf.launches} launches, "
+          f"{logreg_leaf.hier_launches} of the hierarchical mode")
+    ref = plain(*args)
     metric = args[0]
     metric64 = type(metric)(metric.m_inv.double(), None)
-    ref64 = logreg_leaf.logreg_leaf_plain(metric64, *_as64(args[1:]))
+    ref64 = plain(metric64, *_as64(args[1:]))
     torch.cuda.synchronize()
-    result = {"config": f"logreg_fused K={model.dim} {kind}", "chains": C}
+    result = {"config": f"{label} K={model.dim} {kind}", "chains": C}
     fails = []
     want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
     names = ("q", "p", "g", "ld", "pi")
@@ -2480,11 +2568,11 @@ def main():
 
 
 PATHS = ("main", "funnel", "logreg_tree", "logreg_xstaged", "logreg_fused",
-         "gauss_fused", "per_chain")
+         "logreg_hier_fused", "gauss_fused", "per_chain")
 
 
 def profiled_paths(argv):
-    """The paths --profile names (all seven for a bare --profile)."""
+    """The paths --profile names (all eight for a bare --profile)."""
     names = ()
     for arg in argv:
         if arg == "--profile":
@@ -2501,7 +2589,8 @@ def run_phases(dev, smi, profile=()):
     paths to repeat under torch.profiler."""
     from dynamichmc_tpu_torch.hamiltonian import EvaluatedPoint, PhasePoint
     from dynamichmc_tpu_torch.models import (
-        correlated_gaussian, funnel, logistic_regression, mvnormal)
+        correlated_gaussian, funnel, hierarchical_logistic_regression_from_data,
+        logistic_regression, mvnormal)
     from dynamichmc_tpu_torch.ops import (
         gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel)
 
@@ -2517,6 +2606,8 @@ def run_phases(dev, smi, profile=()):
                                    device=dev, fused=True)
     lr_wide = logistic_regression(N_OBS, K_WIDE, dtype=torch.float32,
                                   device=dev, fused=True)
+    lr_hier = hierarchical_logistic_regression_from_data(
+        *hier_data(), rate=0.01, dtype=torch.float32, device=dev, fused=True)
     # BASELINE config 1: N(0, I_25) through the Gaussian model with hooks
     normal = mvnormal(np.zeros(K_GAUSS), np.eye(K_GAUSS), dtype=torch.float32,
                       device=dev, fused=True)
@@ -2525,7 +2616,7 @@ def run_phases(dev, smi, profile=()):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     phase3 = {"gaussian": [], "gaussian_cta": [], "funnel": [],
               "funnel_cta": [], "logreg_tree": [], "logreg_xstaged": [],
-              "logreg_fused": [],
+              "logreg_fused": [], "logreg_fused_hier": [],
               "gaussian_leaf": [], "gaussian_leapfrog": []}
 
     def phase3_result(key, r):
@@ -2563,6 +2654,11 @@ def run_phases(dev, smi, profile=()):
         for kind in ("shared_diag", "chain_diag", "shared_dense"):
             phase3_result("logreg_fused",
                           compare_fused_leaf(model, C_LOGREG, kind, gen))
+    # from a generator of its own, as logreg_xstaged's
+    gen_hier = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for kind in ("shared_diag", "chain_diag", "shared_dense"):
+        phase3_result("logreg_fused_hier",
+                      compare_fused_leaf(lr_hier, C_HIER, kind, gen_hier))
     # the last K whose plan stages prec and L at 4096 chains, and the next
     k_st = gaussian_leaf.staging_limit(C_GAUSS, gaussian_leaf.sm_count(dev.index))
     staged_last, staged_next = (
@@ -2612,6 +2708,10 @@ def run_phases(dev, smi, profile=()):
         "logreg_xstaged": (lr_staged, C_XSTAGED,
                            path_config("diagonal", MD_LOGREG)),
         "logreg_fused": (lr_fused, C_LOGREG, path_config("diagonal", MD_LOGREG)),
+        # the benchmark's logreg_hier_1000x302 through the plain driver and
+        # the fused leaf's hierarchical mode, at a quarter of its chains
+        "logreg_hier_fused": (lr_hier, C_HIER_PATH,
+                              path_config("diagonal", MD_LOGREG)),
         # BASELINE config 1 under the fleet: the reference-default warmup
         "gauss_fused": (normal, C_GAUSS, {"tune": "reference"}),
     }
@@ -2630,15 +2730,21 @@ def run_phases(dev, smi, profile=()):
               f"{name}: positions shape {tuple(res.positions.shape)}")
         check(counts["gaussian_leapfrog"] == 0,
               f"{name}: the fused Gaussian leapfrog launched")
-        if name in ("logreg_fused", "gauss_fused"):
-            own = "logreg_fused_leaf" if name == "logreg_fused" else "gaussian_fused_leaf"
-            other = "gaussian_fused_leaf" if name == "logreg_fused" else "logreg_fused_leaf"
+        if name in ("logreg_fused", "logreg_hier_fused", "gauss_fused"):
+            own = "gaussian_fused_leaf" if name == "gauss_fused" else "logreg_fused_leaf"
+            other = "logreg_fused_leaf" if name == "gauss_fused" else "gaussian_fused_leaf"
             check(counts["tree_transition"] == 0,
                   f"{name}: the tree kernel launched")
             check(counts[other] == 0, f"{name}: {other} launched")
             check(counts[own] == counts["driver_fused_leaves"] > 0,
                   f"{name}: {own} launched {counts[own]} times for "
                   f"{counts['driver_fused_leaves']} driver leaves")
+            # the hierarchical mode on every leaf of its path, on no other
+            want_hier = counts[own] if name == "logreg_hier_fused" else 0
+            check(counts["logreg_fused_leaf_hier"] == want_hier,
+                  f"{name}: the hierarchical mode launched "
+                  f"{counts['logreg_fused_leaf_hier']} times, expected "
+                  f"{want_hier}")
             launches[name] = counts[own]
         else:
             check(counts["tree_transition"] == expected,
@@ -2668,6 +2774,14 @@ def run_phases(dev, smi, profile=()):
                 res.positions.double().reshape(-1, K_GAUSS), 0.05, (0.9, 1.1)))
             metrics["leaf_slots_per_transition"] = (
                 counts["driver_fused_leaves"] / expected)
+        elif name == "logreg_hier_fused":
+            # t = log sigma^2's draws, reported: the benchmark's cell holds
+            # the moments to its reference
+            metrics, _ess = path_metrics(res, seconds)
+            t = res.positions[:, :, -1].double()
+            metrics.update({"mean_t": float(t.mean()),
+                            "sd_t": float(t.std(correction=0)),
+                            "min_bulk_ess_t": float(_ess[-1])})
         else:
             metrics, ess = path_metrics(res, seconds)
             summaries[name] = posterior_summary(res, ess)
@@ -2758,14 +2872,22 @@ def run_phases(dev, smi, profile=()):
     times["logreg_fused"] = (time_call(logreg_leaf.logreg_leaf, args, 50),
                              time_call(logreg_leaf.logreg_leaf_plain, args, 50))
     bounds["logreg_fused"] = logreg_leaf_bound(args)
-    info = logreg_leaf.kernel_info(dev, 0, K_LOGREG)
-    plan = logreg_leaf.launch_plan(C_LOGREG, K_LOGREG, N_OBS, info.sm_count,
-                                   info.blocks_per_sm)
-    plans = {"logreg_fused": {
-        "slices": plan.slices, "tiles_per_slice": plan.tiles_per_slice,
-        "tile_rows": plan.tile, "chunks": plan.chunks,
-        "registers": info.registers, "smem_bytes": info.smem,
-        "ctas_per_sm": info.blocks_per_sm, "sms": info.sm_count}}
+    args = hier_leaf_inputs(lr_hier, C_HIER, "shared_diag", gen_hier)
+    times["logreg_fused_hier"] = (
+        time_call(logreg_leaf.logreg_leaf_hier, args, 20),
+        time_call(logreg_leaf.logreg_leaf_hier_plain, args, 20))
+    bounds["logreg_fused_hier"] = logreg_leaf_bound(args)
+    plans = {}
+    for key, (C, K, n) in (("logreg_fused", (C_LOGREG, K_LOGREG, N_OBS)),
+                           ("logreg_fused_hier", (C_HIER, lr_hier.dim, N_HIER))):
+        info = logreg_leaf.kernel_info(dev, 0, K)
+        plan = logreg_leaf.launch_plan(C, K, n, info.sm_count,
+                                       info.blocks_per_sm)
+        plans[key] = {
+            "slices": plan.slices, "tiles_per_slice": plan.tiles_per_slice,
+            "tile_rows": plan.tile, "chunks": plan.chunks,
+            "registers": info.registers, "smem_bytes": info.smem,
+            "ctas_per_sm": info.blocks_per_sm, "sms": info.sm_count}
     for name, shape in (("gaussian", (tree_kernel.GAUSSIAN, K_MAIN, MD_MAIN, False)),
                         ("funnel", (tree_kernel.FUNNEL, K_FUNNEL, MD_FUNNEL, True))):
         variant = tree_kernel.kernel_variant(*shape)
@@ -2781,7 +2903,8 @@ def run_phases(dev, smi, profile=()):
               "logreg_tree": [C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG, "diag"],
               "logreg_xstaged": [C_XSTAGED, K_XSTAGED, N_XSTAGED, MD_LOGREG,
                                  "diag"],
-              "logreg_fused": [C_LOGREG, K_LOGREG, N_OBS, "shared_diag"]}
+              "logreg_fused": [C_LOGREG, K_LOGREG, N_OBS, "shared_diag"],
+              "logreg_fused_hier": [C_HIER, lr_hier.dim, N_HIER, "shared_diag"]}
     device_times = {}
     models = {K_GAUSS: normal, K_MAIN: gauss100,
               1: mvnormal(np.zeros(1), np.eye(1), dtype=torch.float32,
@@ -2856,6 +2979,9 @@ def run_phases(dev, smi, profile=()):
         ("tree_transition_logreg_xstaged", "logreg_xstaged", "logreg_xstaged",
          "dynamichmc_tpu/ops/pallas_tree.py:762", "tree_kernel.cu"),
         ("logreg_fused_leaf", "logreg_fused", "logreg_fused",
+         "dynamichmc_tpu/ops/pallas_logreg.py:53", "logreg_leaf.cu"),
+        # the same kernel's hierarchical mode, which the JAX leaf lacks
+        ("logreg_fused_leaf_hier", "logreg_fused_hier", "logreg_hier_fused",
          "dynamichmc_tpu/ops/pallas_logreg.py:53", "logreg_leaf.cu"),
         ("gaussian_fused_leaf", "gaussian_leaf", "gauss_fused",
          "dynamichmc_tpu/ops/pallas_leaf.py:32", "gaussian_leaf.cu"),

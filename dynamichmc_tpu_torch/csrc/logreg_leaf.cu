@@ -16,7 +16,9 @@
 // with the stable softplus and the tanh-form sigmoid of pallas_logreg.py and
 // its -inf poisoning: ld' becomes -inf when it or any g' is non-finite
 // (unless it is -inf already), pi' becomes -inf when it or ld' is
-// non-finite.
+// non-finite. The hierarchical mode (Hoffman and Gelman's HLR) replaces the
+// fixed 1/s^2 by each chain's e^-t, its last coordinate t = log sigma^2
+// (logreg_leaf_finish_kernel<MODE, true>).
 //
 // Design. The leaf has no tree state, so chains are independent. Two
 // kernels run one after the other on the caller's stream:
@@ -357,14 +359,24 @@ __global__ void __launch_bounds__(kThreads)
 // the kinetic energy, ld' and pi'. q' is read back from qn (the slice
 // kernel wrote it). Dense: p' of the warp's chain is staged in shared
 // memory (kFinishChains x KX floats) for the matvec.
-template <int MODE>
+//
+// HIER, the hierarchical prior: the last coordinate is t = log sigma^2,
+// the others b share a N(0, e^t) prior and e^t an Exponential(`prior`)
+// one, so with P = K - 1 and the chain's own precision e^-t
+//   ld' = sum_i y_i l_i - softplus(l_i) - 1/2 e^-t ||b'||^2 - P/2 t - prior e^t + t
+//   g'_b = X^T (y - sigmoid(l)) - e^-t b'
+//   g'_t = 1/2 e^-t ||b'||^2 - P/2 - prior e^t + 1
+// X's last column is zero (the caller's), so the slice kernel's logits are
+// those of b' and its partial sums for t are 0 and go unread; g'_t waits
+// for the warp's sum ||b'||^2. Flat (HIER false): `prior` is 1/s^2.
+template <int MODE, bool HIER>
 __global__ void __launch_bounds__(kThreads)
     logreg_leaf_finish_kernel(const float* __restrict__ p, const float* __restrict__ g,
                               const float* __restrict__ eps, const float* __restrict__ minv,
                               const float* __restrict__ qn, const float* __restrict__ ws,
                               float* __restrict__ pn, float* __restrict__ gn,
                               float* __restrict__ ldn, float* __restrict__ pin, int C, int K,
-                              int S, float inv_s2) {
+                              int S, float prior) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = blockIdx.x * kFinishChains + warp;
@@ -374,14 +386,17 @@ __global__ void __launch_bounds__(kThreads)
   const float half = 0.5f * eps[c];
   const size_t stride = (size_t)C * (K + 1);  // one slice of the workspace
   const float* wc = ws + (size_t)c * (K + 1);
+  const int KB = HIER ? K - 1 : K;  // the coordinates under the Gaussian prior
+  const float t = HIER ? qn[(size_t)c * K + K - 1] : 0.f;
+  const float prec = HIER ? expf(-t) : prior;
   float kin = 0.f, sq = 0.f, bad = 0.f;
-  for (int k = lane; k < K; k += 32) {
+  for (int k = lane; k < KB; k += 32) {
     const size_t off = (size_t)c * K + k;
     float G = wc[k];
     for (int s = 1; s < S; ++s) G += wc[s * stride + k];
     const float qv = qn[off];
     const float pm = p[off] + half * g[off];
-    const float gnew = G - inv_s2 * qv;
+    const float gnew = G - prec * qv;
     const float pnew = pm + half * gnew;
     sq += qv * qv;
     bad += isfinite(gnew) ? 0.f : 1.f;
@@ -390,6 +405,21 @@ __global__ void __launch_bounds__(kThreads)
     if (MODE == kSharedDense) Pw[k] = pnew;
     pn[off] = pnew;
     gn[off] = gnew;
+  }
+  const float et = HIER ? expf(t) : 0.f;
+  if (HIER) {
+    sq = warp_sum(sq);
+    if (lane == 0) {
+      const size_t off = (size_t)c * K + K - 1;
+      const float gnew = 0.5f * prec * sq - 0.5f * (float)(K - 1) - prior * et + 1.f;
+      const float pnew = p[off] + half * g[off] + half * gnew;
+      bad += isfinite(gnew) ? 0.f : 1.f;
+      if (MODE == kSharedDiag) kin += __ldg(minv + K - 1) * pnew * pnew;
+      if (MODE == kChainDiag) kin += __ldg(minv + off) * pnew * pnew;
+      if (MODE == kSharedDense) Pw[K - 1] = pnew;
+      pn[off] = pnew;
+      gn[off] = gnew;
+    }
   }
   if (MODE == kSharedDense) {
     __syncwarp();
@@ -400,12 +430,13 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   kin = warp_sum(kin);
-  sq = warp_sum(sq);
+  if (!HIER) sq = warp_sum(sq);
   bad = warp_sum(bad);
   if (lane == 0) {
     float l_sum = wc[K];
     for (int s = 1; s < S; ++s) l_sum += wc[s * stride + K];
-    float ld = l_sum + (-0.5f * inv_s2 * sq);
+    float ld = l_sum + (-0.5f * prec * sq);
+    if (HIER) ld += t - 0.5f * (float)(K - 1) * t - prior * et;
     float pi = ld - 0.5f * kin;
     const bool ok = isfinite(ld) && bad == 0.f;
     if (!(ok || ld == neg_inf())) ld = neg_inf();
@@ -443,13 +474,18 @@ SliceKernel slice_kernel(int mode, int K, int TN) {
   }
 }
 
-FinishKernel finish_kernel(int mode) {
+template <bool HIER>
+FinishKernel finish_kernel_for(int mode) {
   switch (mode) {
-    case kSharedDiag: return logreg_leaf_finish_kernel<kSharedDiag>;
-    case kChainDiag: return logreg_leaf_finish_kernel<kChainDiag>;
-    case kSharedDense: return logreg_leaf_finish_kernel<kSharedDense>;
+    case kSharedDiag: return logreg_leaf_finish_kernel<kSharedDiag, HIER>;
+    case kChainDiag: return logreg_leaf_finish_kernel<kChainDiag, HIER>;
+    case kSharedDense: return logreg_leaf_finish_kernel<kSharedDense, HIER>;
     default: return nullptr;
   }
+}
+
+FinishKernel finish_kernel(int mode, int hier) {
+  return hier ? finish_kernel_for<true>(mode) : finish_kernel_for<false>(mode);
 }
 
 // The slice kernel for (mode, K, TN) with its dynamic shared memory
@@ -488,18 +524,20 @@ int logreg_leaf_info(int mode, int K, int tile, int* smem, int* regs, int* block
 }
 
 // One leaf for C chains on `stream`. mode: 0 shared diagonal minv (K),
-// 1 per-chain diagonal (C, K), 2 shared dense (K, K). X is (n_obs, KX)
+// 1 per-chain diagonal (C, K), 2 shared dense (K, K). hier: 0 the flat
+// N(0, 1 / prior) prior, 1 the hierarchical one with rate `prior` (its t
+// the last coordinate, X's last column zero). X is (n_obs, KX)
 // row-major with KX = K rounded up to 4 and zero pad columns; y (n_obs).
 // ws: slices x C x (K + 1) floats of workspace. The observations' n_tiles
 // tiles of `tile` rows go to `slices` slices of tiles_per_slice tiles, none
 // empty. Returns the cudaGetLastError() of the launches (0 on success).
 int logreg_leaf_f32(const float* q, const float* p, const float* g, const float* eps,
-                    const float* minv, int mode, const float* X, const float* y, float* qn,
-                    float* pn, float* gn, float* ldn, float* pin, float* ws, int C, int K,
-                    int n_obs, int tile, int slices, int tiles_per_slice, float inv_s2,
+                    const float* minv, int mode, int hier, const float* X, const float* y,
+                    float* qn, float* pn, float* gn, float* ldn, float* pin, float* ws, int C,
+                    int K, int n_obs, int tile, int slices, int tiles_per_slice, float prior,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C < 1 || K < 1 || n_obs < 1 || slices < 1 || tiles_per_slice < 1)
+  if (C < 1 || K < 1 + hier || n_obs < 1 || slices < 1 || tiles_per_slice < 1)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (n_obs + tile - 1) / tile;
   if ((long long)slices * tiles_per_slice < n_tiles ||
@@ -507,7 +545,7 @@ int logreg_leaf_f32(const float* q, const float* p, const float* g, const float*
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
   SliceKernel slice = prepared_slice_kernel(mode, K, tile, smem);
-  FinishKernel finish = finish_kernel(mode);
+  FinishKernel finish = finish_kernel(mode, hier);
   if (slice == nullptr || finish == nullptr) return (int)cudaErrorInvalidValue;
   const int chunk = K <= 128 ? 128 : 256;
   const dim3 grid((C + kChains - 1) / kChains, slices, (K + chunk - 1) / chunk);
@@ -523,7 +561,7 @@ int logreg_leaf_f32(const float* q, const float* p, const float* g, const float*
     if (err != cudaSuccess) return (int)err;
   }
   finish<<<(C + kFinishChains - 1) / kFinishChains, kThreads, fsmem, s>>>(
-      p, g, eps, minv, qn, ws, pn, gn, ldn, pin, C, K, slices, inv_s2);
+      p, g, eps, minv, qn, ws, pn, gn, ldn, pin, C, K, slices, prior);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,11 @@ from .hierarchical import (
     eight_schools_noncentered,
     rosenbrock,
 )
-from .logreg import logistic_regression, logistic_regression_from_data
+from .logreg import (
+    hierarchical_logistic_regression_from_data,
+    logistic_regression,
+    logistic_regression_from_data,
+)
 from .mixture import mixture
 from .transforms import elongate
 
@@ -26,6 +30,7 @@ __all__ = [
     "elongate",
     "extreme_variance_gaussian",
     "funnel",
+    "hierarchical_logistic_regression_from_data",
     "ill_conditioned_gaussian",
     "logistic_regression",
     "logistic_regression_from_data",

@@ -107,3 +107,60 @@ def logistic_regression(n_obs: int = 1000, dim: int = 25, seed: int = 0,
     return logistic_regression_from_data(
         x_np, y_np, prior_scale=prior_scale, dtype=dtype, device=device,
         fused=fused, tree_kernel=tree_kernel)
+
+
+def hierarchical_logistic_regression_from_data(
+        x, y, rate: float = 0.01, dtype=torch.float64, device="cuda",
+        fused=False, tree_kernel=False) -> TestModel:
+    """Hoffman and Gelman's hierarchical logistic regression (2014, JMLR
+    15, section 4, model HLR) for design matrix ``x`` (n_obs, P), its ones
+    column included, and 0/1 responses ``y``: all P coefficients b share
+    one scale, b_i ~ N(0, sigma^2), sigma^2 ~ Exponential(``rate``). The
+    model samples q = (b, t) with t = log sigma^2, so its dim is P + 1:
+
+        ld(q) = sum_n (y_n l_n - softplus(l_n)) - 1/2 e^-t |b|^2
+                - P/2 t - rate e^t + t,     l = x b.
+
+    The value is batched, ``(..., P + 1) -> (...)``; its gradient comes
+    from autograd. ``fused=True`` attaches the fused leaf in its
+    hierarchical mode (``ops/logreg_leaf.logreg_leaf_hier``), so the plain
+    batch driver runs every leaf as one launch; ``fused="auto"`` does so
+    where ``fused_leaf_pays(n_obs, P + 1)``. The whole-transition kernel
+    has no hierarchical prior: ``tree_kernel="auto"`` attaches nothing and
+    ``tree_kernel=True`` raises."""
+    if tree_kernel not in (False, "auto"):
+        raise ValueError(f"tree_kernel={tree_kernel!r}: the whole-transition "
+                         "kernel has no hierarchical prior; use fused=True, "
+                         "the fused leaf's hierarchical mode")
+    device = resolve_device(device)
+    x_np = np.asarray(x, np.float64)
+    y_np = np.asarray(y, np.float64)
+    n_obs, P = x_np.shape
+    if fused == "auto":
+        from ..ops.logreg_leaf import fused_leaf_pays
+
+        fused = fused_leaf_pays(n_obs, P + 1)
+    fused_leaf_batched_fn = None
+    if fused:
+        from ..ops.logreg_leaf import make_logreg_fused_leaf_batched
+
+        fused_leaf_batched_fn = make_logreg_fused_leaf_batched(
+            x_np, y_np, device=device, rate=rate)
+
+    xt = torch.as_tensor(x_np, dtype=dtype, device=device)
+    yt = torch.as_tensor(y_np, dtype=dtype, device=device)
+
+    def logdensity_fn(q):
+        b, t = q[..., :P], q[..., P]
+        logits = b @ xt.to(q.dtype).mT
+        loglik = (yt.to(q.dtype) * logits).sum(-1) - torch.logaddexp(
+            torch.zeros((), dtype=q.dtype, device=q.device), logits).sum(-1)
+        return (loglik - 0.5 * torch.exp(-t) * (b * b).sum(-1)
+                - 0.5 * P * t - rate * torch.exp(t) + t)
+
+    return TestModel(
+        dim=P + 1,
+        logdensity_fn=logdensity_fn,
+        fused_leaf_batched_fn=fused_leaf_batched_fn,
+        device=device,
+    )

@@ -20,7 +20,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """The counts since :func:`reset_launch_counts`: each kernel's
-    launches (the tree kernel's warp and staged-X variants apart), the
+    launches (the tree kernel's warp and staged-X variants apart, the
+    fused logreg leaf's hierarchical mode apart), the
     tree kernel's hook's declines by reason (``tree_transition_declined``:
     ``dtype``, ``statistic``, ``per_chain_metric``, ``shape``; the plain
     driver ran those transitions), the leaves the plain driver handed to a fused
@@ -28,8 +29,9 @@ def launch_counts() -> dict:
     the step loops' batch transitions (``transitions_warmup``,
     ``transitions_draws``), the host reads by site (``host_reads``) and,
     where a torch.profiler session was active, the span aggregates
-    (``spans``) and the phases' leapfrog steps (``warmup_steps``,
-    ``draw_steps``)."""
+    (``spans``), the phases' leapfrog steps (``warmup_steps``,
+    ``draw_steps``) and the chain rows handed to the fused logreg leaf by
+    phase (``fused_leaf_rows``)."""
     from .. import hamiltonian, profiling, tree_batched
     from . import gaussian_leaf, gaussian_leapfrog, logreg_leaf, tree_kernel
 
@@ -37,6 +39,7 @@ def launch_counts() -> dict:
             "tree_transition_warp": tree_kernel.warp_launches,
             "tree_transition_xstaged": tree_kernel.xstaged_launches,
             "logreg_fused_leaf": logreg_leaf.launches,
+            "logreg_fused_leaf_hier": logreg_leaf.hier_launches,
             "gaussian_fused_leaf": gaussian_leaf.launches,
             "gaussian_leapfrog": gaussian_leapfrog.launches,
             "driver_fused_leaves": tree_batched.fused_leaf_calls,

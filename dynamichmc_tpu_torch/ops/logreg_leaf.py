@@ -14,6 +14,9 @@ partial sums to a workspace; a finish kernel sums them in a fixed order.
 :func:`logreg_leaf_plain`, the same leaf in torch ops. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``launches`` counts the
 wrapper's launches (one slice and one finish kernel each).
+:func:`logreg_leaf_hier` (plain version :func:`logreg_leaf_hier_plain`)
+is the same leaf under Hoffman and Gelman's hierarchical prior, the finish
+kernel's hierarchical mode; ``hier_launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..metric import DenseMetric, DiagonalMetric, Metric
+from ..profiling import count_in_phase
 from ..tree_batched import kinetic_b, psharp_b
 from .cuda_build import CudaLibrary
 
@@ -36,7 +40,7 @@ MAX_SMEM_BYTES = 232448  # H100: dynamic shared memory of one CTA
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 library = CudaLibrary("logreg_leaf", {
     "logreg_leaf_f32": (
-        [_vp] * 5 + [_ci] + [_vp] * 8 + [_ci] * 6 + [_cf, _vp], _ci,
+        [_vp] * 5 + [_ci] * 2 + [_vp] * 8 + [_ci] * 6 + [_cf, _vp], _ci,
     ),
     "logreg_leaf_info": ([_ci] * 3 + [_vp] * 3, _ci),
 })
@@ -175,12 +179,13 @@ def pad_columns(x):
     return out[:, :K]
 
 
-launches = 0  # wrapper launches made by logreg_leaf
+launches = 0  # wrapper launches made by logreg_leaf and logreg_leaf_hier
+hier_launches = 0  # those of logreg_leaf_hier (the hierarchical prior)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, hier_launches
+    launches = hier_launches = 0
 
 
 def softplus(x):
@@ -193,24 +198,57 @@ def sigmoid(x):
     return 0.5 * (torch.tanh(0.5 * x) + 1.0)
 
 
-def logreg_leaf_plain(metric: Metric, q, p, g, eps_signed, x, y,
-                      inv_s2: float):
-    """The leaf in torch ops, in q's dtype, for any metric form (per-chain
-    dense too). Returns (q', p', g', ld', pi') with the kernel's -inf
-    poisoning."""
+def _plain_leaf(metric: Metric, q, p, g, eps_signed, value_and_grad):
+    """The leaf in torch ops around ``value_and_grad(q') -> (ld', g')``,
+    with the kernel's -inf poisoning."""
     half = 0.5 * eps_signed[:, None]
     p_mid = p + half * g
     q_new = q + eps_signed[:, None] * psharp_b(metric, p_mid)
-    logits = q_new @ x.mT
-    ld = (y * logits - softplus(logits)).sum(-1) + (
-        -0.5 * inv_s2 * (q_new * q_new).sum(-1))
-    g_new = (y - sigmoid(logits)) @ x - inv_s2 * q_new
+    ld, g_new = value_and_grad(q_new)
     p_new = p_mid + half * g_new
     pi = ld - kinetic_b(metric, p_new)
     ok = torch.isfinite(ld) & torch.isfinite(g_new).all(-1)
     ld = torch.where(ok | (ld == -torch.inf), ld, -torch.inf)
     pi = torch.where(torch.isfinite(pi) & torch.isfinite(ld), pi, -torch.inf)
     return q_new, p_new, g_new, ld, pi
+
+
+def logreg_leaf_plain(metric: Metric, q, p, g, eps_signed, x, y,
+                      inv_s2: float):
+    """The leaf in torch ops, in q's dtype, for any metric form (per-chain
+    dense too). Returns (q', p', g', ld', pi') with the kernel's -inf
+    poisoning."""
+
+    def value_and_grad(q_new):
+        logits = q_new @ x.mT
+        ld = (y * logits - softplus(logits)).sum(-1) + (
+            -0.5 * inv_s2 * (q_new * q_new).sum(-1))
+        return ld, (y - sigmoid(logits)) @ x - inv_s2 * q_new
+
+    return _plain_leaf(metric, q, p, g, eps_signed, value_and_grad)
+
+
+def logreg_leaf_hier_plain(metric: Metric, q, p, g, eps_signed, x, y,
+                           rate: float):
+    """:func:`logreg_leaf_plain` under the hierarchical prior: q's last
+    coordinate is t = log sigma^2, the other P = K - 1 share a N(0, e^t)
+    prior and e^t an Exponential(``rate``) one. x is (n_obs, K), the
+    design with a last column for t, which is not read."""
+    P = q.shape[-1] - 1
+    xb = x[:, :P]
+
+    def value_and_grad(q_new):
+        b, t = q_new[:, :P], q_new[:, P]
+        logits = b @ xb.mT
+        prec, et = torch.exp(-t), torch.exp(t)
+        sq = (b * b).sum(-1)
+        ld = (y * logits - softplus(logits)).sum(-1) + (-0.5 * prec * sq) + (
+            t - 0.5 * P * t - rate * et)
+        g_b = (y - sigmoid(logits)) @ xb - prec[:, None] * b
+        g_t = 0.5 * prec * sq - 0.5 * P - rate * et + 1.0
+        return ld, torch.cat([g_b, g_t[:, None]], -1)
+
+    return _plain_leaf(metric, q, p, g, eps_signed, value_and_grad)
 
 
 def _metric_mode(metric: Metric, C: int, K: int) -> int:
@@ -239,9 +277,27 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
     rounded up to 4: an x laid out otherwise is copied so first
     (:func:`pad_columns`; the hook's operand needs no copy). Raises for
     K > MAX_K. Returns (q', p', g', ld', pi')."""
-    global launches
     if q.device.type == "cpu":
         return logreg_leaf_plain(metric, q, p, g, eps_signed, x, y, inv_s2)
+    return _launch(metric, q, p, g, eps_signed, x, y, float(inv_s2), False)
+
+
+def logreg_leaf_hier(metric: Metric, q, p, g, eps_signed, x, y,
+                     rate: float):
+    """:func:`logreg_leaf` under the hierarchical prior of
+    :func:`logreg_leaf_hier_plain`: the finish kernel's hierarchical mode,
+    with each chain's precision e^-t. x: (n_obs, K) with its last column
+    zero, so the slice kernel's logits are those of q's first K - 1
+    coordinates. Raises for K > MAX_K or K < 2."""
+    if q.device.type == "cpu":
+        return logreg_leaf_hier_plain(metric, q, p, g, eps_signed, x, y, rate)
+    return _launch(metric, q, p, g, eps_signed, x, y, float(rate), True)
+
+
+def _launch(metric: Metric, q, p, g, eps_signed, x, y, prior: float,
+            hier: bool):
+    """The kernel's launch: checks, plan, outputs and workspace."""
+    global launches, hier_launches
     if q.device.type != "cuda":
         raise ValueError(f"logreg leaf kernel: unsupported device {q.device}")
     C, K = q.shape
@@ -263,9 +319,9 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
         if tuple(t.shape) != shape:
             raise ValueError(f"logreg leaf kernel: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
-    if not 1 <= K <= MAX_K or n_obs < 1:
-        raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K} "
-                         f"or no observations")
+    if not 1 + hier <= K <= MAX_K or n_obs < 1:
+        raise ValueError(f"logreg leaf kernel: K = {K} outside "
+                         f"{1 + hier}..{MAX_K} or no observations")
     info = kernel_info(q.device, mode, K)
     plan = launch_plan(C, K, n_obs, info.sm_count, info.blocks_per_sm)
     if x.stride() != (_kx(K), 1) or x.data_ptr() % 16:
@@ -278,19 +334,20 @@ def logreg_leaf(metric: Metric, q, p, g, eps_signed, x, y, inv_s2: float):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.logreg_leaf_f32(
         q.data_ptr(), p.data_ptr(), g.data_ptr(), eps_signed.data_ptr(),
-        minv.data_ptr(), mode, x.data_ptr(), y.data_ptr(), qn.data_ptr(),
-        pn.data_ptr(), gn.data_ptr(), ldn.data_ptr(), pin.data_ptr(),
-        ws.data_ptr(), C, K, n_obs, plan.tile, plan.slices,
-        plan.tiles_per_slice, float(inv_s2), stream,
+        minv.data_ptr(), mode, int(hier), x.data_ptr(), y.data_ptr(),
+        qn.data_ptr(), pn.data_ptr(), gn.data_ptr(), ldn.data_ptr(),
+        pin.data_ptr(), ws.data_ptr(), C, K, n_obs, plan.tile, plan.slices,
+        plan.tiles_per_slice, prior, stream,
     )
     if err != 0:
         raise RuntimeError(f"logreg leaf kernel launch failed: CUDA error {err}")
     launches += 1
+    hier_launches += hier
     return qn, pn, gn, ldn, pin
 
 
 def make_logreg_fused_leaf_batched(x, y, prior_scale: float = 10.0,
-                                   device=None):
+                                   device=None, rate=None):
     """Hook for ``LogDensity.fused_leaf_batched_fn`` on the logistic
     regression posterior of models/logreg.py, with the semantics of
     pallas_logreg.py::make_logreg_fused_leaf_batched:
@@ -303,27 +360,42 @@ def make_logreg_fused_leaf_batched(x, y, prior_scale: float = 10.0,
     plain leaf on the CPU. Other dtypes (float64 runs) and per-chain dense
     metrics take the plain leaf in the chains' dtype, as the JAX hook's
     fallback does for them. The float32 X is kept with its columns padded
-    to a multiple of 4 (:func:`pad_columns`)."""
+    to a multiple of 4 (:func:`pad_columns`).
+
+    ``rate``: the hierarchical prior's rate (models/logreg.py,
+    ``hierarchical_logistic_regression_from_data``); the chains then carry
+    t = log sigma^2 after the coefficients, the leaf is
+    :func:`logreg_leaf_hier`, and X gains a zero column for t. Under a
+    profiler the hook counts the chain rows it is handed
+    (``fused_leaf_rows``, by phase)."""
     x_full = torch.as_tensor(np.asarray(x), device=device)
+    if rate is not None:
+        x_full = torch.cat([x_full, x_full.new_zeros((x_full.shape[0], 1))], 1)
     y_full = torch.as_tensor(np.asarray(y), device=device)
     x32 = pad_columns(x_full)
     y32 = y_full.to(torch.float32).contiguous()
-    inv_s2 = 1.0 / float(prior_scale) ** 2
+    inv_s2 = 1.0 / float(prior_scale) ** 2 if rate is None else None
+    if rate is None:
+        leaf, plain, prior = logreg_leaf, logreg_leaf_plain, inv_s2
+    else:
+        leaf, plain, prior = logreg_leaf_hier, logreg_leaf_hier_plain, float(rate)
 
     def fused(metric, q, p, g, eps_signed):
+        count_in_phase("fused_leaf_rows", q.shape[0])
         dense = isinstance(metric, DenseMetric)
         if q.dtype != torch.float32 or (dense and metric.m_inv.ndim == 3):
-            return logreg_leaf_plain(metric, q, p, g, eps_signed,
-                                     x_full.to(q.device, q.dtype),
-                                     y_full.to(q.device, q.dtype), inv_s2)
+            return plain(metric, q, p, g, eps_signed,
+                         x_full.to(q.device, q.dtype),
+                         y_full.to(q.device, q.dtype), prior)
         if isinstance(metric, DiagonalMetric):
             metric = DiagonalMetric(m_inv=metric.m_inv.contiguous(), w_diag=None)
         else:
             metric = DenseMetric(m_inv=metric.m_inv.contiguous(), w=None)
-        return logreg_leaf(metric, q.contiguous(), p.contiguous(),
-                           g.contiguous(), eps_signed.contiguous(),
-                           x32.to(q.device), y32.to(q.device), inv_s2)
+        return leaf(metric, q.contiguous(), p.contiguous(), g.contiguous(),
+                    eps_signed.contiguous(), x32.to(q.device), y32.to(q.device),
+                    prior)
 
     fused.operands = (x32, y32)  # the kernel's data
     fused.inv_s2 = inv_s2
+    fused.rate = rate
     return fused

@@ -11,7 +11,7 @@ over a batch of chains: the package's own measure of its hot path. The
 numerical trajectory tracers live in diagnostics.py.
 
 The program's spans and counters (:func:`span`, :func:`count_transition`,
-:func:`host_read`) are read through ``ops.launch_counts()``. With no
+:func:`count_in_phase`, :func:`host_read`) are read through ``ops.launch_counts()``. With no
 torch.profiler session active a span is one shared no-op context: no
 clock read, no ``record_function``, no device operation and no host read.
 Under any profiler it adds its duration and one count to an aggregate by
@@ -58,6 +58,7 @@ class _Record:
         self.host_reads = {}
         self.spans = {}  # name -> phase -> [count, ns]
         self.kept = {}  # phase -> steps tensors (under a profiler only)
+        self.by_phase = {}  # name -> phase -> n (under a profiler only)
 
 
 _record = _Record()
@@ -138,6 +139,15 @@ def count_transition(phase: str, steps: Optional[torch.Tensor] = None,
         kept[:] = [_steps_sum(kept)]
 
 
+def count_in_phase(name: str, n: int) -> None:
+    """Under a profiler, add ``n`` to counter ``name`` in the enclosing
+    phase (as :func:`span` names it); without one, nothing."""
+    if not _profiler_enabled():
+        return
+    by_phase = _record.by_phase.setdefault(name, {})
+    by_phase[_record.phase] = by_phase.get(_record.phase, 0) + int(n)
+
+
 def _steps_sum(kept) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in kept]).sum(dtype=torch.int64)
 
@@ -165,7 +175,8 @@ def counts() -> dict:
     ``transitions_draws`` and ``host_reads`` ({site: n}) always; where a
     profiler was active, ``spans`` ({name: {phase: {"count", "ns"}}}) and
     ``warmup_steps`` / ``draw_steps`` (the phase's leapfrog steps, summed
-    here: one host read)."""
+    here: one host read) and each counter of :func:`count_in_phase`
+    ({phase: n}, e.g. ``fused_leaf_rows``)."""
     out = {"transitions_warmup": _record.transitions["warmup"],
            "transitions_draws": _record.transitions["draws"],
            "host_reads": dict(_record.host_reads)}
@@ -177,6 +188,8 @@ def counts() -> dict:
     for phase, key in (("warmup", "warmup_steps"), ("draws", "draw_steps")):
         if _record.kept.get(phase):
             out[key] = int(_steps_sum(_record.kept[phase]))
+    for name, by_phase in _record.by_phase.items():
+        out[name] = dict(by_phase)
     return out
 
 

@@ -29,7 +29,7 @@ from .hamiltonian import EvaluatedPoint, evaluate
 from .logdensity import LogDensity
 from .metric import DiagonalMetric, Metric
 from .nuts import NUTS, AcceptanceStatistic, TreeStatistics, acceptance_rate
-from .profiling import host_bool
+from .profiling import host_bool, span
 from .tree import (
     TreeNoise,
     exponential_like,
@@ -399,49 +399,50 @@ def transition_raw(generator, algorithm: NUTS, ld: LogDensity,
         n = 0
         while n < n_leaves and host_bool("leaf_loop",
                                          (a["building"] & engaged).any()):
-            z, pi, sp = _leaf(ld, metric, ops, a["z"], eps_signed)
-            i_new = i_edge + step * (n + 1)
-            delta = pi - pi0
-            divergent = delta < min_delta
-            live = a["building"] & engaged
+            with span("dhmc.leaf"):
+                z, pi, sp = _leaf(ld, metric, ops, a["z"], eps_signed)
+                i_new = i_edge + step * (n + 1)
+                delta = pi - pi0
+                divergent = delta < min_delta
+                live = a["building"] & engaged
 
-            # visited statistics: every visited leaf counts
-            v_log = torch.where(live, torch.clamp(delta, max=0.0), neg_inf)
-            a["log_sum"] = torch.logaddexp(a["log_sum"], v_log)
-            a["steps"] = a["steps"] + live.to(i32)
+                # visited statistics: every visited leaf counts
+                v_log = torch.where(live, torch.clamp(delta, max=0.0), neg_inf)
+                a["log_sum"] = torch.logaddexp(a["log_sum"], v_log)
+                a["steps"] = a["steps"] + live.to(i32)
 
-            # running multinomial proposal draw
-            if noise is None:
-                g = gumbel_like(generator, (C,), dtype, device)
-            else:
-                g = noise.gumbel[d, n].to(dtype)
-            dead = divergent | ~live
-            score = torch.where(dead, neg_inf, delta + g)
-            take = score > a["best_score"]
-            tk = take[:, None]
-            a["best_score"] = torch.where(take, score, a["best_score"])
-            a["best_q"] = torch.where(tk, z.q, a["best_q"])
-            a["best_ld"] = torch.where(take, z.ld, a["best_ld"])
-            a["best_grad"] = torch.where(tk, z.grad, a["best_grad"])
-            a["best_pi"] = torch.where(take, pi, a["best_pi"])
-            a["omega"] = torch.logaddexp(
-                a["omega"], torch.where(dead, neg_inf, delta)
-            )
+                # running multinomial proposal draw
+                if noise is None:
+                    g = gumbel_like(generator, (C,), dtype, device)
+                else:
+                    g = noise.gumbel[d, n].to(dtype)
+                dead = divergent | ~live
+                score = torch.where(dead, neg_inf, delta + g)
+                take = score > a["best_score"]
+                tk = take[:, None]
+                a["best_score"] = torch.where(take, score, a["best_score"])
+                a["best_q"] = torch.where(tk, z.q, a["best_q"])
+                a["best_ld"] = torch.where(take, z.ld, a["best_ld"])
+                a["best_grad"] = torch.where(tk, z.grad, a["best_grad"])
+                a["best_pi"] = torch.where(take, pi, a["best_pi"])
+                a["omega"] = torch.logaddexp(
+                    a["omega"], torch.where(dead, neg_inf, delta)
+                )
 
-            # merge pending subtrees at the trailing one-bit levels of n
-            _node, turned, turn_left = _merge_pending(
-                n, stack, ops.leaf_tau(z.p, sp), ops.combine_dir, is_fwd,
-                i_edge, step,
-                torch.zeros((C,), dtype=torch.bool, device=device),
-                torch.zeros((C,), dtype=i32, device=device),
-            )
-            invalid = live & (divergent | turned)
-            left = torch.where(divergent, i_new, turn_left)
-            a["z"] = z
-            a["building"] = a["building"] & ~(divergent | turned)
-            a["inv_left"] = torch.where(invalid, left, a["inv_left"])
-            a["inv_right"] = torch.where(invalid, i_new, a["inv_right"])
-            n += 1
+                # merge pending subtrees at the trailing one-bit levels of n
+                _node, turned, turn_left = _merge_pending(
+                    n, stack, ops.leaf_tau(z.p, sp), ops.combine_dir, is_fwd,
+                    i_edge, step,
+                    torch.zeros((C,), dtype=torch.bool, device=device),
+                    torch.zeros((C,), dtype=i32, device=device),
+                )
+                invalid = live & (divergent | turned)
+                left = torch.where(divergent, i_new, turn_left)
+                a["z"] = z
+                a["building"] = a["building"] & ~(divergent | turned)
+                a["inv_left"] = torch.where(invalid, left, a["inv_left"])
+                a["inv_right"] = torch.where(invalid, i_new, a["inv_right"])
+                n += 1
         # the completed tree's turn statistic sits at slot == d
         slot = min(d, S - 1)
         a["tau_tree"] = tuple(s[slot] for s in stack)

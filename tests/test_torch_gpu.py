@@ -20,6 +20,7 @@ from dynamichmc_tpu_torch.metric import (
 from dynamichmc_tpu_torch.models import (
     correlated_gaussian,
     funnel,
+    hierarchical_logistic_regression_from_data,
     logistic_regression,
     mvnormal,
 )
@@ -36,6 +37,7 @@ from dynamichmc_tpu_torch.tree_batched import (
     rand_p_b,
     random_directions,
 )
+from torch_reference_hlr import design as hlr_design
 from torch_turn_statistics import GeneralizedReimpl
 
 F32 = torch.float32
@@ -749,13 +751,13 @@ def test_cuda_fused_logreg_plan_matches_the_source(mode):
             dev).multi_processor_count
 
 
-def _check_fused_against_plain(out, args):
+def _check_fused_against_plain(out, args, plain=logreg_leaf.logreg_leaf_plain):
     """The rule of test_cuda_fused_logreg_leaf_matches_plain."""
     C = args[1].shape[0]
-    ref = logreg_leaf.logreg_leaf_plain(*args)
+    ref = plain(*args)
     m = args[0]
     m64 = type(m)(m.m_inv.double(), None)
-    ref64 = logreg_leaf.logreg_leaf_plain(m64, *(
+    ref64 = plain(m64, *(
         a.double() if torch.is_tensor(a) else a for a in args[1:]))
     everything = torch.ones(C, dtype=torch.bool, device=out[0].device)
     for name, x, y, z in zip("qpgLP", out, ref, ref64):
@@ -777,6 +779,134 @@ def test_cuda_fused_logreg_leaf_poisoning():
         assert torch.equal(torch.isneginf(a), torch.isneginf(b))
         assert bool(torch.isneginf(a[:2]).all())
         assert bool(torch.isfinite(a[2:]).all())
+
+
+def _hier_inputs(C, n_cov, n_obs, kind, seed=0):
+    """The fused leaf's hierarchical mode (Hoffman and Gelman's HLR) on
+    seeded data: the design of tests/torch_reference_hlr.py (ones, n_cov
+    covariates and their products), K = 2 + n_cov + n_cov (n_cov - 1) / 2;
+    b ~ 0.1 N(0, 1) and t ~ U[-6, 1] (the posterior's t lies near -5, the
+    warmup's starts near 0); M^-1 as _leaf_inputs makes it; |eps| <= 0.02,
+    the cell's step sizes. Returns the wrapper's arguments."""
+    dev = _device()
+    rng = np.random.RandomState(seed)
+    x = hlr_design(rng.randn(n_obs, n_cov))
+    y = (rng.uniform(size=n_obs) < 0.35).astype(np.float64)
+    model = hierarchical_logistic_regression_from_data(
+        x, y, rate=0.01, dtype=F32, device=dev, fused=True)
+    K = model.dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = 0.1 * torch.randn((C, K), generator=gen, device=dev)
+    q[:, -1] = torch.empty(C, device=dev).uniform_(-6.0, 1.0, generator=gen)
+    if kind == "shared_dense":
+        a = torch.randn((K, K), generator=gen, device=dev)
+        metric = dense_metric(a @ a.mT / K + torch.eye(K, device=dev))
+    else:
+        shape = (C, K) if kind == "chain_diag" else (K,)
+        metric = diagonal_metric(torch.empty(shape, device=dev).uniform_(
+            0.5, 2.0, generator=gen))
+    p = rand_p_b(gen, metric, (C, K), F32).contiguous()
+    _v, g = model.logdensity_and_gradient(q)
+    eps = torch.empty(C, device=dev).uniform_(-0.02, 0.02, generator=gen)
+    x32, y32 = model.fused_leaf_batched_fn.operands
+    return metric, q, p, g.contiguous(), eps, x32, y32, 0.01
+
+
+# the cell's shape (16,384 chains, 1000 rows, K = 302: two gradient
+# chunks) and one at K <= 128 (one chunk): 2048 chains, 300 rows, K = 57
+HIER_SHAPES = [(16384, 24, 1000), (2048, 10, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["shared_diag", "chain_diag", "shared_dense"])
+@pytest.mark.parametrize("C,n_cov,n_obs", HIER_SHAPES)
+def test_cuda_fused_logreg_hier_leaf_matches_float64(kind, C, n_cov, n_obs):
+    """The hierarchical mode against float64 by the flat mode's rule
+    (_check_fused_against_plain): each output within twice the plain
+    float32 version's distance from float64 plus 1e-5 (1 + |x|), since
+    the kernel's sums run in another order than torch's (per tile, then
+    per slice) with no more rounding; ld' and pi' within 1e-4 (1 + |x|)
+    of the plain version (a float32 sum over 1000 rows). The control, the
+    plain version with TF32 products, fails the first rule: its logits
+    keep 10 mantissa bits of the covariates and coefficients."""
+    args = _hier_inputs(C, n_cov, n_obs, kind)
+    logreg_leaf.reset_launches()
+    out = logreg_leaf.logreg_leaf_hier(*args)
+    torch.cuda.synchronize()
+    assert logreg_leaf.launches == logreg_leaf.hier_launches == 1
+    _check_fused_against_plain(out, args, logreg_leaf.logreg_leaf_hier_plain)
+    plain = logreg_leaf.logreg_leaf_hier_plain
+    m = args[0]
+    ref = plain(*args)
+    ref64 = plain(type(m)(m.m_inv.double(), None), *(
+        a.double() if torch.is_tensor(a) else a for a in args[1:]))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = plain(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    everything = torch.ones(C, dtype=torch.bool, device=out[0].device)
+    failed = [name for name, x, y, z in zip("qpgLP", control, ref, ref64)
+              if float(_rel(x, z, everything).max())
+              > 2 * float(_rel(y, z, everything).max()) + 1e-5]
+    assert failed, "the TF32 control passes the rule"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,n_cov,n_obs,kind", [
+    (16384, 24, 1000, "shared_diag"), (2048, 10, 300, "chain_diag"),
+    (2048, 10, 300, "shared_dense")])
+def test_cuda_fused_logreg_hier_leaf_is_deterministic(C, n_cov, n_obs, kind):
+    args = _hier_inputs(C, n_cov, n_obs, kind)
+    a = logreg_leaf.logreg_leaf_hier(*args)
+    b = logreg_leaf.logreg_leaf_hier(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_logreg_hier_leaf_poisoning():
+    metric, q, p, g, eps, x, y, rate = _hier_inputs(8, 3, 53, "shared_diag")
+    p[0] = 1e25  # the drift overflows: q' = inf, ld' = -inf
+    q[1, -1] = float("nan")  # t: the prior's precision is NaN
+    out = logreg_leaf.logreg_leaf_hier(metric, q, p, g, eps, x, y, rate)
+    ref = logreg_leaf.logreg_leaf_hier_plain(metric, q, p, g, eps, x, y, rate)
+    for a, b in zip(out[3:], ref[3:]):
+        assert torch.equal(torch.isneginf(a), torch.isneginf(b))
+        assert bool(torch.isneginf(a[:2]).all())
+        assert bool(torch.isfinite(a[2:]).all())
+
+
+@pytest.mark.gpu
+def test_cuda_hier_logreg_runs_k3_on_every_leaf_of_run_chains():
+    """run_chains through the plain driver with the hook: every leaf one
+    launch of the hierarchical mode, no K1 launch, finite draws."""
+    from dynamichmc_tpu_torch import run_chains
+    from dynamichmc_tpu_torch.nuts import NUTS
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dynamichmc_tpu_torch.warmup import default_warmup_stages
+
+    dev = _device()
+    rng = np.random.RandomState(0)
+    x = hlr_design(rng.randn(1000, 24))
+    y = (rng.uniform(size=1000) < 0.35).astype(np.float64)
+    model = hierarchical_logistic_regression_from_data(
+        x, y, dtype=F32, device=dev, fused=True, tree_kernel="auto")
+    stages = default_warmup_stages(init_steps=20, middle_steps=20,
+                                   doubling_stages=1, terminating_steps=20,
+                                   metric_kind="diagonal", pooled=True)
+    reset_launch_counts()
+    res = run_chains(torch.Generator(device=dev).manual_seed(1), model, 512,
+                     32, tune="reference", warmup_stages=stages,
+                     algorithm=NUTS(max_depth=4), dtype=F32)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["tree_transition"] == 0
+    assert counts["logreg_fused_leaf_hier"] == counts[
+        "logreg_fused_leaf"] == counts["driver_fused_leaves"] > 0
+    assert bool(torch.isfinite(res.positions).all())
 
 
 def _gaussian_inputs(model, C, minv_kind, seed=0, poison=True):

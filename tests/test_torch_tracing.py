@@ -187,6 +187,8 @@ PARENTS = {
     "dhmc.adapt": {"dhmc.transition"},
     "dhmc.noise": {"dhmc.transition"},
     "dhmc.kernel": {"dhmc.transition"},
+    # the plain driver's lockstep leaves: K1's plain version here
+    "dhmc.leaf": {"dhmc.kernel", "dhmc.transition"},
     "dhmc.draws": {"dhmc.run_chains"},
     "dhmc.sink": {"dhmc.draws"},
 }
