@@ -16,7 +16,9 @@ Phases (each one that fails ends the script with a non-zero exit code):
      shared and per-chain M^-1, R = 1 and 8, exact and compensated column
      sums) and fail if one spills; print
      its launch plan at each phase-5 shape (chains per CTA, R, warps, CTAs,
-     staging, registers and CTAs per SM).
+     staging, registers and CTAs per SM); print the same of the fused
+     logreg leaf's tiled slice kernel's 15 instantiations (three metric
+     modes, 1-5 float2 coordinate groups a thread) and fail if one spills.
   3. Kernel against plain, on the same injected noise / inputs:
      - the tree kernel with the Gaussian leaf at the main-path shape (4096
        chains, K = 100, max_depth 4, per-chain eps in [0.2, 0.6], start at
@@ -38,10 +40,14 @@ Phases (each one that fails ends the script with a non-zero exit code):
        CTA, one warp per chain);
      - the fused logreg leaf at 2048 x 128 x 4000 with a shared diagonal,
        a per-chain diagonal and a shared dense metric, and the same at
-       K = 300 (the gradient in two chunks of coordinates);
+       K = 300, each call through the tiled slice kernel (each logit once,
+       the whole gradient from one staging of X); the same three at K =
+       320 and 512, past the tiled kernel's widest K, each call through
+       the chunked slice kernel (two 256-wide gradient chunks, 64-row and
+       16-row tiles of X) and none through the tiled one;
      - the fused leaf's hierarchical mode (each chain's prior precision
        e^-t, t its last coordinate) at the benchmark's logreg_hier_1000x302
-       shape, 16,384 chains x K = 302 x 1000 rows (two gradient chunks),
+       shape, 16,384 chains x K = 302 x 1000 rows (the tiled slice kernel),
        on that cell's seeded data, in the same three metric forms, against
        its plain version and float64 by the same rule, each call one
        launch of the hierarchical mode;
@@ -268,10 +274,13 @@ C_FUNNEL, K_FUNNEL, MD_FUNNEL = 4096, 25, 7
 C_LOGREG, K_LOGREG, N_OBS, MD_LOGREG = 2048, 128, 4000, 4
 # the logreg leaf's staged-X variant at the benchmark's shape, phases 3, 5
 C_XSTAGED, K_XSTAGED, N_XSTAGED = 16384, 25, 1000
-K_WIDE = 300  # the fused logreg leaf past 256 coordinates, phase 3
+K_WIDE = 300  # the fused logreg leaf past 256 coordinates, tiled, phase 3
+# past the tiled slice kernel's widest K: the chunked one with 64-row and
+# with 16-row tiles of X, phase 3
+K_CHUNKED = (320, 512)
 # the fused leaf's hierarchical mode at the benchmark's logreg_hier_1000x302
 # shape (1000 rows, 24 covariates and their 276 products, an intercept and
-# t: K = 302, two gradient chunks): phases 3 and 5 at its 16,384 chains,
+# t: K = 302, the tiled slice kernel): phases 3 and 5 at its 16,384 chains,
 # phase 4's logreg_hier_fused path at 4096
 C_HIER, N_HIER, D_HIER, C_HIER_PATH = 16384, 1000, 24, 4096
 C_GAUSS, K_GAUSS = 4096, 25  # BASELINE config 1 under the fleet
@@ -641,7 +650,8 @@ def compare_fused_leaf(model, C, kind, gen):
       kernel in its own tiles;
     - the -inf pattern of ld' and pi' is the plain version's;
     - the call is one launch, of the hierarchical mode exactly where the
-      model's prior is hierarchical."""
+      model's prior is hierarchical, and of the tiled slice kernel exactly
+      where the plan gives it K (``logreg_leaf.tiled``)."""
     from dynamichmc_tpu_torch.ops import logreg_leaf
 
     kernel, plain, inputs, label = leaf_of(model)
@@ -649,15 +659,19 @@ def compare_fused_leaf(model, C, kind, gen):
     logreg_leaf.reset_launches()
     out = kernel(*args)
     hier = label == "logreg_fused_hier"
-    check(logreg_leaf.launches == 1 and logreg_leaf.hier_launches == hier,
+    tiled = logreg_leaf.tiled(model.dim)
+    check(logreg_leaf.launches == 1 and logreg_leaf.hier_launches == hier
+          and logreg_leaf.tiled_launches == tiled,
           f"{label}: {logreg_leaf.launches} launches, "
-          f"{logreg_leaf.hier_launches} of the hierarchical mode")
+          f"{logreg_leaf.hier_launches} of the hierarchical mode, "
+          f"{logreg_leaf.tiled_launches} of the tiled slice kernel")
     ref = plain(*args)
     metric = args[0]
     metric64 = type(metric)(metric.m_inv.double(), None)
     ref64 = plain(metric64, *_as64(args[1:]))
     torch.cuda.synchronize()
-    result = {"config": f"{label} K={model.dim} {kind}", "chains": C}
+    result = {"config": f"{label} K={model.dim} {kind}", "chains": C,
+              "slice_kernel": "tiled" if tiled else "chunked"}
     fails = []
     want = lambda cond, msg: cond or fails.append(msg)  # noqa: E731
     names = ("q", "p", "g", "ld", "pi")
@@ -1721,6 +1735,16 @@ def build_all(dev):
     for name, shape in GAUSS_SHAPES.items():
         log(f"[2 build] {name} plan at {list(shape[1:])}: "
             f"{json.dumps(gaussian_plan(dev, *shape))}")
+    tiled = tiled_slice_usage(logreg_leaf.library.build_log)
+    for key, u in sorted(tiled.items()):
+        log(f"[2 build] logreg_leaf_slice_kernel_tiled {key}: {u['usage']}; "
+            f"{u['spill']}")
+    check(len(tiled) == 3 * logreg_leaf.TILED_GROUPS,
+          f"ptxas reported {len(tiled)} tiled slice-kernel instantiations, "
+          f"expected {3 * logreg_leaf.TILED_GROUPS}")
+    spilled = {k: u["spill"] for k, u in tiled.items()
+               if "0 bytes spill stores, 0 bytes spill loads" not in u["spill"]}
+    check(not spilled, f"the tiled slice kernel spills: {spilled}")
 
 
 def plan_dict(info):
@@ -1774,6 +1798,19 @@ def tree_kernel_usage(build_log):
         return (("warp", m[1] == "1", int(m[2]), int(m[3])) if m else
                 ("xstaged", x[1] == "1", int(x[2])) if x else
                 ("cta", c[1] == "1", int(c[2])) if c else None)
+
+    return ptxas_usage(build_log, key_of)
+
+
+def tiled_slice_usage(build_log):
+    """ptxas_usage of each instantiation of the fused logreg leaf's tiled
+    slice kernel, keyed "mode M, KG G" (the metric mode and the float2
+    coordinate groups a thread takes)."""
+    name_re = re.compile(r"logreg_leaf_slice_kernel_tiledILi(\d+)ELi(\d+)EE")
+
+    def key_of(name):
+        m = name_re.search(name)
+        return f"mode {m[1]}, KG {m[2]}" if m else None
 
     return ptxas_usage(build_log, key_of)
 
@@ -2606,6 +2643,8 @@ def run_phases(dev, smi, profile=()):
                                    device=dev, fused=True)
     lr_wide = logistic_regression(N_OBS, K_WIDE, dtype=torch.float32,
                                   device=dev, fused=True)
+    lr_chunked = [logistic_regression(N_OBS, k, dtype=torch.float32,
+                                      device=dev, fused=True) for k in K_CHUNKED]
     lr_hier = hierarchical_logistic_regression_from_data(
         *hier_data(), rate=0.01, dtype=torch.float32, device=dev, fused=True)
     # BASELINE config 1: N(0, I_25) through the Gaussian model with hooks
@@ -2654,6 +2693,17 @@ def run_phases(dev, smi, profile=()):
         for kind in ("shared_diag", "chain_diag", "shared_dense"):
             phase3_result("logreg_fused",
                           compare_fused_leaf(model, C_LOGREG, kind, gen))
+    # the chunked slice kernel, from a generator of its own
+    check(logreg_leaf.tiled(K_WIDE)
+          and not any(logreg_leaf.tiled(k) for k in K_CHUNKED)
+          and len({logreg_leaf.tile_rows(k) for k in K_CHUNKED}) == 2,
+          f"K = {K_WIDE} must take the tiled slice kernel, K = {K_CHUNKED} "
+          f"the chunked one with two tile heights")
+    gen_chunked = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for model in lr_chunked:
+        for kind in ("shared_diag", "chain_diag", "shared_dense"):
+            phase3_result("logreg_fused", compare_fused_leaf(
+                model, C_LOGREG, kind, gen_chunked))
     # from a generator of its own, as logreg_xstaged's
     gen_hier = torch.Generator(device=dev).manual_seed(SEED + 3)
     for kind in ("shared_diag", "chain_diag", "shared_dense"):
@@ -2745,6 +2795,13 @@ def run_phases(dev, smi, profile=()):
                   f"{name}: the hierarchical mode launched "
                   f"{counts['logreg_fused_leaf_hier']} times, expected "
                   f"{want_hier}")
+            # the tiled slice kernel wherever the plan gives K to it
+            want_tiled = (counts[own] if name != "gauss_fused"
+                          and logreg_leaf.tiled(model.dim) else 0)
+            check(counts["logreg_fused_leaf_tiled"] == want_tiled,
+                  f"{name}: the tiled slice kernel launched "
+                  f"{counts['logreg_fused_leaf_tiled']} times, expected "
+                  f"{want_tiled}")
             launches[name] = counts[own]
         else:
             check(counts["tree_transition"] == expected,
@@ -2884,6 +2941,7 @@ def run_phases(dev, smi, profile=()):
         plan = logreg_leaf.launch_plan(C, K, n, info.sm_count,
                                        info.blocks_per_sm)
         plans[key] = {
+            "tiled": plan.tiled,
             "slices": plan.slices, "tiles_per_slice": plan.tiles_per_slice,
             "tile_rows": plan.tile, "chunks": plan.chunks,
             "registers": info.registers, "smem_bytes": info.smem,

@@ -21,20 +21,25 @@
 // (logreg_leaf_finish_kernel<MODE, true>).
 //
 // Design. The leaf has no tree state, so chains are independent. Two
-// kernels run one after the other on the caller's stream:
-// - logreg_leaf_slice_kernel: one CTA of 256 threads takes a block of 16
-//   chains, one slice of the observations and one chunk of the gradient's
-//   coordinates (grid: chain blocks x slices x chunks). It computes the
-//   drift q' of its 16 chains (every CTA of the block does, a cheap
-//   redundancy), then walks its slice of X in tiles of TN rows: each tile is
-//   staged once in shared memory and used by all 16 chains for both
-//   products, the Hopper counterpart of the TPU kernel keeping X resident in
-//   VMEM across both matmuls. The tiles come through a ring of two stages:
-//   cp.async.cg copies tile i + 1's rows (16 bytes a thread, L1 bypassed;
-//   X's rows are padded to a multiple of 4 floats) and cp.async.ca their y
-//   while tile i is computed. Two barriers per tile: one after the wait for
-//   tile i (which also frees tile i - 1's stage and the residuals), one
-//   after the residuals.
+// kernels run one after the other on the caller's stream: a slice kernel,
+// which writes each chain's partial sums over a slice of the observations
+// to a workspace of S x C x (K + 1) floats that the caller allocates, and
+// logreg_leaf_finish_kernel, one warp per chain, which sums the S partials
+// in slice order, then forms g', p', the kinetic energy, ld' and pi' with
+// the poisoning. The slice kernel comes in two variants, chosen by K alone
+// (ops/logreg_leaf.py: tiled, launch_plan):
+// - logreg_leaf_slice_kernel_tiled, wherever its CTA fits (K up to 308):
+//   one CTA of 256 threads takes a block of 64 chains and one slice of the
+//   observations (grid: chain blocks x slices). It computes the drift q' of
+//   its chains, then walks its slice of X in tiles of 32 rows, each staged
+//   once in shared memory: every logit of the block once per tile (phase A,
+//   split over K across the eight warps), then the whole gradient from the
+//   same staging (phase B). Both products are register-tiled: 8 x 8 logits
+//   a thread in phase A, 8 chains x 10 coordinates in phase B (the comment
+//   at the kernel).
+// - logreg_leaf_slice_kernel past it: one CTA takes a block of 16 chains,
+//   one slice and one chunk of the gradient's coordinates (grid: chain
+//   blocks x slices x chunks), each chunk's CTA recomputing the logits.
 //   * Phase A, logits: thread (o, chain group) computes the logits of tile
 //     row o for TN / 16 chains, reading the row and q' as float4 from
 //     shared memory (q' is a broadcast; rows are padded by 4 floats so the
@@ -45,44 +50,39 @@
 //   * Phase B, gradient: thread (k, half) accumulates the chunk's
 //     coordinates k, k + 128 of 8 chains in registers over the tile's rows:
 //     one tile element and two broadcast float4 residual loads per 8 FMAs.
-//     Each tile's sum is added to the slice's running sum once, which keeps
-//     float32 rounding at the level of cuBLAS's blocked sums (a single
-//     running sum over 4000 observations was 5x further from float64,
-//     measured on the H100).
-//   The CTA writes its chains' partial gradient over its chunk, and (chunk
-//   0) their partial likelihood sums, to a workspace of S x C x (K + 1)
-//   floats that the caller allocates.
-// - logreg_leaf_finish_kernel: one warp per chain sums the S partials in
-//   slice order, then forms g', p', the kinetic energy, ld' and pi' with
-//   the poisoning.
-// Every sum runs in a fixed order (no atomics), so two launches on the same
-// inputs are bitwise equal. Products are plain fp32 FMAs; no TF32.
+//   The per-thread gradient registers cover 256 coordinates, so past K =
+//   256 the grid's third dimension splits the gradient into 256-wide
+//   chunks. The tile has 64 rows while its CTA fits in shared memory (K up
+//   to 392) and 16 rows past that; with 16 rows the CTA's shared memory,
+//   2 x 16 (K + 5) + 16 K + 256 floats, bounds K at 1200
+//   (ops/logreg_leaf.py: MAX_K, the plan).
+// Both variants bring the tiles through a ring of two stages: cp.async.cg
+// copies tile i + 1's rows (16 bytes a thread, L1 bypassed; X's rows are
+// padded to a multiple of 4 floats) and cp.async.ca their y while tile i is
+// computed. Each tile's gradient sums are added to the slice's running sums
+// once, which keeps float32 rounding at the level of cuBLAS's blocked sums
+// (a single running sum over 4000 observations was 5x further from
+// float64, measured on the H100). Every sum runs in a fixed order (no
+// atomics), so two launches on the same inputs are bitwise equal. Products
+// are plain fp32 FMAs on the CUDA cores; no TF32.
 //
-// Any K. The per-thread gradient registers cover 256 coordinates (8 chains
-// x 2 coordinates a thread), so past K = 256 the grid's third dimension
-// splits the gradient into 256-wide chunks, each CTA recomputing the
-// logits over all of K; the logits are half the leaf's FMAs, and K > 256 is
-// off the path the kernel was shaped for. This keeps both phases' thread
-// mappings and FMA order for every K. The tile has 64 rows while its CTA
-// fits in shared memory (K up to 392) and 16 rows past that; with 16 rows
-// the CTA's shared memory, 2 x 16 (K + 5) + 16 K + 256 floats, bounds K at
-// 1200 (ops/logreg_leaf.py: MAX_K, the plan).
+// The slices. The caller (ops/logreg_leaf.py: launch_plan) picks S, the
+// slices of the observations, so that the grid holds as many CTAs as the
+// card runs at once: 2048 chains make 128 chunked chain blocks, one CTA on
+// 128 of the 132 SMs, where every barrier and global load would stall its
+// SM.
 //
-// The slices. 2048 chains make 128 chain blocks, one CTA on 128 of the 132
-// SMs: every barrier and global load then stalls its SM. The caller
-// (ops/logreg_leaf.py: launch_plan) picks S, the slices of the
-// observations, so that the grid holds as many CTAs as the card runs at
-// once. At 2048 x 128 x 4000 a CTA holds 80,384 bytes of shared memory.
-//
-// What bounds it on the H100: 2 n_obs K FMAs per chain (1.0 M at n_obs
-// 4000, K 128; 4.2 GFLOP per leaf at 2048 chains) issued from shared memory,
-// about 2.5 shared-memory wavefronts per 8 FMAs; X (2 MB) is read from L2
-// once per chain block. At that shape (H100 80GB HBM3, 700 W; chip_smoke.py
-// phase 5) a leaf takes about 0.25 ms with 73 registers, 2 CTAs per SM and
-// S = 2, against 0.59 ms for one CTA per chain block without the ring.
-// Without the ring 4 CTAs fit on an SM (46,080 bytes), yet the leaf ran
-// slower. Tensor cores over the chain block (wgmma with fp32-exact
-// splitting) are later work.
+// What bounds it on the H100: 2 n_obs K FMAs per chain (9.9 G FMAs, 0.30
+// ms at 67 TFLOP/s, at the hierarchical cell's 16,384 x 302 x 1000) issued
+// from shared memory; X (1.2 MB there) is read from L2 once per chain block.
+// The chunked kernel streamed X from shared memory at about 2.5 wavefronts
+// per 8 FMAs and, past K = 256, computed the logits twice: 2.69 ms a leaf
+// at that shape, 0.25 ms at 2048 x 128 x 4000 (H100 80GB HBM3, 700 W;
+// chip_smoke.py phase 5). The tiled kernel computes them once with about
+// 4 FMAs a loaded float: 0.82 ms and 0.23 ms (scripts/
+// torch_logreg_leaf_compare.py), at 254 and 236 registers, one CTA an SM.
+// Tensor cores over the chain block (wgmma with fp32-exact splitting) are
+// later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,10 +91,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChains = 16;                    // chains per slice-kernel CTA
+constexpr int kChains = 16;                    // chains per chunked slice-kernel CTA
 constexpr int kFinishChains = kThreads / 32;   // finish kernel: a warp per chain
 constexpr int kStages = 2;                     // stages of the ring of X tiles, >= 2
 constexpr size_t kMaxSmem = 232448;            // H100: dynamic shared memory per CTA
+constexpr int kTiledChains = 64;               // chains per tiled slice-kernel CTA
+constexpr int kTiledRows = 32;                 // rows of X per tile of the tiled kernel
+constexpr int kTiledGroups = 5;                // its float2 coordinate groups a thread, at most
 
 constexpr int kSharedDiag = 0;
 constexpr int kChainDiag = 1;
@@ -127,6 +130,43 @@ __device__ __forceinline__ float softplus(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 0.5f * (tanhf(0.5f * x) + 1.f);
+}
+
+// The dense drift M^-1 p_mid at coordinate k of 8 chains, whose p_mid rows
+// start at ps, `stride` floats apart: for each chain the sum over ii < K of
+// p_mid[ii] minv[ii, k] in blocks of 32 terms, each block's sum added to the
+// running sum once. A single running sum over K = 302 put g' 2.7x further
+// from float64 than the plain float32 leaf through cuBLAS (the flat leaf at
+// 300 x 302 x 1000, |eps| <= 0.2, measured on the H100); blocks of 32 bring
+// the drift's share to a fifth of that (replayed in float32 on the CPU).
+// The full blocks are unrolled whole: with a loop bound of min(K, b0 + 32)
+// the chunked kernel's dense drift at 256 x 512 x 4000 took 0.74 ms a leaf
+// against 0.58 ms unrolled (H100, scripts/torch_logreg_leaf_compare.py).
+__device__ __forceinline__ void dense_drift8(const float* ps, int stride,
+                                             const float* __restrict__ minv, int K, int k,
+                                             float drift[8]) {
+  int b0 = 0;
+  for (; b0 + 32 <= K; b0 += 32) {
+    float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ii = b0; ii < b0 + 32; ++ii) {
+      const float mv = __ldg(minv + (size_t)ii * K + k);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part[i] = fmaf(ps[i * stride + ii], mv, part[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) drift[i] += part[i];
+  }
+  if (b0 < K) {
+    float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int ii = b0; ii < K; ++ii) {
+      const float mv = __ldg(minv + (size_t)ii * K + k);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part[i] = fmaf(ps[i * stride + ii], mv, part[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) drift[i] += part[i];
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -203,13 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // p_mid is staged
     for (int k = kl; k < KX; k += 128) {
       float drift[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (k < K) {
-        for (int ii = 0; ii < K; ++ii) {
-          const float mv = __ldg(minv + (size_t)ii * K + k);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) drift[i] = fmaf(Ps[(ch * 8 + i) * KX + ii], mv, drift[i]);
-        }
-      }
+      if (k < K) dense_drift8(Ps + ch * 8 * KX, KX, minv, K, k, drift);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int c = c0 + ch * 8 + i;
@@ -355,6 +389,279 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tiled kernel's row stride in shared memory (floats), for X's tile rows
+// and q': KX, or KX + 4 where KX / 4 is even, so that the stride is an odd
+// number of float4s and eight consecutive rows' float4s at one column fall
+// in eight distinct groups of four banks.
+__host__ __device__ __forceinline__ int tiled_stride(int KX) {
+  return (KX / 4) % 2 ? KX : KX + 4;
+}
+
+// Shared memory of one tiled slice-kernel CTA: the ring of kStages tiles of
+// X (kTiledRows rows of the tiled stride) with their y, q' of its
+// kTiledChains chains (the same stride) and the eight warps' partial logits
+// of the tile (8 x kTiledRows x (kTiledChains + 8)), the first of which
+// become its residuals. p_mid of the dense drift lies in the ring's place
+// before the first copy.
+size_t tiled_smem_bytes(int K) {
+  const size_t XS = tiled_stride((K + 3) & ~3);
+  return sizeof(float) * ((size_t)kStages * kTiledRows * (XS + 1) + kTiledChains * XS +
+                          8 * (size_t)kTiledRows * (kTiledChains + 8));
+}
+
+// The tiled slice kernel: one CTA takes a block of CB = kTiledChains chains
+// and one slice of the observations, with no gradient chunks. Per tile of TN
+// = kTiledRows rows it computes every logit of its chains once (phase A),
+// then the gradient over all of K from the same staging (phase B); both are
+// register-tiled products from shared memory. KG: ceil(K / 64).
+// - Phase A, split over K: warp w sums an eighth of the float4 columns; its
+//   lane (ra, ca) holds the partial logits of rows ra + 4 i (i < TN / 4) and
+//   chains ca + 8 j (j < CB / 8), 8 x 8 at TN 32, CB 64: 256 FMAs per 16
+//   float4 loads. A quarter warp's lanes read 4 consecutive rows (distinct
+//   banks: the tiled stride) and 2 consecutive chains. The warps' partials go
+//   to shared memory; each logit is their sum in warp order, whose softplus
+//   and sigmoid one thread forms (thread t: chain t % CB, rows t / CB + (256
+//   / CB) i), adding the likelihood term and writing the residual y -
+//   sigmoid(l) over warp 0's partial.
+// - Phase B: thread (kb, cb) accumulates float2 coordinate groups kb + 32 m
+//   (m < KG, none past KX) of chains cb CH .. cb CH + CH - 1 (CH = CB / 8):
+//   per row CH / 4 broadcast float4 residual loads and KG float2 loads of X
+//   for 2 KG CH FMAs, 80 per 9 loads at K 302. Each tile's partial sums are
+//   added to the slice's running sums once, as in the chunked kernel.
+template <int MODE, int KG>
+__global__ void __launch_bounds__(kThreads, 1)
+    logreg_leaf_slice_kernel_tiled(const float* __restrict__ q, const float* __restrict__ p,
+                                   const float* __restrict__ g, const float* __restrict__ eps,
+                                   const float* __restrict__ minv, const float* __restrict__ X,
+                                   const float* __restrict__ y, float* __restrict__ qn,
+                                   float* __restrict__ ws, int C, int K, int n_obs,
+                                   int tiles_per_slice) {
+  constexpr int CB = kTiledChains, TN = kTiledRows, NW = kThreads / 32;
+  constexpr int RA = TN / 4, CA = CB / 8, CH = CB / 8;
+  constexpr int RS = CB + 8;  // partials' and residuals' row stride: stores hit 32 banks
+  constexpr int RC = kThreads / CB;  // row groups of the residuals' threads
+  static_assert(NW == 8 && TN % 4 == 0 && CB % 32 == 0, "tile shape");
+  static_assert(kThreads % CB == 0 && TN % RC == 0, "residual threads");
+  static_assert(CB <= kStages * TN, "p_mid fits in the ring's place");
+  static_assert(CB * (RC + 1) <= TN * RS, "the likelihood sums fit in the residuals' place");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int KX = (K + 3) & ~3, kx4 = KX / 4, kx2 = KX / 2;
+  const int XS = tiled_stride(KX), xs4 = XS / 4, xs2 = XS / 2;
+  float* Xr = smem;                   // [kStages][TN][XS] the ring of tiles
+  float* Yr = Xr + kStages * TN * XS; // [kStages][TN]     their y
+  float* Qs = Yr + kStages * TN;      // [CB][XS]  q'
+  float* Rs = Qs + CB * XS;           // [NW][TN][RS] the warps' partial logits;
+                                      // the residuals over warp 0's
+  float* Ps = Xr;                     // [CB][XS]  p_mid (dense), before the ring
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c0 = blockIdx.x * CB;
+  const int slice = blockIdx.y;
+
+  // drift: q' of every (chain, coordinate) of the block to Qs (0 past K or
+  // C); the dense metric's matvec runs from p_mid staged in Ps
+  for (int i = t; i < CB * KX; i += kThreads) {
+    const int cl = i / KX, k = i - cl * KX, c = c0 + cl;
+    const bool v = k < K && c < C;
+    const size_t off = (size_t)c * K + k;
+    const float e = v ? eps[c] : 0.f;
+    const float pm = (v ? p[off] : 0.f) + (0.5f * e) * (v ? g[off] : 0.f);
+    if (MODE == kSharedDense) {
+      Ps[cl * XS + k] = pm;
+    } else {
+      const float m = MODE == kSharedDiag ? (k < K ? __ldg(minv + k) : 0.f)
+                                          : (v ? __ldg(minv + off) : 0.f);
+      const float qv = (v ? q[off] : 0.f) + e * (m * pm);
+      Qs[cl * XS + k] = qv;
+      if (slice == 0 && v) qn[off] = qv;
+    }
+  }
+  if (MODE == kSharedDense) {
+    // thread (kl, dg): coordinates kl, kl + NK, ... of chains dg * 8 .. dg * 8 + 7
+    constexpr int NK = kThreads / (CB / 8);
+    const int kl = t % NK, dg = t / NK;
+    __syncthreads();  // p_mid is staged
+    for (int k = kl; k < KX; k += NK) {
+      float drift[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (k < K) dense_drift8(Ps + dg * 8 * XS, XS, minv, K, k, drift);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = c0 + dg * 8 + i;
+        const bool v = k < K && c < C;
+        const size_t off = (size_t)c * K + k;
+        const float qv = (v ? q[off] : 0.f) + (v ? eps[c] : 0.f) * drift[i];
+        Qs[(dg * 8 + i) * XS + k] = qv;
+        if (slice == 0 && v) qn[off] = qv;
+      }
+    }
+  }
+
+  const int ra = lane & 3, ca = lane >> 2;  // phase A
+  const int n4 = (kx4 + NW - 1) / NW, k4a = min(kx4, warp * n4), k4b = min(kx4, k4a + n4);
+  const int cr = t % CB, rr = t / CB;  // the residuals
+  const int kb = (warp & 3) * 8 + (lane & 7), cb = (warp >> 2) * 4 + (lane >> 3);  // phase B
+  const bool last_group = kb + 32 * (KG - 1) < kx2;  // the thread's group KG - 1 exists
+  const int n_tiles = (n_obs + TN - 1) / TN;
+  const int t_begin = slice * tiles_per_slice;
+  const int t_end = min(n_tiles, t_begin + tiles_per_slice);
+  float ll = 0.f;
+  float G[KG][CH][2];
+#pragma unroll
+  for (int m = 0; m < KG; ++m)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) G[m][c][0] = G[m][c][1] = 0.f;
+
+  // copy tile `tile` (its rows below n_obs, and their y) into `stage`;
+  // rows past n_obs (the last tile only) are zeroed instead
+  auto load_tile = [&](int tile, int stage) {
+    const int o0 = tile * TN;
+    const int rows = min(TN, n_obs - o0);
+    float* xs = Xr + stage * TN * XS;
+    float* ys = Yr + stage * TN;
+    const float* src = X + (size_t)o0 * KX;
+    for (int i = t; i < rows * kx4; i += kThreads) {
+      const int r = i / kx4, c4 = i - r * kx4;
+      cp_async16(xs + r * XS + 4 * c4, src + (size_t)r * KX + 4 * c4);
+    }
+    for (int r = t; r < rows; r += kThreads) cp_async4(ys + r, y + o0 + r);
+    for (int i = rows * XS + t; i < TN * XS; i += kThreads) xs[i] = 0.f;
+    for (int r = rows + t; r < TN; r += kThreads) ys[r] = 0.f;
+    cp_async_commit();
+  };
+
+  // Every thread runs every copy loop trip, wait and barrier below.
+  const int nt = t_end - t_begin;  // >= 1 (the caller leaves no slice empty)
+  __syncthreads();  // p_mid's readers are done before a copy lands in its place
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nt) {
+      load_tile(t_begin + i, i);
+    } else {
+      cp_async_commit();
+    }
+  }
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile i has landed; tile i - 1's stage and Rs are free; q' is staged
+    if (i + kStages - 1 < nt) {
+      load_tile(t_begin + i + kStages - 1, (i + kStages - 1) % kStages);
+    } else {
+      cp_async_commit();
+    }
+    const float* Xs = Xr + (i % kStages) * TN * XS;
+    const float* Ys = Yr + (i % kStages) * TN;
+    const float4* x4 = reinterpret_cast<const float4*>(Xs);
+    const float2* x2 = reinterpret_cast<const float2*>(Xs);
+    const float4* q4 = reinterpret_cast<const float4*>(Qs);
+    const int o0 = (t_begin + i) * TN;
+
+    // phase A: the warp's partial logits, each a sum over its k in order
+    float l[RA][CA];
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int j = 0; j < CA; ++j) l[a][j] = 0.f;
+    for (int k4 = k4a; k4 < k4b; ++k4) {
+      float4 xv[RA];
+#pragma unroll
+      for (int a = 0; a < RA; ++a) xv[a] = x4[(ra + 4 * a) * xs4 + k4];
+#pragma unroll
+      for (int j = 0; j < CA; ++j) {
+        const float4 qv = q4[(ca + 8 * j) * xs4 + k4];
+#pragma unroll
+        for (int a = 0; a < RA; ++a) {
+          l[a][j] = fmaf(xv[a].x, qv.x, l[a][j]);
+          l[a][j] = fmaf(xv[a].y, qv.y, l[a][j]);
+          l[a][j] = fmaf(xv[a].z, qv.z, l[a][j]);
+          l[a][j] = fmaf(xv[a].w, qv.w, l[a][j]);
+        }
+      }
+    }
+    float* Pw = Rs + warp * TN * RS;
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int j = 0; j < CA; ++j) Pw[(ra + 4 * a) * RS + ca + 8 * j] = l[a][j];
+    __syncthreads();
+
+    // the logits (the warps' partials in order), the likelihood terms and
+    // the residuals
+    const bool live = c0 + cr < C;
+#pragma unroll
+    for (int a = 0; a < TN / RC; ++a) {
+      const int r = rr + RC * a, idx = r * RS + cr;
+      float lv = Rs[idx];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) lv += Rs[w * TN * RS + idx];
+      const float yi = Ys[r];
+      const bool valid = live && o0 + r < n_obs;
+      if (valid) ll += yi * lv - softplus(lv);
+      Rs[idx] = valid ? yi - sigmoid(lv) : 0.f;
+    }
+    __syncthreads();
+
+    // phase B: the tile's partial sums over its rows below n_obs, then one
+    // add into G
+    float T[KG][CH][2];
+#pragma unroll
+    for (int m = 0; m < KG; ++m)
+#pragma unroll
+      for (int c = 0; c < CH; ++c) T[m][c][0] = T[m][c][1] = 0.f;
+    const int rows = min(TN, n_obs - o0);
+#pragma unroll 2
+    for (int o = 0; o < rows; ++o) {
+      float rv[CH];
+      const float4* r4 = reinterpret_cast<const float4*>(Rs + o * RS + cb * CH);
+#pragma unroll
+      for (int c = 0; c < CH / 4; ++c) {
+        const float4 v = r4[c];
+        rv[4 * c] = v.x; rv[4 * c + 1] = v.y; rv[4 * c + 2] = v.z; rv[4 * c + 3] = v.w;
+      }
+#pragma unroll
+      for (int m = 0; m < KG; ++m) {
+        if (m < KG - 1 || last_group) {
+          const float2 xv = x2[o * xs2 + kb + 32 * m];
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            T[m][c][0] = fmaf(xv.x, rv[c], T[m][c][0]);
+            T[m][c][1] = fmaf(xv.y, rv[c], T[m][c][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < KG; ++m)
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        G[m][c][0] += T[m][c][0];
+        G[m][c][1] += T[m][c][1];
+      }
+  }
+
+  // the slice's partials: each chain's likelihood sum over its RC row
+  // groups in order (Rs reused), and its gradient over all of K
+  __syncthreads();  // the last tile's readers of Rs are done
+  float* Ls = Rs;   // [CB][RC + 1]
+  Ls[cr * (RC + 1) + rr] = ll;
+  __syncthreads();
+  float* wsl = ws + (size_t)slice * C * (K + 1);
+  if (t < CB && c0 + t < C) {
+    float s = 0.f;
+    for (int r = 0; r < RC; ++r) s += Ls[t * (RC + 1) + r];
+    wsl[(size_t)(c0 + t) * (K + 1) + K] = s;
+  }
+#pragma unroll
+  for (int m = 0; m < KG; ++m)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int chain = c0 + cb * CH + c;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 2 * (kb + 32 * m) + e;
+        if (k < K && chain < C) wsl[(size_t)chain * (K + 1) + k] = G[m][c][e];
+      }
+    }
+}
+
 // One warp per chain: the S partials summed in slice order, then g', p',
 // the kinetic energy, ld' and pi'. q' is read back from qn (the slice
 // kernel wrote it). Dense: p' of the warp's chain is staged in shared
@@ -453,10 +760,25 @@ using FinishKernel = void (*)(const float*, const float*, const float*, const fl
                               const float*, const float*, float*, float*, float*, float*, int,
                               int, int, float);
 
-// The slice kernel for (K, TN): 128-coordinate chunks up to K = 128, 256
-// past it. nullptr for a TN without an instantiation.
+// The chunked slice kernel for (K, TN): 128-coordinate chunks up to K =
+// 128, 256 past it; the tiled one (TN = kTiledRows) for K up to 64
+// kTiledGroups, ceil(K / 64) float2 groups a thread (its CTA fits up to K =
+// 308: prepared_slice_kernel). nullptr for a TN or K without an
+// instantiation.
 template <int MODE>
-SliceKernel slice_kernel_for(int K, int TN) {
+SliceKernel slice_kernel_for(int K, int TN, bool tiled) {
+  if (tiled) {
+    if (TN != kTiledRows) return nullptr;
+    static_assert(kTiledGroups == 5, "one case per group count");
+    switch ((K + 63) / 64) {
+      case 1: return logreg_leaf_slice_kernel_tiled<MODE, 1>;
+      case 2: return logreg_leaf_slice_kernel_tiled<MODE, 2>;
+      case 3: return logreg_leaf_slice_kernel_tiled<MODE, 3>;
+      case 4: return logreg_leaf_slice_kernel_tiled<MODE, 4>;
+      case 5: return logreg_leaf_slice_kernel_tiled<MODE, 5>;
+      default: return nullptr;
+    }
+  }
   if (TN == 64) {
     return K <= 128 ? logreg_leaf_slice_kernel<MODE, 1, 64>
                     : logreg_leaf_slice_kernel<MODE, 2, 64>;
@@ -465,11 +787,11 @@ SliceKernel slice_kernel_for(int K, int TN) {
   return nullptr;
 }
 
-SliceKernel slice_kernel(int mode, int K, int TN) {
+SliceKernel slice_kernel(int mode, int K, int TN, bool tiled) {
   switch (mode) {
-    case kSharedDiag: return slice_kernel_for<kSharedDiag>(K, TN);
-    case kChainDiag: return slice_kernel_for<kChainDiag>(K, TN);
-    case kSharedDense: return slice_kernel_for<kSharedDense>(K, TN);
+    case kSharedDiag: return slice_kernel_for<kSharedDiag>(K, TN, tiled);
+    case kChainDiag: return slice_kernel_for<kChainDiag>(K, TN, tiled);
+    case kSharedDense: return slice_kernel_for<kSharedDense>(K, TN, tiled);
     default: return nullptr;
   }
 }
@@ -488,11 +810,11 @@ FinishKernel finish_kernel(int mode, int hier) {
   return hier ? finish_kernel_for<true>(mode) : finish_kernel_for<false>(mode);
 }
 
-// The slice kernel for (mode, K, TN) with its dynamic shared memory
+// The slice kernel for (mode, K, TN, tiled) with its dynamic shared memory
 // allowed; nullptr where there is none or it does not fit.
-SliceKernel prepared_slice_kernel(int mode, int K, int TN, size_t& smem) {
-  SliceKernel kern = slice_kernel(mode, K, TN);
-  smem = slice_smem_bytes(K, TN);
+SliceKernel prepared_slice_kernel(int mode, int K, int TN, bool tiled, size_t& smem) {
+  SliceKernel kern = K < 1 ? nullptr : slice_kernel(mode, K, TN, tiled);
+  smem = tiled ? tiled_smem_bytes(K) : slice_smem_bytes(K, TN);
   if (kern == nullptr || K < 1 || smem > kMaxSmem) return nullptr;
   if (smem > 48 * 1024 &&
       cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
@@ -506,13 +828,14 @@ SliceKernel prepared_slice_kernel(int mode, int K, int TN, size_t& smem) {
 
 extern "C" {
 
-// The slice kernel that (mode, K, tile) launches: its dynamic shared memory
-// (bytes), registers per thread and CTAs per SM at 256 threads
+// The slice kernel that (mode, K, tile, tiled) launches: its dynamic shared
+// memory (bytes), registers per thread and CTAs per SM at 256 threads
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a CUDA error
 // code (0 on success).
-int logreg_leaf_info(int mode, int K, int tile, int* smem, int* regs, int* blocks_per_sm) {
+int logreg_leaf_info(int mode, int K, int tile, int tiled, int* smem, int* regs,
+                     int* blocks_per_sm) {
   size_t bytes = 0;
-  SliceKernel kern = prepared_slice_kernel(mode, K, tile, bytes);
+  SliceKernel kern = prepared_slice_kernel(mode, K, tile, tiled != 0, bytes);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kern));
@@ -528,14 +851,16 @@ int logreg_leaf_info(int mode, int K, int tile, int* smem, int* regs, int* block
 // N(0, 1 / prior) prior, 1 the hierarchical one with rate `prior` (its t
 // the last coordinate, X's last column zero). X is (n_obs, KX)
 // row-major with KX = K rounded up to 4 and zero pad columns; y (n_obs).
-// ws: slices x C x (K + 1) floats of workspace. The observations' n_tiles
-// tiles of `tile` rows go to `slices` slices of tiles_per_slice tiles, none
-// empty. Returns the cudaGetLastError() of the launches (0 on success).
+// ws: slices x C x (K + 1) floats of workspace. tiled: 1 the tiled slice
+// kernel (tile = kTiledRows, K up to 308), 0 the chunked one.
+// The observations' n_tiles tiles of `tile` rows go to `slices` slices of
+// tiles_per_slice tiles, none empty. Returns the cudaGetLastError() of the
+// launches (0 on success).
 int logreg_leaf_f32(const float* q, const float* p, const float* g, const float* eps,
                     const float* minv, int mode, int hier, const float* X, const float* y,
                     float* qn, float* pn, float* gn, float* ldn, float* pin, float* ws, int C,
-                    int K, int n_obs, int tile, int slices, int tiles_per_slice, float prior,
-                    void* stream) {
+                    int K, int n_obs, int tile, int tiled, int slices, int tiles_per_slice,
+                    float prior, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C < 1 || K < 1 + hier || n_obs < 1 || slices < 1 || tiles_per_slice < 1)
     return (int)cudaErrorInvalidValue;
@@ -544,11 +869,12 @@ int logreg_leaf_f32(const float* q, const float* p, const float* g, const float*
       (long long)(slices - 1) * tiles_per_slice >= n_tiles)
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  SliceKernel slice = prepared_slice_kernel(mode, K, tile, smem);
+  SliceKernel slice = prepared_slice_kernel(mode, K, tile, tiled != 0, smem);
   FinishKernel finish = finish_kernel(mode, hier);
   if (slice == nullptr || finish == nullptr) return (int)cudaErrorInvalidValue;
   const int chunk = K <= 128 ? 128 : 256;
-  const dim3 grid((C + kChains - 1) / kChains, slices, (K + chunk - 1) / chunk);
+  const dim3 grid = tiled ? dim3((C + kTiledChains - 1) / kTiledChains, slices, 1)
+                          : dim3((C + kChains - 1) / kChains, slices, (K + chunk - 1) / chunk);
   slice<<<grid, kThreads, smem, s>>>(q, p, g, eps, minv, X, y, qn, ws, C, K, n_obs,
                                      tiles_per_slice);
   cudaError_t err = cudaGetLastError();

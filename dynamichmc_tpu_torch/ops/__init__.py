@@ -21,7 +21,7 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """The counts since :func:`reset_launch_counts`: each kernel's
     launches (the tree kernel's warp and staged-X variants apart, the
-    fused logreg leaf's hierarchical mode apart), the
+    fused logreg leaf's hierarchical mode and tiled slice kernel apart), the
     tree kernel's hook's declines by reason (``tree_transition_declined``:
     ``dtype``, ``statistic``, ``per_chain_metric``, ``shape``; the plain
     driver ran those transitions), the leaves the plain driver handed to a fused
@@ -40,6 +40,7 @@ def launch_counts() -> dict:
             "tree_transition_xstaged": tree_kernel.xstaged_launches,
             "logreg_fused_leaf": logreg_leaf.launches,
             "logreg_fused_leaf_hier": logreg_leaf.hier_launches,
+            "logreg_fused_leaf_tiled": logreg_leaf.tiled_launches,
             "gaussian_fused_leaf": gaussian_leaf.launches,
             "gaussian_leapfrog": gaussian_leapfrog.launches,
             "driver_fused_leaves": tree_batched.fused_leaf_calls,

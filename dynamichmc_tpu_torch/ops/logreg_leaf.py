@@ -5,15 +5,20 @@ The kernel (csrc/logreg_leaf.cu, CUDA C++ for sm_90a) replaces the Pallas
 kernel ``dynamichmc_tpu/ops/pallas_logreg.py::_make_kernel``: one whole
 leapfrog leaf of Bayesian logistic regression for every chain of the
 batch (both half-kicks, the drift, both products with X, the log density,
-its gradient and pi = ld - K(p')). A slice kernel, one CTA per block of 16
-chains, slice of the observations and chunk of the gradient, writes
-partial sums to a workspace; a finish kernel sums them in a fixed order.
-:func:`launch_plan` sizes the grid.
+its gradient and pi = ld - K(p')). A slice kernel writes partial sums to a
+workspace and a finish kernel sums them in a fixed order. The slice kernel
+has two variants, chosen by K alone (:func:`tiled`): up to TILED_MAX_K the
+tiled one, one CTA per block of 64 chains and slice of the observations,
+computes each logit once and the whole gradient from the same staging of
+each tile of X; past it the chunked one, one CTA per block of 16 chains,
+slice and 256-wide chunk of the gradient, recomputes the logits for each
+chunk. :func:`launch_plan` sizes the grid.
 
 :func:`logreg_leaf` is the wrapper. A tensor on the CPU goes to
 :func:`logreg_leaf_plain`, the same leaf in torch ops. A CUDA tensor
 launches the kernel or raises; nothing falls back. ``launches`` counts the
-wrapper's launches (one slice and one finish kernel each).
+wrapper's launches (one slice and one finish kernel each),
+``tiled_launches`` those that took the tiled slice kernel.
 :func:`logreg_leaf_hier` (plain version :func:`logreg_leaf_hier_plain`)
 is the same leaf under Hoffman and Gelman's hierarchical prior, the finish
 kernel's hierarchical mode; ``hier_launches`` counts its launches.
@@ -32,17 +37,20 @@ from ..profiling import count_in_phase
 from ..tree_batched import kinetic_b, psharp_b
 from .cuda_build import CudaLibrary
 
-CHAINS = 16  # chains per CTA of the slice kernel
+CHAINS = 16  # chains per CTA of the chunked slice kernel
 STAGES = 2  # stages of the ring of X tiles
 TILE_ROWS = (64, 16)  # rows of X per tile: the first whose CTA fits
 MAX_SMEM_BYTES = 232448  # H100: dynamic shared memory of one CTA
+TILED_CHAINS = 64  # chains per CTA of the tiled slice kernel
+TILED_ROWS = 32  # rows of X per tile of the tiled slice kernel
+TILED_GROUPS = 5  # float2 coordinate groups a tiled-kernel thread takes, at most
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 library = CudaLibrary("logreg_leaf", {
     "logreg_leaf_f32": (
-        [_vp] * 5 + [_ci] * 2 + [_vp] * 8 + [_ci] * 6 + [_cf, _vp], _ci,
+        [_vp] * 5 + [_ci] * 2 + [_vp] * 8 + [_ci] * 7 + [_cf, _vp], _ci,
     ),
-    "logreg_leaf_info": ([_ci] * 3 + [_vp] * 3, _ci),
+    "logreg_leaf_info": ([_ci] * 4 + [_vp] * 3, _ci),
 })
 
 
@@ -52,11 +60,25 @@ def _kx(K: int) -> int:
 
 
 def smem_bytes(K: int, tile: int) -> int:
-    """Dynamic shared memory of one slice-kernel CTA (slice_smem_bytes in
-    the CUDA source): the ring's STAGES tiles of X (rows of KX + 4 floats)
-    and their y, q' of 16 chains and the tile's residuals."""
+    """Dynamic shared memory of one chunked slice-kernel CTA
+    (slice_smem_bytes in the CUDA source): the ring's STAGES tiles of X
+    (rows of KX + 4 floats) and their y, q' of 16 chains and the tile's
+    residuals."""
     kx = _kx(K)
     return 4 * (STAGES * tile * (kx + 5) + CHAINS * kx + tile * CHAINS)
+
+
+def tiled_smem_bytes(K: int) -> int:
+    """Dynamic shared memory of one tiled slice-kernel CTA
+    (tiled_smem_bytes in the CUDA source): the ring's STAGES tiles of X and
+    q' of 64 chains, both in rows of KX floats, or KX + 4 where KX / 4 is
+    even (an odd number of float4s: conflict-free float4 loads), the
+    tiles' y and the eight warps' partial logits of a tile (8 x
+    TILED_ROWS x (64 + 8)), the first of which become its residuals."""
+    kx = _kx(K)
+    xs = kx if kx // 4 % 2 else kx + 4
+    return 4 * (STAGES * TILED_ROWS * (xs + 1) + TILED_CHAINS * xs
+                + 8 * TILED_ROWS * (TILED_CHAINS + 8))
 
 
 def tile_rows(K: int) -> int:
@@ -72,10 +94,23 @@ MAX_K = ((MAX_SMEM_BYTES - smem_bytes(0, _T))
          // ((smem_bytes(4, _T) - smem_bytes(0, _T)) // 4) // 4 * 4)
 
 
+# the widest K the tiled slice kernel takes: its threads' float2 groups
+# (32 threads over KX, TILED_GROUPS each: 320 coordinates) and its CTA's
+# shared memory (308 coordinates)
+TILED_MAX_K = max(K for K in range(1, 64 * TILED_GROUPS + 1)
+                  if tiled_smem_bytes(K) <= MAX_SMEM_BYTES)
+
+
+def tiled(K: int) -> bool:
+    """Whether a leaf of width K takes the tiled slice kernel (else the
+    chunked one): a pure function of K."""
+    return 1 <= K <= TILED_MAX_K
+
+
 def gradient_chunks(K: int) -> int:
-    """CTAs of the slice kernel over the gradient's coordinates, each of
-    which streams all of X: 128 coordinates each up to K = 128, 256 past
-    it."""
+    """CTAs of the chunked slice kernel over the gradient's coordinates,
+    each of which streams all of X: 128 coordinates each up to K = 128, 256
+    past it."""
     return -(-K // (128 if K <= 128 else 256))
 
 
@@ -99,40 +134,46 @@ def fused_leaf_pays(n_obs: int, dim: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The grid of one launch: ``tile`` rows of X per tile, ``smem`` bytes
-    of shared memory per slice CTA, ``chunks`` CTAs over the gradient's
-    coordinates (128 each up to K = 128, 256 past it), ``slices`` CTAs over
-    the observations with ``tiles_per_slice`` tiles each (the last may have
-    fewer, none is empty)."""
+    """The grid of one launch: ``tiled`` the slice kernel's variant,
+    ``tile`` rows of X per tile, ``smem`` bytes of shared memory per slice
+    CTA, ``chunks`` CTAs over the gradient's coordinates (the chunked
+    kernel's: 128 each up to K = 128, 256 past it; 1 for the tiled one),
+    ``slices`` CTAs over the observations with ``tiles_per_slice`` tiles
+    each (the last may have fewer, none is empty)."""
 
     tile: int
     smem: int
     chunks: int
     slices: int
     tiles_per_slice: int
+    tiled: bool
 
 
 def launch_plan(C: int, K: int, n_obs: int, sm_count: int,
                 blocks_per_sm: int) -> Plan:
     """The launch plan of (C, K, n_obs) on a card of ``sm_count`` SMs that
-    holds ``blocks_per_sm`` slice CTAs each (:func:`kernel_info`); raises
-    past MAX_K.
+    holds ``blocks_per_sm`` slice CTAs of the variant K takes
+    (:func:`tiled`, :func:`kernel_info`) each; raises past MAX_K.
 
     S, the slices: the grid takes as many CTAs as the card holds at once
     and no more (a second, partial wave would take as long as a full one),
     with at least two tiles per slice; one slice where the chain blocks and
     chunks fill the card by themselves."""
-    tile = tile_rows(K)
-    if not (C >= 1 and 1 <= K and tile and n_obs >= 1):
+    if not (C >= 1 and 1 <= K <= MAX_K and n_obs >= 1):
         raise ValueError(f"logreg leaf kernel: K = {K} outside 1..{MAX_K}, "
                          f"or no chains or observations")
-    chunks = gradient_chunks(K)
-    blocks = -(-C // CHAINS) * chunks
+    if tiled(K):
+        tile, smem, chunks, chains = (TILED_ROWS, tiled_smem_bytes(K), 1,
+                                      TILED_CHAINS)
+    else:
+        tile = tile_rows(K)
+        smem, chunks, chains = smem_bytes(K, tile), gradient_chunks(K), CHAINS
+    blocks = -(-C // chains) * chunks
     n_tiles = -(-n_obs // tile)
     slices = max(1, min(sm_count * blocks_per_sm // blocks, n_tiles // 2))
     per_slice = -(-n_tiles // slices)
-    return Plan(tile, smem_bytes(K, tile), chunks, -(-n_tiles // per_slice),
-                per_slice)
+    return Plan(tile, smem, chunks, -(-n_tiles // per_slice), per_slice,
+                tiled(K))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,15 +193,18 @@ _infos: dict = {}
 
 def kernel_info(device, mode: int, K: int) -> KernelInfo:
     """:class:`KernelInfo` of the slice kernel that (mode, K) launches on
-    ``device``, queried once per (device, mode, K). mode: 0 shared
-    diagonal, 1 per-chain diagonal, 2 shared dense."""
+    ``device`` (the tiled one where :func:`tiled`), queried once per
+    (device, mode, K). mode: 0 shared diagonal, 1 per-chain diagonal, 2
+    shared dense."""
     key = (device.index, mode, K)
     if key not in _infos:
         lib = library.load()
         smem, regs, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        tile = TILED_ROWS if tiled(K) else tile_rows(K)
         with torch.cuda.device(device):
-            err = lib.logreg_leaf_info(mode, K, tile_rows(K), ctypes.byref(smem),
-                                       ctypes.byref(regs), ctypes.byref(per_sm))
+            err = lib.logreg_leaf_info(mode, K, tile, int(tiled(K)),
+                                       ctypes.byref(smem), ctypes.byref(regs),
+                                       ctypes.byref(per_sm))
             sms = torch.cuda.get_device_properties(device).multi_processor_count
         if err != 0:
             raise RuntimeError(f"logreg leaf kernel: no kernel for mode {mode}, "
@@ -181,11 +225,12 @@ def pad_columns(x):
 
 launches = 0  # wrapper launches made by logreg_leaf and logreg_leaf_hier
 hier_launches = 0  # those of logreg_leaf_hier (the hierarchical prior)
+tiled_launches = 0  # those that took the tiled slice kernel
 
 
 def reset_launches() -> None:
-    global launches, hier_launches
-    launches = hier_launches = 0
+    global launches, hier_launches, tiled_launches
+    launches = hier_launches = tiled_launches = 0
 
 
 def softplus(x):
@@ -297,7 +342,7 @@ def logreg_leaf_hier(metric: Metric, q, p, g, eps_signed, x, y,
 def _launch(metric: Metric, q, p, g, eps_signed, x, y, prior: float,
             hier: bool):
     """The kernel's launch: checks, plan, outputs and workspace."""
-    global launches, hier_launches
+    global launches, hier_launches, tiled_launches
     if q.device.type != "cuda":
         raise ValueError(f"logreg leaf kernel: unsupported device {q.device}")
     C, K = q.shape
@@ -336,13 +381,14 @@ def _launch(metric: Metric, q, p, g, eps_signed, x, y, prior: float,
         q.data_ptr(), p.data_ptr(), g.data_ptr(), eps_signed.data_ptr(),
         minv.data_ptr(), mode, int(hier), x.data_ptr(), y.data_ptr(),
         qn.data_ptr(), pn.data_ptr(), gn.data_ptr(), ldn.data_ptr(),
-        pin.data_ptr(), ws.data_ptr(), C, K, n_obs, plan.tile, plan.slices,
-        plan.tiles_per_slice, prior, stream,
+        pin.data_ptr(), ws.data_ptr(), C, K, n_obs, plan.tile, int(plan.tiled),
+        plan.slices, plan.tiles_per_slice, prior, stream,
     )
     if err != 0:
         raise RuntimeError(f"logreg leaf kernel launch failed: CUDA error {err}")
     launches += 1
     hier_launches += hier
+    tiled_launches += plan.tiled
     return qn, pn, gn, ldn, pin
 
 

@@ -679,16 +679,24 @@ def _leaf_inputs(C, K, n_obs, kind, seed=0):
     # 1000 rows end in a partial tile, and the observations split into
     # several slices
     (64, 40, 1000),
+    # the tiled slice kernel: the hierarchical cell's width at 300 chains
+    # (not a multiple of its 64-chain blocks), 65 chains and 77 rows (not a
+    # multiple of its 32-row tiles), and the plan's boundary, the widest K
+    # it takes and the next, which the chunked kernel takes
+    (300, 302, 1000), (65, 33, 77),
+    (100, logreg_leaf.TILED_MAX_K, 1001), (100, logreg_leaf.TILED_MAX_K + 1, 1001),
 ])
 def test_cuda_fused_logreg_leaf_matches_plain(kind, C, K, n_obs):
     """The fused leaf against its plain version: every output within twice
     the plain float32 version's distance from float64, plus 1e-5
-    (1 + |x|); ld' and pi' within 1e-4 (1 + |x|) of the plain version."""
+    (1 + |x|); ld' and pi' within 1e-4 (1 + |x|) of the plain version. The
+    launch takes the tiled slice kernel exactly up to TILED_MAX_K."""
     args = _leaf_inputs(C, K, n_obs, kind)
     logreg_leaf.reset_launches()
     out = logreg_leaf.logreg_leaf(*args)
     torch.cuda.synchronize()
     assert logreg_leaf.launches == 1
+    assert logreg_leaf.tiled_launches == int(logreg_leaf.tiled(K))
     _check_fused_against_plain(out, args)
 
 
@@ -723,6 +731,8 @@ def test_cuda_fused_logreg_hook_at_and_past_max_k(K, kind):
 @pytest.mark.parametrize("C,K,n_obs,kind", [
     (2048, 128, 4000, "shared_diag"), (64, 40, 1000, "chain_diag"),
     (16, 1024, 100, "shared_dense"),
+    # the tiled slice kernel at the hierarchical cell's width
+    (300, 302, 1000, "shared_dense"), (300, 302, 1000, "chain_diag"),
 ])
 def test_cuda_fused_logreg_leaf_is_deterministic(C, K, n_obs, kind):
     """Two launches on the same inputs give bitwise the same outputs: the
@@ -739,16 +749,32 @@ def test_cuda_fused_logreg_leaf_is_deterministic(C, K, n_obs, kind):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_cuda_fused_logreg_plan_matches_the_source(mode):
     """The CUDA runtime's view of each slice kernel: its shared memory is
-    the plan's (the CUDA source and ops/logreg_leaf.py agree), and at
-    least one CTA fits on an SM."""
+    the plan's (the CUDA source and ops/logreg_leaf.py agree) for the tiled
+    kernel up to TILED_MAX_K and the chunked one past it, and at least one
+    CTA fits on an SM; ptxas reports no spill in any instantiation of the
+    tiled kernel."""
     dev = _device()
-    for K in (7, 128, 300, 1024, logreg_leaf.MAX_K):
+    for K in (7, 128, 300, 302, logreg_leaf.TILED_MAX_K,
+              logreg_leaf.TILED_MAX_K + 1, 1024, logreg_leaf.MAX_K):
         info = logreg_leaf.kernel_info(dev, mode, K)
-        tile = logreg_leaf.tile_rows(K)
-        assert info.smem == logreg_leaf.smem_bytes(K, tile), K
+        plan = logreg_leaf.launch_plan(16384, K, 1000, info.sm_count,
+                                       info.blocks_per_sm)
+        assert plan.tiled == (K <= logreg_leaf.TILED_MAX_K), K
+        assert info.smem == plan.smem, K
         assert info.blocks_per_sm >= 1 and info.registers > 0, K
         assert info.sm_count == torch.cuda.get_device_properties(
             dev).multi_processor_count
+    spills, name = {}, None
+    for line in logreg_leaf.library.build_log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "spill stores" in line:
+            if "logreg_leaf_slice_kernel_tiled" in name:
+                spills[name] = line.strip()
+            name = None
+    assert len(spills) == 3 * logreg_leaf.TILED_GROUPS, spills
+    assert all("0 bytes spill stores, 0 bytes spill loads" in v
+               for v in spills.values()), spills
 
 
 def _check_fused_against_plain(out, args, plain=logreg_leaf.logreg_leaf_plain):
@@ -812,9 +838,11 @@ def _hier_inputs(C, n_cov, n_obs, kind, seed=0):
     return metric, q, p, g.contiguous(), eps, x32, y32, 0.01
 
 
-# the cell's shape (16,384 chains, 1000 rows, K = 302: two gradient
-# chunks) and one at K <= 128 (one chunk): 2048 chains, 300 rows, K = 57
-HIER_SHAPES = [(16384, 24, 1000), (2048, 10, 300)]
+# the cell's shape (16,384 chains, 1000 rows, K = 302), one at K <= 128:
+# 2048 chains, 300 rows, K = 57, and the cell's width at 300 chains (not a
+# multiple of the tiled kernel's 64-chain blocks; 1000 rows are no multiple
+# of its 32-row tiles); all take the tiled slice kernel
+HIER_SHAPES = [(16384, 24, 1000), (2048, 10, 300), (300, 24, 1000)]
 
 
 @pytest.mark.gpu
@@ -834,6 +862,7 @@ def test_cuda_fused_logreg_hier_leaf_matches_float64(kind, C, n_cov, n_obs):
     out = logreg_leaf.logreg_leaf_hier(*args)
     torch.cuda.synchronize()
     assert logreg_leaf.launches == logreg_leaf.hier_launches == 1
+    assert logreg_leaf.tiled_launches == int(logreg_leaf.tiled(args[1].shape[1]))
     _check_fused_against_plain(out, args, logreg_leaf.logreg_leaf_hier_plain)
     plain = logreg_leaf.logreg_leaf_hier_plain
     m = args[0]
@@ -906,6 +935,7 @@ def test_cuda_hier_logreg_runs_k3_on_every_leaf_of_run_chains():
     assert counts["tree_transition"] == 0
     assert counts["logreg_fused_leaf_hier"] == counts[
         "logreg_fused_leaf"] == counts["driver_fused_leaves"] > 0
+    assert counts["logreg_fused_leaf_tiled"] == counts["logreg_fused_leaf"]
     assert bool(torch.isfinite(res.positions).all())
 
 

@@ -236,7 +236,8 @@ def test_fused_leaf_declines_to_plain_leaf_in_float64():
                                                     (78, 3)])
 def test_fused_leaf_launch_plan(sm_count, blocks_per_sm):
     """Every K from 1 to MAX_K gets a plan whose slice CTA fits the card's
-    227 KB of shared memory, with the largest tile that fits; past MAX_K
+    227 KB of shared memory: the tiled slice kernel's up to TILED_MAX_K,
+    past it the chunked one's with the largest tile that fits; past MAX_K
     there is none. The observations' tiles go to S slices, none empty, of
     at least two tiles when S > 1, and the grid never outgrows what the
     card holds at once; S = 1 where the chain blocks and chunks fill the
@@ -246,6 +247,11 @@ def test_fused_leaf_launch_plan(sm_count, blocks_per_sm):
     assert lp.MAX_K >= 1024  # the tree kernel's widest K
     for K in range(1, lp.MAX_K + 1):
         plan = lp.launch_plan(64, K, 1000, sm_count, blocks_per_sm)
+        assert plan.tiled == (K <= lp.TILED_MAX_K)
+        if plan.tiled:
+            assert plan.smem == lp.tiled_smem_bytes(K) <= limit
+            assert plan.tile == lp.TILED_ROWS
+            continue
         assert plan.smem == lp.smem_bytes(K, plan.tile) <= limit
         assert plan.tile == max(t for t in lp.TILE_ROWS
                                 if lp.smem_bytes(K, t) <= limit)
@@ -254,22 +260,105 @@ def test_fused_leaf_launch_plan(sm_count, blocks_per_sm):
     holds = sm_count * blocks_per_sm
     for C, K, n_obs in [(2048, 128, 4000), (37, 300, 53), (16, 1024, 100),
                         (64, 40, 1000), (4096, 7, 100000), (1, 1, 1),
-                        (300, 1100, 7000)]:
+                        (300, 1100, 7000), (16384, 302, 1000),
+                        (2048, 400, 4000), (128, 400, 4000), (64, 40, 100),
+                        (64, 40, 32)]:
         plan = lp.launch_plan(C, K, n_obs, sm_count, blocks_per_sm)
         n_tiles = -(-n_obs // plan.tile)
         assert ((plan.slices - 1) * plan.tiles_per_slice < n_tiles
                 <= plan.slices * plan.tiles_per_slice)
-        blocks = -(-C // lp.CHAINS) * plan.chunks
-        assert plan.chunks == -(-K // (128 if K <= 128 else 256))
+        chains = lp.TILED_CHAINS if plan.tiled else lp.CHAINS
+        blocks = -(-C // chains) * plan.chunks
+        assert plan.chunks == (1 if plan.tiled else
+                               -(-K // (128 if K <= 128 else 256)))
         if blocks >= holds:
             assert plan.slices == 1, (C, K, n_obs)
         elif plan.slices > 1:
             assert plan.tiles_per_slice >= 2
             assert blocks * plan.slices <= holds
-    # the path's shape on the H100: 128 chain blocks, two CTAs per SM
-    if (sm_count, blocks_per_sm) == (132, 2):
-        plan = lp.launch_plan(2048, 128, 4000, sm_count, blocks_per_sm)
-        assert (plan.slices, plan.tiles_per_slice) == (2, 32)
+
+
+def test_fused_leaf_tiled_kernel_covers_the_hierarchical_cell():
+    """The tiled slice kernel up to TILED_MAX_K, the widest K whose CTA
+    fits in 227 KB, which covers the hierarchical cell's K = 302; MAX_K
+    stays where the chunked kernel put it."""
+    assert logreg_leaf.MAX_K == 1200
+    assert logreg_leaf.TILED_MAX_K == 308
+    tiled = logreg_leaf.tiled
+    assert tiled(302) and tiled(308) and not tiled(309)
+    assert not tiled(0) and not tiled(logreg_leaf.MAX_K + 1)
+
+
+@pytest.mark.parametrize("K", [0, 2048])
+def test_fused_leaf_no_plan_outside_what_a_kernel_takes(K):
+    with pytest.raises(ValueError, match=f"K = {K}"):
+        logreg_leaf.launch_plan(16, K, 100, 132, 1)
+
+
+@pytest.mark.parametrize("C,K,n_obs,blocks_per_sm,want", [
+    # the hierarchical cell: 256 tiled chain blocks fill the card alone
+    (16384, 302, 1000, 1, (True, 1, 32)),
+    # 2048 x 128 x 4000 (chip_smoke's logreg_fused): 32 chain blocks, so
+    # 8 slices at 2 CTAs an SM and 4 at one
+    (2048, 128, 4000, 2, (True, 8, 16)),
+    (2048, 128, 4000, 1, (True, 4, 32)),
+    # few rows: at least two tiles a slice
+    (64, 40, 100, 2, (True, 2, 2)),
+    (64, 40, 32, 2, (True, 1, 1)),
+    # past TILED_MAX_K: 16-chain blocks times the gradient's chunks (16-row
+    # tiles past K = 392)
+    (2048, 400, 4000, 1, (False, 1, 250)),
+    (128, 400, 4000, 1, (False, 8, 32)),
+    (16, 1024, 100, 1, (False, 3, 3)),
+])
+def test_fused_leaf_launch_plan_on_the_h100(C, K, n_obs, blocks_per_sm, want):
+    """(variant, slices, tiles a slice) on the H100's 132 SMs at the
+    occupancy given; the rules they follow are test_fused_leaf_launch_plan's."""
+    plan = logreg_leaf.launch_plan(C, K, n_obs, 132, blocks_per_sm)
+    assert (plan.tiled, plan.slices, plan.tiles_per_slice) == want
+
+
+@pytest.mark.parametrize("K", [1, 3, 4, 7, 8, 124, 128, 300, 302, 304, 308])
+def test_fused_leaf_tiled_smem(K):
+    """The tiled kernel's row stride (X's tiles and q'): K rounded up to 4,
+    or 4 more where that is an even number of float4s (conflict-free float4
+    loads); its shared memory the ring, y, q' of 64 chains and eight warps'
+    partial logits."""
+    kx = (K + 3) // 4 * 4
+    stride = kx if kx // 4 % 2 else kx + 4
+    assert stride // 4 % 2 == 1 and stride - kx in (0, 4)
+    rows, chains = logreg_leaf.TILED_ROWS, logreg_leaf.TILED_CHAINS
+    assert logreg_leaf.tiled_smem_bytes(K) == 4 * (
+        2 * rows * (stride + 1) + chains * stride + 8 * rows * (chains + 8))
+
+
+def test_fused_leaf_tiled_launches_are_counted():
+    """``logreg_fused_leaf_tiled`` in ``ops.launch_counts()``, reset with
+    the others; on CPU tensors the wrapper takes the plain version and
+    launches neither slice kernel."""
+    from dynamichmc_tpu_torch.metric import diagonal_metric
+    from dynamichmc_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    counts = launch_counts()
+    assert counts["logreg_fused_leaf_tiled"] == counts["logreg_fused_leaf"] == 0
+    logreg_leaf.launches, logreg_leaf.tiled_launches = 3, 2
+    try:
+        counts = launch_counts()
+        assert (counts["logreg_fused_leaf"],
+                counts["logreg_fused_leaf_tiled"]) == (3, 2)
+    finally:
+        reset_launch_counts()
+    C, K, n = 5, 9, 40
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((n, K), generator=gen)
+    y = (torch.rand(n, generator=gen) < 0.5).float()
+    q, p, g = (torch.randn((C, K), generator=gen) for _ in range(3))
+    out = logreg_leaf.logreg_leaf(diagonal_metric(torch.ones(K)), q, p, g,
+                                  torch.full((C,), 0.1), x, y, 0.01)
+    assert all(torch.isfinite(o).all() for o in out)
+    counts = launch_counts()
+    assert counts["logreg_fused_leaf"] == counts["logreg_fused_leaf_tiled"] == 0
 
 
 # --- the plain driver with a fused-leaf hook --------------------------------

@@ -88,6 +88,19 @@ def test_rule_reproduces_the_sweep(dim, n_obs):
         k3_plain, k1_plain, k1_k3)
 
 
+@pytest.mark.parametrize("dim", [1, 25, 128, 129, 256, 257, 302, 308, 309, 512,
+                                 1024, logreg_leaf.MAX_K])
+def test_the_rule_counts_the_reads_of_x(dim):
+    """fused_leaf_pays: X's elements read a leaf by the chunked slice
+    kernel (n_obs x dim x its gradient chunks, one up to dim 128, 256-wide
+    past it) against FUSED_MAX_X_READS, whichever slice kernel the shape
+    takes."""
+    chunks = 1 if dim <= 128 else -(-dim // 256)
+    for n_obs in (1, 100, 1000, 4000, 8000, 16000, 32000):
+        assert fused_leaf_pays(n_obs, dim) == (n_obs * dim * chunks <= 4_096_000)
+    assert fused_leaf_pays(1000, 302) and not fused_leaf_pays(8000, 302)
+
+
 def test_nothing_attaches_past_what_a_kernel_takes():
     for dim in list(range(1, 40)) + [127, 128, 129, 1023, 1024, 1025,
                                      logreg_leaf.MAX_K, logreg_leaf.MAX_K + 1,
